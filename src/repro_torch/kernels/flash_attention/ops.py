@@ -1,0 +1,80 @@
+"""Flash-attention op: a CUDA tensor goes to the hand-written kernel
+(`csrc/flash_attention.cu`), a CPU tensor to the plain version (`ref.py`).
+
+Layout q (B,S,H,hd), k/v (B,T,Kh,hd); GQA maps q head h to kv head
+h // (H // Kh) inside the kernel, and keys are masked on the true length T,
+so no repeat, transpose or padding copy is made.  There is no fallback: a
+CUDA input the kernel does not take, a failed build or a failed launch
+raises.  `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ref
+
+launches = 0
+
+HEAD_DIMS = (16, 64, 128)
+_CODES = {torch.float32: build.F32, torch.bfloat16: build.BF16}
+
+
+def flash_attention(q, k, v, causal=True, window=None, softcap=None,
+                    q_scale=None):
+    """q: (B,S,H,hd); k/v: (B,T,Kh,hd), H % Kh == 0. Returns (B,S,H,hd)."""
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, q_scale=q_scale)
+    return flash_attention_cuda(q, k, v, causal, window, softcap, q_scale)
+
+
+@functools.cache
+def _kernel():
+    fn = build.library().cdll.flash_attention_fwd
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12
+                   + [i, i, ctypes.c_float, ctypes.c_float, i, p])
+    fn.restype = i
+    return fn
+
+
+def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale):
+    global launches
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError("flash kernel: q, k, v must be on one CUDA device")
+    if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel: dtypes {q.dtype}/{k.dtype}/{v.dtype};"
+                        " all must be float32 or all bfloat16")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash kernel: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    T, Kh = k.shape[1], k.shape[2]
+    if (k.shape[0] != B or k.shape[3] != hd or H % Kh or hd not in HEAD_DIMS
+            or S == 0 or T == 0):
+        raise ValueError(f"flash kernel: q {tuple(q.shape)} / kv "
+                         f"{tuple(k.shape)}: need equal batch and hd, "
+                         f"H % Kh == 0, hd in {HEAD_DIMS}, S, T > 0")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash kernel: head_dim must have unit stride")
+    if window is not None and window < 1:
+        raise ValueError(f"flash kernel: window {window} must be >= 1")
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"flash kernel: softcap {softcap} must be > 0")
+    scale = q_scale if q_scale is not None else 1.0 / math.sqrt(hd)
+    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    rc = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, S, T, H, Kh, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        int(causal), int(window or 0), float(softcap or 0.0), float(scale),
+        _CODES[q.dtype], build.stream_ptr(q.device))
+    build.check(rc, "flash_attention_fwd")
+    launches += 1
+    return o

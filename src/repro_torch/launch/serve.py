@@ -1,0 +1,127 @@
+"""Serving launcher CLI: prefill a synthetic batch, greedy-decode N tokens.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+      --dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+Mirrors `repro.launch.serve` at world size 1: seeded weights, prompts of
+random tokens padded with token 3 up to T = prompt_len + gen (so the first
+greedy token comes from the logits of position T-1, a pad, as in the
+reference), one untimed warm-up call of each step, then timed windows that
+end in a device synchronize.  The first call on the card also builds the
+kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.dist import resolve_device, single_device_config
+from repro_torch.models.common import ShapeConfig
+from repro_torch.models.registry import get_arch
+from repro_torch.train import serve as SV
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def setup(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
+          device="cuda", dtype="float32", seed: int = 0):
+    """(cfg, model, dcfg, params, prefill, decode) of one serving run."""
+    dev = resolve_device(device)
+    dcfg = single_device_config(param_dtype=DTYPES[dtype])
+    cfg, model = get_arch(arch, smoke=smoke)
+    T = prompt_len + gen
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    params = SV.init_serve_params(model, dcfg, generator, dev)
+    prefill = SV.make_prefill_step(model, dcfg,
+                                   ShapeConfig("p", T, batch, "prefill"))
+    decode = SV.make_decode_step(model, dcfg,
+                                 ShapeConfig("d", T, batch, "decode"))
+    return cfg, model, dcfg, params, prefill, decode
+
+
+def make_prompts(cfg, batch: int, prompt_len: int, gen: int, device,
+                 seed: int = 1):
+    """(B, prompt_len + gen) int64: random prompts padded with token 3."""
+    g = torch.Generator().manual_seed(seed)
+    prompts = torch.randint(3, cfg.vocab, (batch, prompt_len), generator=g)
+    return F.pad(prompts, (0, gen), value=3).to(device)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(params, prefill, decode, padded, prompt_len: int, gen: int):
+    """Warm-up, then timed prefill and greedy decode.
+
+    Returns (tokens (B, gen), timings) with timings in seconds:
+    prefill_warmup_s, decode_warmup_s, prefill_s, decode_step_s (the mean
+    of gen - 2 steady steps) and decode_tok_s (tokens per second)."""
+    dev = padded.device
+    B = padded.shape[0]
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": padded})
+    _sync(dev)
+    t_pf_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": padded})
+    _sync(dev)
+    t_pf = time.perf_counter() - t0
+
+    tok = logits.argmax(-1)
+    outs = [tok]
+    pos = torch.full((B,), prompt_len, dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    logits, cache = decode(params, cache, tok, pos)
+    _sync(dev)
+    t_dec_warm = time.perf_counter() - t0
+    tok = logits.argmax(-1)
+    outs.append(tok)
+    t0 = time.perf_counter()
+    for i in range(1, gen - 1):
+        logits, cache = decode(params, cache, tok, pos + i)
+        tok = logits.argmax(-1)
+        outs.append(tok)
+    _sync(dev)
+    t_dec = time.perf_counter() - t0
+    n_steady = max(1, gen - 2)
+    return torch.stack(outs, 1), dict(
+        prefill_warmup_s=t_pf_warm, decode_warmup_s=t_dec_warm,
+        prefill_s=t_pf, decode_step_s=t_dec / n_steady,
+        decode_tok_s=B * n_steady / max(1e-9, t_dec))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3_1_7b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    args = ap.parse_args(argv)
+
+    cfg, model, dcfg, params, prefill, decode = setup(
+        args.arch, args.smoke, args.batch, args.prompt_len, args.gen,
+        device=args.device, dtype=args.dtype)
+    padded = make_prompts(cfg, args.batch, args.prompt_len, args.gen,
+                          resolve_device(args.device))
+    tokens, t = generate(params, prefill, decode, padded, args.prompt_len,
+                         args.gen)
+    print("generated:", tokens.cpu().numpy())
+    print(f"warm-up: prefill {t['prefill_warmup_s']*1e3:.1f}ms, "
+          f"first-decode {t['decode_warmup_s']*1e3:.1f}ms")
+    print(f"steady:  prefill {t['prefill_s']*1e3:.1f}ms; "
+          f"decode {t['decode_step_s']*1e3:.1f}ms/tok; "
+          f"tp={dcfg.tp_size} dtype={args.dtype} device={args.device}")
+
+
+if __name__ == "__main__":
+    main()

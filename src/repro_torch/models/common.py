@@ -1,0 +1,96 @@
+"""Architecture config schema (dense-family subset of `repro.models.common`).
+
+`ArchConfig` keeps the reference's field names, defaults and derived head
+layout (`gqa_layout`) so that parameter shapes line up exactly with the
+reference's on every arch, padded or not.  `ShapeConfig` describes one
+(seq_len, global_batch, kind) cell.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # 'train' | 'prefill' | 'decode'
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str               # only 'dense' is ported
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+
+    # dense variants ---------------------------------------------------------
+    qk_norm: bool = False                 # qwen3
+    attn_softcap: float | None = None     # gemma2: 50.0
+    final_softcap: float | None = None    # gemma2: 30.0
+    sliding_window: int | None = None     # gemma2 local layers: 4096
+    local_global_alternate: bool = False  # gemma2
+    post_norms: bool = False              # gemma2 sandwich norms
+    gated_mlp: str = "swiglu"             # swiglu | geglu | gelu
+    tie_embeddings: bool = False
+
+    # head counts pad to a multiple of this (>= any runtime tp that divides
+    # it), keeping GLOBAL param shapes mesh-independent.
+    pad_to: int = 16
+
+    # ------------------------------------------------------------- derived --
+    def gqa_layout(self, tp: int) -> dict:
+        """TP attention layout, mesh-independent for every tp dividing
+        max(pad_to, tp).
+
+        'sharded':  kv heads split over the TP axis (no padding needed).
+        'grouped':  kv TP-replicated; q heads padded so each rank's q heads
+                    map to a CONTIGUOUS slice of kv heads.
+
+        Returns {mode, hq (padded q heads), kvp (padded kv heads),
+                 g (padded group size), g_real (logical group size)}.
+        """
+        m = max(self.pad_to, tp)
+        if m % tp:
+            raise ValueError(f"pad_to {self.pad_to} incompatible with tp={tp}")
+        g_real = -(-self.n_heads // self.n_kv_heads)
+        if (self.n_kv_heads % m == 0 and self.n_heads % m == 0
+                and self.n_heads % self.n_kv_heads == 0):
+            return dict(mode="sharded", hq=self.n_heads,
+                        kvp=self.n_kv_heads, g=g_real, g_real=g_real)
+        if self.n_kv_heads >= m:
+            kvp = -(-self.n_kv_heads // m) * m
+            g = g_real
+        else:
+            kvp = next(d for d in range(self.n_kv_heads, m + 1)
+                       if m % d == 0)
+            step = m // kvp
+            g = -(-g_real // step) * step
+        return dict(mode="grouped", hq=kvp * g, kvp=kvp, g=g, g_real=g_real)
+
+    def q_heads_padded(self, tp: int) -> int:
+        return self.gqa_layout(tp)["hq"]
+
+    def params_dense_block(self) -> int:
+        """Per-layer parameter count (logical, unpadded)."""
+        d, f = self.d_model, self.d_ff
+        attn = d * self.n_heads * self.head_dim * 2 \
+            + d * self.n_kv_heads * self.head_dim * 2
+        mlp = 3 * d * f if self.gated_mlp in ("swiglu", "geglu") else 2 * d * f
+        return attn + mlp + 2 * d
+
+    def n_params(self) -> int:
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"{self.family}: only the dense family is ported")
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return emb + self.n_layers * self.params_dense_block()

@@ -1,0 +1,215 @@
+"""Dense decoder-only LM, serving half (port of `repro.models.dense`).
+
+Runs llama3-style blocks (RoPE, SwiGLU, GQA) with the qwen3 variants
+(qk-norm, tied embeddings) and the attention flags the kernels take
+(logit softcaps, a sliding window on every layer).  gemma2's local/global
+pairs and sandwich norms, and the gelu/geglu MLPs, are not ported yet.
+
+Parameters are plain dicts with the reference's tree and layouts; the
+block leaves are stacked on a leading (n_steps, ...) axis.  Two entry
+points, both at world size 1:
+  prefill_local — embed a (B, T) batch, run every block, write the KV cache,
+                  return the last-position logits;
+  decode_local  — one token per row at per-row positions against the cache.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.dist import DistConfig
+from repro_torch.core.meta import tree_map
+from repro_torch.models import layers as LY
+from repro_torch.models.common import ArchConfig
+
+_UNPORTED = ("local_global_alternate", "post_norms")
+
+
+class DenseLM:
+    def __init__(self, cfg: ArchConfig):
+        unported = [f for f in _UNPORTED if getattr(cfg, f)]
+        if cfg.family != "dense" or cfg.gated_mlp != "swiglu" or unported:
+            raise NotImplementedError(
+                f"{cfg.name}: family={cfg.family} gated_mlp={cfg.gated_mlp} "
+                f"{unported} are not ported to repro_torch yet")
+        self.cfg = cfg
+        self.n_steps = cfg.n_layers
+
+    # ------------------------------------------------------------- metas --
+    def block_metas(self, dcfg: DistConfig) -> dict:
+        cfg, dt = self.cfg, dcfg.param_dtype
+        return {
+            "ln1": LY.norm_meta("ln1", cfg.d_model, dt),
+            "attn": LY.attn_metas(cfg, dcfg, dt, prefix="attn."),
+            "ln2": LY.norm_meta("ln2", cfg.d_model, dt),
+            "mlp": LY.mlp_metas(cfg, dcfg, dt, prefix="mlp."),
+        }
+
+    def metas(self, dcfg: DistConfig) -> dict:
+        cfg, dt = self.cfg, dcfg.param_dtype
+        m = {
+            "embed": LY.embed_meta("embed", cfg, dt),
+            "blocks": self.block_metas(dcfg),
+            "final_norm": LY.norm_meta("final_norm", cfg.d_model, dt),
+        }
+        if not cfg.tie_embeddings:
+            m["head"] = LY.head_meta("head", cfg, dt)
+        return m
+
+    @property
+    def stacked_keys(self) -> dict:
+        """Top-level param groups carrying a leading layer-stack dim."""
+        return {"blocks": self.n_steps}
+
+    # -------------------------------------------------------------- init --
+    def init_block_full(self, generator, dcfg, device, dtype) -> dict:
+        cfg = self.cfg
+        return {
+            "ln1": LY.norm_init(cfg.d_model, device, dtype),
+            "attn": LY.attn_init(generator, cfg, dcfg, device, dtype),
+            "ln2": LY.norm_init(cfg.d_model, device, dtype),
+            "mlp": LY.mlp_init(generator, cfg, device, dtype),
+        }
+
+    def init_full(self, generator: torch.Generator, dcfg: DistConfig,
+                  device, dtype: torch.dtype) -> dict:
+        """Full params with the reference's distributions, made on `device`
+        in `dtype` one layer at a time (a full-width model never exists in
+        fp32 or on the host)."""
+        cfg = self.cfg
+        blocks = tree_map(
+            lambda m: torch.empty((self.n_steps, *m.global_shape),
+                                  device=device, dtype=dtype),
+            self.block_metas(dcfg))
+        for i in range(self.n_steps):
+            tree_map(lambda dst, src: dst[i].copy_(src), blocks,
+                     self.init_block_full(generator, dcfg, device, dtype))
+        p = {
+            "embed": LY.embed_init(generator, cfg, device, dtype),
+            "blocks": blocks,
+            "final_norm": LY.norm_init(cfg.d_model, device, dtype),
+        }
+        if not cfg.tie_embeddings:
+            p["head"] = LY.head_init(generator, cfg, device, dtype)
+        return p
+
+    # ------------------------------------------------------------- block --
+    @property
+    def _q_scale(self):
+        return 1.0 / math.sqrt(self.cfg.head_dim)
+
+    def _logits(self, params, x):
+        """x: (B, S, D) -> fp32 logits (B, S, V) (the product runs in the
+        weights' dtype and is then widened)."""
+        w = params["embed"].t() if self.cfg.tie_embeddings else params["head"]
+        return LY._softcap(torch.matmul(x, w).float(), self.cfg.final_softcap)
+
+    # ------------------------------------------------------------- serve --
+    def _serve_sub(self, p, rope, x, dcfg):
+        """Prefill block: returns the block output and this layer's (k, v)."""
+        cfg = self.cfg
+        h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v, head_mask = LY._local_qkv(p["attn"], h, cfg, dcfg)
+        if cfg.qk_norm:
+            q = LY.rmsnorm(q, p["attn"]["q_norm"], cfg.norm_eps)
+            k = LY.rmsnorm(k, p["attn"]["k_norm"], cfg.norm_eps)
+        cos, sin = rope
+        q = LY.apply_rope(q, cos, sin)
+        k = LY.apply_rope(k, cos, sin)
+        out = LY.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                           softcap=cfg.attn_softcap, q_scale=self._q_scale)
+        out = out * head_mask[None, None, :, None]
+        B, S, hl, hd = out.shape
+        x = x + torch.matmul(out.reshape(B, S, hl * hd), p["attn"]["wo"])
+        h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + LY.mlp_apply(p["mlp"], h, cfg, dcfg), (k, v)
+
+    def prefill_local(self, params, batch, dcfg: DistConfig, cache):
+        """params: full params, blocks stacked (n_steps, ...); batch:
+        {"tokens": (B, T) int64}; cache: (k, v) pair of (n_steps, B, T, Kl,
+        hd) buffers that this call fills.
+
+        Returns (last-position logits (B, V) fp32, cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        rope = LY.rope_cache(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
+                             tokens.device)
+        x = LY.embed_apply(params["embed"], tokens, cfg, dcfg)
+        ck, cv = cache
+        for i in range(self.n_steps):
+            p = tree_map(lambda a: a[i], params["blocks"])
+            x, (k, v) = self._serve_sub(p, rope, x, dcfg)
+            ck[i].copy_(k)
+            cv[i].copy_(v)
+        # norm is row-wise: normalising only the last position is exact
+        x = LY.rmsnorm(x[:, -1:].contiguous(), params["final_norm"],
+                       cfg.norm_eps)
+        return self._logits(params, x)[:, 0], cache
+
+    # decode -----------------------------------------------------------------
+    def _dense_writer(self, ck, cv, k, v, qpos):
+        """Commit new (B,C,Kl,hd) K/V into this layer's dense (B,T,Kl,hd)
+        cache views at per-request positions qpos (B,C).
+
+        The write is IN PLACE (`index_put_` into views of the stacked
+        cache), where the reference builds a new cache functionally and
+        relies on XLA to alias it."""
+        ib = torch.arange(k.shape[0], device=k.device)[:, None]
+        ck.index_put_((ib, qpos), k.to(ck.dtype))
+        cv.index_put_((ib, qpos), v.to(cv.dtype))
+
+    def _decode_sub(self, p, x, ck, cv, qpos, cos, sin, dcfg):
+        """x: (B,C,D); ck/cv: this layer's (B,T,Kl,hd) cache, updated in
+        place; qpos: (B,C) absolute positions per query token.  Attention is
+        plain torch: the reference's einsums, with fp32 scores."""
+        cfg = self.cfg
+        h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v, head_mask = LY._local_qkv(p["attn"], h, cfg, dcfg)
+        if cfg.qk_norm:
+            q = LY.rmsnorm(q, p["attn"]["q_norm"], cfg.norm_eps)
+            k = LY.rmsnorm(k, p["attn"]["k_norm"], cfg.norm_eps)
+        q = LY.apply_rope_pos(q, cos, sin)
+        k = LY.apply_rope_pos(k, cos, sin)
+        self._dense_writer(ck, cv, k, v, qpos)
+        B, C = qpos.shape
+        T, kl = ck.shape[1], ck.shape[2]
+        hl = q.shape[2]
+        qg = q.reshape(B, C, kl, hl // kl, cfg.head_dim)
+        s = torch.einsum("bqkgh,btkh->bkgqt", (qg * self._q_scale).float(),
+                         ck.float())
+        s = LY._softcap(s, cfg.attn_softcap)
+        tpos = torch.arange(T, device=x.device)
+        msk = tpos[None, None, :] <= qpos[:, :, None]
+        if cfg.sliding_window is not None:
+            msk &= tpos[None, None, :] > qpos[:, :, None] - cfg.sliding_window
+        s = s.masked_fill(~msk[:, None, None, :, :], -1e30)
+        pr = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqt,btkh->bqkgh", pr.to(cv.dtype), cv)
+        out = out.reshape(B, C, hl, cfg.head_dim)
+        out = out * head_mask[None, None, :, None]
+        x = x + torch.matmul(out.reshape(B, C, hl * cfg.head_dim),
+                             p["attn"]["wo"])
+        h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + LY.mlp_apply(p["mlp"], h, cfg, dcfg)
+
+    def _cached_forward(self, params, cache, toks, qpos, dcfg):
+        """Embed toks (B,C) at positions qpos (B,C), run the stack against
+        the cache (updated in place), return (last-position logits, cache)."""
+        cfg = self.cfg
+        cos, sin = LY.rope_pos(qpos, cfg.head_dim, cfg.rope_theta)
+        x = LY.embed_apply(params["embed"], toks, cfg, dcfg)
+        ck, cv = cache
+        for i in range(self.n_steps):
+            p = tree_map(lambda a: a[i], params["blocks"])
+            x = self._decode_sub(p, x, ck[i], cv[i], qpos, cos, sin, dcfg)
+        x = LY.rmsnorm(x[:, -1:].contiguous(), params["final_norm"],
+                       cfg.norm_eps)
+        return self._logits(params, x)[:, 0], cache
+
+    def decode_local(self, params, cache, tok, pos, dcfg: DistConfig):
+        """One decode step. tok: (B,) int64; pos: (B,) int64 PER-REQUEST
+        positions.  cache: (k, v) pair of (n_steps, B, T, Kl, hd)."""
+        return self._cached_forward(params, cache, tok[:, None],
+                                    pos[:, None], dcfg)

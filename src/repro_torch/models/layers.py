@@ -1,0 +1,231 @@
+"""Layer primitives of the serving path (port of `repro.models.layers`).
+
+Each unit comes as metas / init / apply over plain dicts of tensors, with
+the reference's parameter layouts: ``wq`` (d, hq*hd), ``wk``/``wv`` stored
+transposed as (kvp*hd, d), ``wo`` (hq*hd, d); the head layout (padded q and
+kv head counts, the head mask) comes from `ArchConfig.gqa_layout`.  The
+port serves at tp=1, so the reference's sequence-parallel gathers and
+scatters are identities and are left out.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.dist import DistConfig
+from repro_torch.core.meta import ParamMeta
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models.common import ArchConfig
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def rmsnorm(x, w, eps: float = 1e-5, unit_offset: bool = False):
+    return rms_ops.rmsnorm(x, w, eps=eps, unit_offset=unit_offset)
+
+
+def norm_meta(name: str, d: int, dtype) -> ParamMeta:
+    return ParamMeta(name, (d,), tp_dim=None, dtype=dtype)
+
+
+def norm_init(d: int, device, dtype, unit_offset: bool = False):
+    # gemma-style norms store (w - 1) when unit_offset
+    fill = torch.zeros if unit_offset else torch.ones
+    return fill((d,), device=device, dtype=dtype)
+
+
+def _normal(shape, std, generator, device, dtype):
+    return torch.empty(shape, device=device, dtype=dtype).normal_(
+        0.0, std, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotate-half convention, fp32 tables)
+# ---------------------------------------------------------------------------
+def _inv_freq(head_dim: int, theta: float, device):
+    exps = torch.arange(0, head_dim, 2, device=device,
+                        dtype=torch.float32) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_cache(seq_len: int, head_dim: int, theta: float, device,
+               positions=None):
+    """cos/sin tables (S, hd/2). `positions` overrides 0..S-1 (decode)."""
+    if positions is None:
+        positions = torch.arange(seq_len, device=device)
+    ang = positions[:, None].float() * _inv_freq(head_dim, theta, device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, hd); cos/sin: (S, hd/2)."""
+    return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def rope_pos(positions, head_dim: int, theta: float):
+    """cos/sin for an explicit per-request position grid.
+
+    positions: (B, S) int.  Returns (B, S, hd/2) tables for
+    `apply_rope_pos`."""
+    ang = positions[..., None].float() * _inv_freq(head_dim, theta,
+                                                   positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope_pos(x, cos, sin):
+    """x: (B, S, H, hd); cos/sin: (B, S, hd/2) from `rope_pos`."""
+    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def _rotate(x, c, s):
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+def _softcap(x, cap):
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+def attention(q, k, v, *, causal=True, window=None, softcap=None,
+              q_scale=None):
+    """Prefill attention: the flash kernel on the card, its plain version
+    on the CPU.  q: (B, S, H, hd); k/v: (B, T, Kh, hd)."""
+    return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, q_scale=q_scale)
+
+
+# ---------------------------------------------------------------------------
+# Embedding and LM head
+# ---------------------------------------------------------------------------
+def embed_meta(name: str, cfg: ArchConfig, dtype) -> ParamMeta:
+    return ParamMeta(name, (cfg.vocab, cfg.d_model), tp_dim=0, dtype=dtype)
+
+
+def embed_init(generator, cfg: ArchConfig, device, dtype):
+    return _normal((cfg.vocab, cfg.d_model), 0.02, generator, device, dtype)
+
+
+def embed_apply(table, ids, cfg: ArchConfig, dcfg: DistConfig):
+    """table: (V, D); ids: (B, S) -> (B, S, D) in param_dtype.  Ids outside
+    the vocab embed to zeros, as in the reference's vocab-parallel lookup."""
+    hit = (ids >= 0) & (ids < cfg.vocab)
+    x = F.embedding(ids.clamp(0, cfg.vocab - 1), table)
+    return torch.where(hit[..., None], x, 0).to(dcfg.param_dtype)
+
+
+def head_meta(name: str, cfg: ArchConfig, dtype) -> ParamMeta:
+    return ParamMeta(name, (cfg.d_model, cfg.vocab), tp_dim=1, dtype=dtype)
+
+
+def head_init(generator, cfg: ArchConfig, device, dtype):
+    return _normal((cfg.d_model, cfg.vocab),
+                   0.02 / math.sqrt(2 * cfg.n_layers), generator, device,
+                   dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention unit (one layer)
+# ---------------------------------------------------------------------------
+def attn_metas(cfg: ArchConfig, dcfg: DistConfig, dtype,
+               prefix: str = "") -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    lay = cfg.gqa_layout(dcfg.tp_size)
+    hq, kvp = lay["hq"], lay["kvp"]
+    kv_tp = 0 if lay["mode"] == "sharded" else None
+    metas = {
+        "wq": ParamMeta(prefix + "wq", (d, hq * hd), tp_dim=1, dtype=dtype),
+        "wk": ParamMeta(prefix + "wk", (kvp * hd, d),
+                        tp_dim=kv_tp, dtype=dtype),
+        "wv": ParamMeta(prefix + "wv", (kvp * hd, d),
+                        tp_dim=kv_tp, dtype=dtype),
+        "wo": ParamMeta(prefix + "wo", (hq * hd, d), tp_dim=0, dtype=dtype),
+    }
+    if cfg.qk_norm:
+        metas["q_norm"] = ParamMeta(prefix + "q_norm", (hd,), None, dtype)
+        metas["k_norm"] = ParamMeta(prefix + "k_norm", (hd,), None, dtype)
+    return metas
+
+
+def attn_init(generator, cfg: ArchConfig, dcfg: DistConfig, device,
+              dtype) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    lay = cfg.gqa_layout(dcfg.tp_size)
+    hq, kvp = lay["hq"], lay["kvp"]
+    sd = 0.02
+    p = {
+        "wq": _normal((d, hq * hd), sd, generator, device, dtype),
+        "wk": _normal((kvp * hd, d), sd, generator, device, dtype),
+        "wv": _normal((kvp * hd, d), sd, generator, device, dtype),
+        "wo": _normal((hq * hd, d), sd / math.sqrt(2 * cfg.n_layers),
+                      generator, device, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(hd, device, dtype)
+        p["k_norm"] = norm_init(hd, device, dtype)
+    return p
+
+
+def head_mask(cfg: ArchConfig, dcfg: DistConfig, device, dtype):
+    """(hq,) ones on real q heads, zeros on the padding heads of the
+    'grouped' layout (tp=1: every rank-local head is global)."""
+    lay = cfg.gqa_layout(dcfg.tp_size)
+    if lay["mode"] == "sharded":
+        return torch.ones((lay["hq"],), device=device, dtype=dtype)
+    gids = torch.arange(lay["hq"], device=device)
+    g = lay["g"]
+    return ((gids // g < cfg.n_kv_heads)
+            & (gids % g < lay["g_real"])).to(dtype)
+
+
+def _local_qkv(p, xg, cfg: ArchConfig, dcfg: DistConfig):
+    """Project to the q heads and the kv heads they read.
+
+    Returns q (B,S,hq,hd), k/v (B,S,kvp,hd), head_mask (hq,) zeroing padded
+    q heads.  At tp=1 a rank's kv slice is every kv head."""
+    B, S, _ = xg.shape
+    hd = cfg.head_dim
+    lay = cfg.gqa_layout(dcfg.tp_size)
+    q = torch.matmul(xg, p["wq"]).view(B, S, lay["hq"], hd)
+    k = torch.matmul(xg, p["wk"].t()).view(B, S, lay["kvp"], hd)
+    v = torch.matmul(xg, p["wv"].t()).view(B, S, lay["kvp"], hd)
+    return q, k, v, head_mask(cfg, dcfg, xg.device, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP unit
+# ---------------------------------------------------------------------------
+def mlp_metas(cfg: ArchConfig, dcfg: DistConfig, dtype,
+              prefix: str = "") -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wu": ParamMeta(prefix + "wu", (d, f), tp_dim=1, dtype=dtype),
+        "wd": ParamMeta(prefix + "wd", (f, d), tp_dim=0, dtype=dtype),
+        "wg": ParamMeta(prefix + "wg", (d, f), tp_dim=1, dtype=dtype),
+    }
+
+
+def mlp_init(generator, cfg: ArchConfig, device, dtype) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    sd = 0.02
+    return {
+        "wu": _normal((d, f), sd, generator, device, dtype),
+        "wd": _normal((f, d), sd / math.sqrt(2 * cfg.n_layers), generator,
+                      device, dtype),
+        "wg": _normal((d, f), sd, generator, device, dtype),
+    }
+
+
+def mlp_apply(p, x, cfg: ArchConfig, dcfg: DistConfig):
+    """SwiGLU: (silu(x wg) * (x wu)) wd."""
+    u = torch.matmul(x, p["wu"])
+    g = torch.matmul(x, p["wg"])
+    return torch.matmul(F.silu(g) * u, p["wd"])

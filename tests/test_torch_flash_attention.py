@@ -1,0 +1,106 @@
+"""Flash-attention parity: the port's `flash_attention` (a CPU tensor takes
+the plain version) against the reference.
+
+Where T is a multiple of 128 it is held against the reference's Pallas
+`flash_fwd` in interpret mode.  Elsewhere it is held against
+`repro.models.layers.attention_ref`, not the Pallas kernel: that kernel
+masks on the padded length (flash_attention/kernel.py:89), so its
+zero-padded keys enter a non-causal softmax.  The port masks on the true
+length.  Tolerances as in tests/test_kernels.py: TOL32 for fp32, TOL for
+bf16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as K, ops as jops
+from repro.models.layers import attention_ref
+
+from repro_torch.kernels.flash_attention import ops
+
+TOL = dict(rtol=2e-2, atol=2e-2)
+TOL32 = dict(rtol=2e-4, atol=2e-5)
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _port_bh(q, k, v, dtype, **kw):
+    """The port on the Pallas kernel's (BH, S, hd) layout: BH becomes the
+    head axis of one batch row."""
+    to = lambda a: torch.from_numpy(a.transpose(1, 0, 2)[None]).to(dtype)
+    out = ops.flash_attention(to(q), to(k), to(v), **kw)
+    return out[0].float().numpy().transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("S,hd", [(256, 64), (128, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_matches_pallas_kernel(S, hd, causal, dtype):
+    q, k, v = (_normal(i, 2, S, hd) for i in range(3))
+    jdt, tdt = DTYPES[dtype]
+    got = _port_bh(q, k, v, tdt, causal=causal)
+    want = K.flash_fwd(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                       causal=causal, interpret=True)
+    tol = TOL32 if dtype == "float32" else TOL
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("window,softcap", [(64, None), (None, 30.0),
+                                            (128, 50.0)])
+def test_flash_window_softcap_match_pallas_kernel(window, softcap):
+    q, k, v = (_normal(i, 1, 256, 64) for i in range(3))
+    got = _port_bh(q, k, v, torch.float32, causal=True, window=window,
+                   softcap=softcap)
+    want = K.flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=True, window=window, softcap=softcap,
+                       interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL32)
+
+
+@pytest.mark.parametrize("T", [200, 130])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_flash_masks_true_length(T, causal, hd):
+    """GQA H=4, Kh=2 at lengths that are not tile multiples."""
+    B, H, Kh = 2, 4, 2
+    q, k, v = _normal(0, B, T, H, hd), _normal(1, B, T, Kh, hd), \
+        _normal(2, B, T, Kh, hd)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    want = attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+
+
+def test_flash_bf16_window_softcap_match_attention_ref():
+    B, T, H, Kh, hd = 1, 200, 4, 2, 64
+    q, k, v = _normal(0, B, T, H, hd), _normal(1, B, T, Kh, hd), \
+        _normal(2, B, T, Kh, hd)
+    kw = dict(causal=True, window=48, softcap=50.0, q_scale=0.1)
+    got = ops.flash_attention(*(torch.from_numpy(a).bfloat16()
+                                for a in (q, k, v)), **kw)
+    want = attention_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                         **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL)
+
+
+def test_flash_gqa_head_mapping_matches_reference_wrapper():
+    """q head h reads kv head h // (H // Kh), as the reference wrapper's
+    jnp.repeat does (at S = 256, where the wrapper needs no padding)."""
+    B, S, H, Kh, hd = 2, 256, 8, 2, 64
+    q, k, v = _normal(0, B, S, H, hd), _normal(1, B, S, Kh, hd), \
+        _normal(2, B, S, Kh, hd)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), True, None, None, None, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)

@@ -1,0 +1,125 @@
+"""Package-level contracts of the PyTorch port: it imports without JAX or
+the reference, never runs on the CPU unless asked, keeps CPU tensors away
+from the kernel build, and its launcher runs end to end on the CPU."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.dist import DistConfig, resolve_device
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.launch import serve as launch
+from repro_torch.models.common import ShapeConfig
+from repro_torch.models.dense import DenseLM
+from repro_torch.models.registry import ARCH_IDS, PORTED, get_arch
+from repro_torch.train import serve as SV
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _run(code_or_args, timeout=120):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, *code_or_args], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_imports_neither_jax_nor_the_reference():
+    """Every module of the port, and chip_smoke.py, import without JAX."""
+    code = (
+        f"import sys; sys.path.insert(0, {str(SRC.parent)!r})\n"
+        "import pkgutil, importlib, repro_torch, chip_smoke\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert 'repro_torch.kernels.rmsnorm.ops' in mods, mods\n"
+        "assert 'repro_torch.kernels.flash_attention.ops' in mods, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout) >= 20
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, model = get_arch("llama3_8b", smoke=True)
+    dcfg = DistConfig(param_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SV.init_serve_params(model, dcfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SV.alloc_cache(model, ShapeConfig("d", 8, 2, "decode"), dcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--smoke"])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_launcher_runs_end_to_end_on_cpu():
+    r = _run(["-m", "repro_torch.launch.serve", "--smoke", "--device",
+              "cpu", "--gen", "3"])
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("generated:")
+    assert any(l.startswith("steady:") for l in lines)
+
+
+def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the kernel build was reached from the CPU")
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "build", refuse)
+    before = (rms_ops.launches, flash_ops.launches)
+    cfg, model, dcfg, params, prefill, decode = launch.setup(
+        "qwen3_1_7b", True, 2, 5, 3, device="cpu")
+    padded = launch.make_prompts(cfg, 2, 5, 3, torch.device("cpu"))
+    tokens, _ = launch.generate(params, prefill, decode, padded, 5, 3)
+    assert tokens.shape == (2, 3)
+    assert (rms_ops.launches, flash_ops.launches) == before
+
+
+def test_registry_ports_two_archs_and_names_the_rest():
+    for arch in PORTED:
+        cfg, model = get_arch(arch, smoke=True)
+        assert isinstance(model, DenseLM) and cfg.family == "dense"
+    for arch in set(ARCH_IDS) - set(PORTED):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            get_arch(arch)
+    with pytest.raises(KeyError):
+        get_arch("no_such_arch")
+
+
+def test_unported_variants_and_meshes_raise():
+    cfg, model = get_arch("llama3_8b", smoke=True)
+    for kw in (dict(post_norms=True), dict(local_global_alternate=True),
+               dict(gated_mlp="geglu")):
+        with pytest.raises(NotImplementedError):
+            DenseLM(dataclasses.replace(cfg, **kw))
+    dcfg = DistConfig(mesh_shape=(1, 2), param_dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="one device"):
+        SV.make_prefill_step(model, dcfg, ShapeConfig("p", 8, 2, "prefill"))
+    with pytest.raises(NotImplementedError, match="one device"):
+        SV.alloc_cache(model, ShapeConfig("d", 8, 2, "decode"), dcfg,
+                       device="cpu")
+
+
+def test_full_width_llama3_layout_and_size():
+    """The full config's head layout needs no padding, and its parameter
+    count is the published 8.03B."""
+    cfg, model = get_arch("llama3_8b")
+    assert cfg.gqa_layout(1) == dict(mode="grouped", hq=32, kvp=8, g=4,
+                                     g_real=4)
+    assert round(cfg.n_params() / 1e9, 2) == 8.03
+    dcfg = DistConfig(param_dtype=torch.bfloat16)
+    m = model.metas(dcfg)
+    assert m["blocks"]["attn"]["wk"].global_shape == (1024, 4096)
+    assert m["head"].global_shape == (4096, 128_256)
