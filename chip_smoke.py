@@ -7,16 +7,28 @@ Phases (every phase runs; any failure makes the script exit non-zero
 without printing the final line):
   1. device: the nvidia-smi name and power limit; the kernel build, timed.
   2. kernels vs plain: each CUDA kernel against its plain PyTorch version
-     on the card at the serving path's shapes, with its time, the plain
-     version's time, a PyTorch yardstick's time (timed only; the port never
-     calls it) and the least time the card could take (bound).
+     on the card at the serving and training paths' shapes, with its time,
+     the plain version's time, a PyTorch yardstick's time (timed only; the
+     port never calls it) and the least time the card could take (bound);
+     the rmsnorm and flash gradients (kernel forward, plain backward)
+     against autograd through the plain versions.
   3. port on the card vs port on the CPU: llama3 and qwen3 SMOKE configs,
      fp32, the same numpy-seeded weights; prefill and 4 decode steps.
-  4. full-width serve: llama3-8b, bf16, seeded weights made on the card,
+  4. smoke training, card vs CPU: `repro_torch.launch.train`'s trainer,
+     qwen3 SMOKE, fp32, --no-reorder, 3 steps from one CPU-made checkpoint
+     (loss, grad norm, storage at TOL32); a restart after an injected
+     failure that must end bit-exact; launch counters of every kernel;
+     one bf16 loss step, card vs CPU, at TOL.
+  5. full-width serve: llama3-8b, bf16, seeded weights made on the card,
      batch 4, prompt 2000, gen 64 (T = 2064) through
      `repro_torch.launch.serve`; launch counters; and a consistency check,
      prefill over p+1 tokens against prefill over p tokens + one decode step.
-  5. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
+  6. full-width training: qwen3-1.7b, bf16 compute, fp32 storage, B 4,
+     T 2048, remat fsdp_only, block buckets, reorder off, through
+     `parallelize(...).train_step` on `SyntheticC4` batches: 1 warm-up
+     step, 6 timed steps; step ms, tokens/s, MFU, peak memory, a profiler
+     window's device busy share, launches per step, finite losses.
+  7. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
 fp32.  Tolerances: TOL32 (rtol 2e-4, atol 2e-5) for fp32 and TOL (rtol 2e-2,
@@ -53,6 +65,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 B, PROMPT, GEN = 4, 2000, 64
 T = PROMPT + GEN
+# full-width training cell: qwen3-1.7b at the reference launcher's default
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 2048, 6
 
 
 def say(*a):
@@ -93,6 +107,20 @@ def check_close(what, got, want, tol):
         raise AssertionError(f"{what}: outside tolerance (max abs err "
                              f"{err:.3e})")
     return err
+
+
+def check_rejects(what, planted, want, tol):
+    """A planted wrong result must fail the check that `want`'s kernel
+    passed: the check then depends on the term the plant leaves out."""
+    if torch.allclose(planted.float(), want.float(), **tol):
+        raise AssertionError(f"{what}: the check cannot tell it apart")
+    say(f"  {what}: rejected (max abs err {max_err(planted, want):.3e})")
+
+
+def per_g(dx, g):
+    """dlogits with each row divided by |its cotangent|: ±(softmax −
+    onehot), so every softmax term meets the tolerance at its own size."""
+    return dx.float() / g.float().abs()[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +248,383 @@ def phase_kernels(state):
     check_close("strided q/k/v slices of a packed (B,T,48,128) bf16",
                 flash_ops.flash_attention(q, k, v),
                 flash_ref.attention(q, k, v), TOL)
+
+
+def _bound(nbytes, flops, dtype=torch.float32):
+    """(least ms, what bounds it) for `nbytes` moved and `flops` done."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops > t_bytes else "bytes"
+
+
+def _grads(fn, inputs, ct):
+    inputs = [a.detach().requires_grad_() for a in inputs]
+    out = fn(*inputs)
+    return (out, *torch.autograd.grad(out, inputs, ct))
+
+
+def phase_train_kernels(state):
+    import torch.nn.functional as F
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw import ref as adamw_ref
+    from repro_torch.kernels.cross_entropy import ops as xent_ops
+    from repro_torch.kernels.cross_entropy import ref as xent_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.runtime import model_abstract_storage
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    R, V = TRAIN_B * TRAIN_T, 151_936
+    say("xent kernels vs plain (ms: kernel / plain / F.cross_entropy / "
+        "bound):")
+    for i, (name, r, v, dt) in enumerate([
+            (f"training logits ({R}, {V}) fp32", R, V, torch.float32),
+            ("odd 9 x 5000 bf16", 9, 5000, torch.bfloat16)]):
+        x = randn(r, v, dtype=dt) * 3
+        t = torch.randint(0, v, (r,), device=dev, generator=g)
+        gr = randn(r) / r
+        loss, lse = xent_ops.xent_fwd_cuda(x, t)
+        want_loss, want_lse = xent_ref.xent(x, t)
+        err_f = max(check_close(f"{name} loss", loss, want_loss, TOL32),
+                    check_close(f"{name} lse", lse, want_lse, TOL32))
+        ms_f = time_ms(lambda: xent_ops.xent_fwd_cuda(x, t))
+        plain_f = time_ms(lambda: xent_ref.xent(x, t))
+        lib_f = time_ms(lambda: F.cross_entropy(x, t, reduction="none"))
+        # read the logits once and the targets, write loss and lse;
+        # ~4 fp32 operations an element (max, subtract, exp, add)
+        bound_f, by_f = _bound(x.numel() * x.element_size() + 16 * r,
+                               4.0 * x.numel())
+        say(f"    fwd {ms_f:.4f} / {plain_f:.4f} / {lib_f:.4f} / "
+            f"{bound_f:.4f} ({x.numel() * x.element_size() / ms_f / 1e6:.0f}"
+            " GB/s)")
+        # rows held as dlogits / |g|: at the path's g of about 1/R every
+        # raw softmax term would sit below the absolute tolerance
+        tol = TOL32 if dt == torch.float32 else TOL
+        want_dx = per_g(xent_ref.dlogits(x, t, want_lse, gr), gr)
+        err_b = check_close(f"{name} dlogits / |g|", per_g(
+            xent_ops.xent_bwd_cuda(x, t, lse, gr), gr), want_dx, tol)
+        onehot_only = torch.zeros_like(x).scatter_(
+            1, t[:, None], -gr[:, None].to(dt))
+        check_rejects(f"{name} planted -onehot*g", per_g(onehot_only, gr),
+                      want_dx, tol)
+        del want_dx, onehot_only
+        ms_b = time_ms(lambda: xent_ops.xent_bwd_cuda(x, t, lse, gr))
+        plain_b = time_ms(lambda: xent_ref.dlogits(x, t, lse, gr))
+        # read the logits, write dlogits; ~5 operations an element
+        bound_b, by_b = _bound(2 * x.numel() * x.element_size() + 16 * r,
+                               5.0 * x.numel())
+        say(f"    bwd {ms_b:.4f} / {plain_b:.4f} / n/a / {bound_b:.4f} "
+            f"({2 * x.numel() * x.element_size() / ms_b / 1e6:.0f} GB/s)")
+        if i == 0:
+            state["xent_fwd"] = dict(max_abs_err=err_f, ms=ms_f,
+                                     plain_ms=plain_f, bound_ms=bound_f,
+                                     bound_by=by_f, library_ms=lib_f)
+            state["xent_bwd"] = dict(max_abs_err=err_b, ms=ms_b,
+                                     plain_ms=plain_b, bound_ms=bound_b,
+                                     bound_by=by_b, library_ms=None)
+        del x, loss, lse, want_loss, want_lse
+        torch.cuda.empty_cache()
+
+    _, model = get_arch("qwen3_1_7b")
+    largest = max(a.numel() for a in _leaves(model_abstract_storage(
+        model, DistConfig())))
+    say("adamw kernel vs plain (ms: kernel / plain / AdamW(fused=True) / "
+        "bound):")
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    for i, n in enumerate((largest, 5000)):
+        p, gd, m = randn(n), randn(n), randn(n) * 0.1
+        v = randn(n).abs() * 0.01
+        step = torch.tensor(7, dtype=torch.int32, device=dev)
+        scale = torch.tensor(0.5, device=dev)
+        # the update dp = p_new - p is held, not p_new: beside |p| ~ 1 the
+        # decay term lr*wd*p would hide inside the tolerance.  The path's
+        # lr 3e-4, wd 0.1, then lr 1e-2, wd 1, where a kernel that dropped
+        # the decay would be off by 1e-2*|p|
+        for lr_f, wd in ((3e-4, 0.1), (1e-2, 1.0)):
+            lr = torch.tensor(lr_f, device=dev)
+            kw = dict(hyper, wd=wd, lr=lr, t=step, scale=scale)
+            want = adamw_ref.adamw_update(p, gd, m, v, **kw)
+            got = [a.clone() for a in (p, m, v)]
+            adamw_ops.adamw_update(got[0], gd, got[1], got[2], **kw)
+            errs = [check_close(f"adamw n={n} lr {lr_f} wd {wd} dp",
+                                got[0] - p, want[0] - p, TOL32)]
+            errs += [check_close(f"adamw n={n} lr {lr_f} wd {wd} {k}", a, b,
+                                 TOL32)
+                     for k, a, b in zip("mv", got[1:], want[1:])]
+            if wd == 0.1:
+                err = max(errs)
+            else:
+                no_decay = adamw_ref.adamw_update(p, gd, m, v,
+                                                  **dict(kw, wd=0.0))
+                check_rejects(f"adamw n={n} planted update without decay",
+                              no_decay[0] - p, want[0] - p, TOL32)
+                del no_decay
+            del want, got
+        lr = torch.tensor(3e-4, device=dev)
+        got = [a.clone() for a in (p, m, v)]
+        ms = time_ms(lambda: adamw_ops.adamw_update(
+            got[0], gd, got[1], got[2], lr=lr, t=step, scale=scale,
+            **hyper))
+        plain = time_ms(lambda: adamw_ref.adamw_update(
+            p, gd, m, v, lr=lr, t=step, scale=scale, **hyper))
+        q = p.clone().requires_grad_()
+        q.grad = gd
+        opt = torch.optim.AdamW([q], lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.1, fused=True)
+        lib = time_ms(opt.step)
+        # p, g, m, v read once, p, m, v written once; ~15 operations each
+        bound, by = _bound(28 * n, 15.0 * n)
+        say(f"    n={n}: {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
+            f"({28 * n / ms / 1e6:.0f} GB/s)")
+        if i == 0:
+            state["adamw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=lib)
+        del p, gd, m, v, got, q, opt
+        torch.cuda.empty_cache()
+
+    say("gradients: kernel forward + plain backward vs autograd through the "
+        "plain version (ms fwd+bwd: op / plain / library / bound):")
+    x = randn(R, 2048, dtype=torch.bfloat16) * 2
+    w = randn(2048, dtype=torch.bfloat16)
+    ct = randn(R, 2048, dtype=torch.bfloat16)
+    got = _grads(lambda a, b: rms_ops.rmsnorm(a, b, 1e-5), (x, w), ct)
+    want = _grads(lambda a, b: rms_ref.rmsnorm(a, b, 1e-5), (x, w), ct)
+    err = max(check_close(f"rmsnorm ({R}, 2048) bf16 {k}", a, b, TOL)
+              for k, a, b in zip(("y", "dx", "dw"), got, want))
+    ms = time_ms(lambda: _grads(lambda a, b: rms_ops.rmsnorm(a, b, 1e-5),
+                                (x, w), ct))
+    plain = time_ms(lambda: _grads(lambda a, b: rms_ref.rmsnorm(a, b, 1e-5),
+                                   (x, w), ct))
+    lib = time_ms(lambda: _grads(lambda a, b: F.rms_norm(a, (2048,), b, 1e-5),
+                                 (x, w), ct))
+    # forward reads x, writes y; backward reads x and ct, writes dx
+    bound, _ = _bound(5 * x.numel() * 2, 12.0 * x.numel())
+    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f}")
+    state["rmsnorm_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 library_ms=lib, bound_ms=bound)
+    del x, w, ct, got, want
+
+    q = randn(TRAIN_B, TRAIN_T, 16, 128, dtype=torch.bfloat16)
+    k = randn(TRAIN_B, TRAIN_T, 8, 128, dtype=torch.bfloat16)
+    v = randn(TRAIN_B, TRAIN_T, 8, 128, dtype=torch.bfloat16)
+    ct = randn(TRAIN_B, TRAIN_T, 16, 128, dtype=torch.bfloat16)
+    name = f"flash B{TRAIN_B} T{TRAIN_T} H16 Kh8 hd128 causal bf16"
+    got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
+    want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
+    err = max(check_close(f"{name} {n}", a, b, TOL)
+              for n, a, b in zip(("o", "dq", "dk", "dv"), got, want))
+    del got, want
+    ms = time_ms(lambda: _grads(lambda *a: flash_ops.flash_attention(*a),
+                                (q, k, v), ct))
+    plain = time_ms(lambda: _grads(lambda *a: flash_ref.attention(*a),
+                                   (q, k, v), ct))
+    qt, kt, vt, ctt = (a.transpose(1, 2) for a in (q, k, v, ct))
+    lib = time_ms(lambda: _grads(
+        lambda *a: F.scaled_dot_product_attention(*a, is_causal=True,
+                                                  enable_gqa=True),
+        (qt, kt, vt), ctt))
+    # causal pairs x 4 hd FLOPs forward, 2.5x that backward
+    flops = 3.5 * 4.0 * 128 * TRAIN_B * 16 * TRAIN_T * (TRAIN_T + 1) / 2
+    bound, _ = _bound(0, flops, torch.bfloat16)
+    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f}")
+    state["flash_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               library_ms=lib, bound_ms=bound)
+
+
+def _train_counts():
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.cross_entropy import ops as xent_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    return dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
+                xent_fwd=xent_ops.fwd_launches,
+                xent_bwd=xent_ops.bwd_launches, adamw=adamw_ops.launches,
+                gathers=coll.gathers, reduce_scatters=coll.reduce_scatters)
+
+
+def _reset_counts():
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.cross_entropy import ops as xent_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    rms_ops.launches = flash_ops.launches = adamw_ops.launches = 0
+    xent_ops.fwd_launches = xent_ops.bwd_launches = 0
+    coll.gathers = coll.reduce_scatters = 0
+
+
+def phase_smoke_train(state):
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.core.meta import named_leaves
+    from repro_torch.ft.failures import InjectedFailures
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.train.trainer import Trainer
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        def trainer(dev, sub):
+            return launch_train.build_trainer(launch_train.parse_args([
+                "--arch", "qwen3_1_7b", "--smoke", "--no-reorder",
+                "--steps", "3", "--seq", "32", "--batch", "4", "--dtype",
+                "float32", "--device", dev, "--ckpt-dir", str(root / sub)]))
+
+        # one CPU-made step-0 checkpoint starts every run
+        cpu = trainer("cpu", "cpu")
+        storage, opt = init_train_state(cpu.par,
+                                        torch.Generator().manual_seed(0))
+        cpu.ckpt.save(0, cpu.par.unshard(storage), dict(
+            m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
+            step=opt["step"]), cpu.model, cpu.dcfg)
+        for sub in ("cuda", "restart"):
+            shutil.copytree(root / "cpu", root / sub)
+        runs = {}
+        for dev, tr in (("cpu", cpu), ("cuda", trainer("cuda", "cuda"))):
+            _reset_counts()
+            storage, _, hist = tr.run()
+            runs[dev] = (storage, hist, _train_counts())
+        counts = runs["cuda"][2]
+        say(f"  launches in the smoke run on the card: {counts}")
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"a kernel never launched: {counts}")
+        if max(v for k, v in runs["cpu"][2].items()
+               if k not in ("gathers", "reduce_scatters")) > 0:
+            raise AssertionError("the CPU run launched a kernel")
+        for hc, hg in zip(runs["cpu"][1], runs["cuda"][1]):
+            for k in ("loss", "grad_norm"):
+                check_close(f"smoke step {hc['step']} {k} cuda vs cpu",
+                            torch.tensor(hg[k]), torch.tensor(hc[k]), TOL32)
+        errs = [check_close(f"smoke storage {n}", a.cpu(), b, TOL32)
+                for (n, a), (_, b) in zip(named_leaves(runs["cuda"][0]),
+                                          named_leaves(runs["cpu"][0]))]
+        say(f"  smoke storage cuda vs cpu: {len(errs)} leaves, max abs err "
+            f"{max(errs):.3e}")
+
+        cuda = trainer("cuda", "restart")
+        tr = Trainer(cuda.model, cuda.dcfg, cuda.shape, cuda.ocfg,
+                     dataclasses.replace(cuda.tcfg, ckpt_every=1),
+                     failure_source=InjectedFailures((2,)), device="cuda")
+        resumed, _, _ = tr.run()
+        diff = max(max_err(a, b) for (_, a), (_, b) in zip(
+            named_leaves(resumed), named_leaves(runs["cuda"][0])))
+        exact = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            named_leaves(resumed), named_leaves(runs["cuda"][0])))
+        say(f"  restart after a failure at step 2: restarts {tr.restarts}, "
+            f"max abs diff to the uninterrupted run {diff:.3e}, "
+            f"{'bit-exact' if exact else 'NOT bit-exact'}")
+        if tr.restarts != 1 or not exact:
+            raise AssertionError("the restarted run is not bit-exact")
+
+        # bf16 compute: the card's logits product (torch.mm with an fp32
+        # out_dtype) and bf16 head backward against the CPU's fp32 product
+        from repro_torch.core.api import parallelize
+        from repro_torch.core.meta import tree_map
+        dcfg16 = cpu.dcfg.with_(param_dtype=torch.bfloat16)
+        storage = parallelize(cpu.model, dcfg16, cpu.shape,
+                              device="cpu").init_storage(
+            torch.Generator().manual_seed(0))
+        batch = cpu.data.batch(0)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            par = parallelize(cpu.model, dcfg16, cpu.shape, device=dev)
+            out[dev] = par.loss_step()(
+                tree_map(lambda a: a.to(dev), storage), batch)
+        check_close("smoke bf16 loss cuda vs cpu", out["cuda"][0].cpu(),
+                    out["cpu"][0], TOL)
+        errs = [check_close(f"smoke bf16 grad {n}", a.cpu(), b, TOL)
+                for (n, a), (_, b) in zip(named_leaves(out["cuda"][1]),
+                                          named_leaves(out["cpu"][1]))]
+        say(f"  smoke bf16 grads cuda vs cpu: max abs err {max(errs):.3e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_full_train(state):
+    from repro_torch.core.api import parallelize
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import default_schedule, \
+        init_train_state
+    cfg, model = get_arch("qwen3_1_7b")
+    # the reference's DistConfig defaults but reorder: bf16 compute, fp32
+    # storage and reduce, bf16 gathers, block buckets, remat fsdp_only
+    dcfg = DistConfig(reorder=False)
+    shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
+    par = parallelize(model, dcfg, shape, device="cuda")
+    say(f"plan: {par.plan.describe()}")
+    t0 = time.perf_counter()
+    storage, opt_state = init_train_state(
+        par, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(a.numel() for a in _leaves(storage))
+    say(f"qwen3-1.7b: {n / 1e9:.4f}B storage elements (padded), fp32 "
+        f"storage + m + v made on the card in {time.perf_counter() - t0:.1f}s")
+    ocfg = AdamWConfig()
+    step = par.train_step(ocfg, default_schedule(ocfg, 100, 10))
+    data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_T,
+                                  global_batch=TRAIN_B, seed=0))
+    batches = [data.batch(i) for i in range(TRAIN_STEPS + 3)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    storage, opt_state, m = step(storage, opt_state, batches[0])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    _reset_counts()
+    times, losses = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        storage, opt_state, m = step(storage, opt_state, batches[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = _train_counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_B * TRAIN_T
+    step_s = sorted(times)[len(times) // 2]
+    # model FLOPs: 6 x matmul params x tokens (blocks + the tied head; the
+    # lookup has none) + causal attention, 3 x its forward
+    lay = cfg.gqa_layout(1)
+    d, hd = cfg.d_model, cfg.head_dim
+    mm_params = cfg.n_layers * (2 * d * lay["hq"] * hd + 2 * d * lay["kvp"]
+                                * hd + 3 * d * cfg.d_ff) + cfg.vocab * d
+    attn = 3 * cfg.n_layers * 4.0 * TRAIN_B * lay["hq"] * hd \
+        * TRAIN_T * (TRAIN_T + 1) / 2
+    flops = 6.0 * mm_params * tokens + attn
+    mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    say(f"train B={TRAIN_B} T={TRAIN_T}: warm-up step {warm * 1e3:.1f} ms; "
+        f"steps {[round(t * 1e3, 2) for t in times]} ms, median "
+        f"{step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s, "
+        f"{flops / 1e12:.2f} model TFLOP/step, MFU {100 * mfu:.2f}% of "
+        f"989 TFLOP/s (bound {flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.1f}"
+        f" ms), max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"  losses {losses}; grad_norm {float(m['grad_norm']):.4f}; "
+        f"lr {float(m['lr']):.3e}")
+    say(f"  launches per step: {per_step}")
+    state["train_launches"] = counts
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw")
+    if min(counts[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    busy = _profile("train step", lambda: step(storage, opt_state,
+                                               batches[-1]), 1, top=24)
+    state["train"] = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                          mfu=mfu, max_memory_allocated=peak, busy=busy)
 
 
 def _numpy_params(model, dcfg, seed):
@@ -389,9 +794,10 @@ def _consistency(params, prefill, decode, x, label):
     return want, got, per_call
 
 
-def _profile(label, fn, n):
+def _profile(label, fn, n, top=8):
     """Prints device kernel time against wall time over n calls, and the
-    kernels that take most of it (torch.profiler)."""
+    `top` kernels that take most of it (torch.profiler).  Returns the
+    device busy share, or None when the profiler saw no kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -408,15 +814,16 @@ def _profile(label, fn, n):
     if not rows:
         say(f"{label}: device time not measured (the profiler saw no "
             f"kernels); wall {wall / n * 1e3:.3f} ms per call")
-        return
+        return None
     dev_us = sum(e.self_device_time_total for e in rows)
     say(f"{label}: wall {wall / n * 1e3:.3f} ms, device kernels "
         f"{dev_us / n / 1e3:.3f} ms per call "
         f"({100 * dev_us / 1e6 / wall:.1f}% busy), "
         f"{sum(e.count for e in rows) / n:.0f} device ops per call")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         say(f"    {e.self_device_time_total / n / 1e3:9.3f} ms "
             f"{e.count // n:5d}x  {e.key[:90]}")
+    return dev_us / 1e6 / wall
 
 
 def _leaves(tree):
@@ -428,15 +835,32 @@ def _leaves(tree):
 
 
 def kernels_line(state):
+    """One row per ported kernel.  `launches` counts the full-width
+    training run (the path of this slice, which runs all five);
+    `launches_by_path` adds the serving run's counts."""
     src = "src/repro_torch/csrc/"
+    train, serve = state["train_launches"], state["launches"]
     rows = [
         dict(name="rmsnorm", route="cuda", source=src + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:29",
-             launches=state["launches"]["rmsnorm"], **state["rmsnorm"]),
+             launches=train["rmsnorm"], **state["rmsnorm"],
+             launches_by_path=dict(serve=serve["rmsnorm"],
+                                   train=train["rmsnorm"])),
         dict(name="flash_attention", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:77",
-             launches=state["launches"]["flash"], **state["flash"]),
+             launches=train["flash"], **state["flash"],
+             launches_by_path=dict(serve=serve["flash"],
+                                   train=train["flash"])),
+        dict(name="xent_fwd", route="cuda", source=src + "cross_entropy.cu",
+             replaces="src/repro/kernels/cross_entropy/kernel.py:61",
+             launches=train["xent_fwd"], **state["xent_fwd"]),
+        dict(name="xent_bwd", route="cuda", source=src + "cross_entropy.cu",
+             replaces="src/repro/kernels/cross_entropy/kernel.py:96",
+             launches=train["xent_bwd"], **state["xent_bwd"]),
+        dict(name="adamw_flat", route="cuda", source=src + "adamw.cu",
+             replaces="src/repro/kernels/adamw/kernel.py:40",
+             launches=train["adamw"], **state["adamw"]),
     ]
     return json.dumps({"kernels": rows})
 
@@ -453,8 +877,11 @@ def main() -> int:
     state, failed = {}, []
     for name, phase in [("device", phase_device),
                         ("kernels vs plain", phase_kernels),
+                        ("training kernels vs plain", phase_train_kernels),
                         ("smoke cuda vs cpu", phase_smoke_parity),
-                        ("full-width serve", phase_full_width)]:
+                        ("smoke training cuda vs cpu", phase_smoke_train),
+                        ("full-width serve", phase_full_width),
+                        ("full-width training", phase_full_train)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

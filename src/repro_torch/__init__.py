@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the `repro` serving path.
+"""PyTorch/CUDA port of the `repro` serving and training paths.
 
 Mirrors `repro`'s module layout (``repro_torch/models/dense.py`` answers to
 ``repro/models/dense.py``) and never imports `jax` or `repro`.  Entry points

@@ -1,5 +1,7 @@
-"""qwen3-1.7b [dense]: 28L d=2048 16H (GQA kv=8) ff=6144 v=151936.
-qk_norm, GQA, tied embeddings."""
+"""qwen3-1.7b [dense]: the shape of the published Qwen/Qwen3-1.7B
+`config.json` (Hugging Face): 28 layers, hidden 2048, 16 attention heads,
+8 KV heads, head_dim 128, intermediate 6144, vocab 151936, rope_theta 1e6,
+tie_word_embeddings true; qk-norm on every layer."""
 from repro_torch.models.common import ArchConfig
 
 CONFIG = ArchConfig(

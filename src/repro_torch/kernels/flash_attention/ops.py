@@ -3,9 +3,15 @@
 
 Layout q (B,S,H,hd), k/v (B,T,Kh,hd); GQA maps q head h to kv head
 h // (H // Kh) inside the kernel, and keys are masked on the true length T,
-so no repeat, transpose or padding copy is made.  There is no fallback: a
-CUDA input the kernel does not take, a failed build or a failed launch
-raises.  `launches` counts kernel launches.
+so no repeat, transpose or padding copy is made.
+
+`flash_attention` is a `torch.autograd.Function`.  Its backward is plain
+torch: it recomputes the plain version one query chunk of `Q_CHUNK` rows at
+a time and differentiates that, so the (S, T) score matrix is never live
+whole, as the reference's `attention_chunked` remat does (no backward
+kernel exists in the reference either).  There is no fallback: a CUDA
+input the kernel does not take, a failed build or a failed launch raises.
+`launches` counts forward kernel launches.
 """
 
 from __future__ import annotations
@@ -22,16 +28,45 @@ from repro_torch.kernels.flash_attention import ref
 launches = 0
 
 HEAD_DIMS = (16, 64, 128)
+Q_CHUNK = 512
 _CODES = {torch.float32: build.F32, torch.bfloat16: build.BF16}
 
 
 def flash_attention(q, k, v, causal=True, window=None, softcap=None,
                     q_scale=None):
     """q: (B,S,H,hd); k/v: (B,T,Kh,hd), H % Kh == 0. Returns (B,S,H,hd)."""
-    if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, window=window,
-                             softcap=softcap, q_scale=q_scale)
-    return flash_attention_cuda(q, k, v, causal, window, softcap, q_scale)
+    return _Flash.apply(q, k, v, causal, window, softcap, q_scale)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_scale=q_scale)
+        if q.device.type == "cpu":
+            return ref.attention(q, k, v, **ctx.kw)
+        return flash_attention_cuda(q, k, v, causal, window, softcap,
+                                    q_scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        with torch.enable_grad():
+            kk = k.detach().requires_grad_()
+            vv = v.detach().requires_grad_()
+            for s0 in range(0, q.shape[1], Q_CHUNK):
+                qc = q[:, s0:s0 + Q_CHUNK].detach().requires_grad_()
+                out = ref.attention(qc, kk, vv, q_offset=s0, **ctx.kw)
+                gq, gk, gv = torch.autograd.grad(
+                    out, (qc, kk, vv), do[:, s0:s0 + Q_CHUNK])
+                dq[:, s0:s0 + Q_CHUNK] = gq
+                dk += gk
+                dv += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 @functools.cache

@@ -4,7 +4,9 @@ on the card.
 
 q: (B, S, H, hd); k/v: (B, T, Kh, hd) with H % Kh == 0; q head h reads kv
 head h // (H // Kh).  Scores, softmax and the weighted sum are fp32; the
-output is cast to q's dtype.
+output is cast to q's dtype.  `q_offset` places q's rows at positions
+q_offset .. q_offset + S - 1 of the key sequence (one query chunk of the
+backward's recompute).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None,
-              q_scale=None):
+              q_scale=None, q_offset=0):
     B, S, H, hd = q.shape
     T, Kh = k.shape[1], k.shape[2]
     g = H // Kh
@@ -24,7 +26,7 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
     s = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    pos_q = torch.arange(S, device=q.device)[:, None]
+    pos_q = torch.arange(q_offset, q_offset + S, device=q.device)[:, None]
     pos_k = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:

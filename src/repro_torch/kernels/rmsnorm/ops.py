@@ -1,8 +1,12 @@
 """RMSNorm op: a CUDA tensor goes to the hand-written kernel
 (`csrc/rmsnorm.cu`), a CPU tensor to the plain version (`ref.py`).
 
-There is no fallback: a CUDA input that the kernel does not take, a failed
-build or a failed launch raises.  `launches` counts kernel launches.
+`rmsnorm` is a `torch.autograd.Function`: the forward is the kernel (or
+the plain version on the CPU), the backward differentiates the plain
+version in torch, as the reference's custom VJP does
+(`repro/kernels/rmsnorm/ops.py`, `_bwd`).  There is no fallback: a CUDA
+input that the kernel does not take, a failed build or a failed launch
+raises.  `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,9 +27,27 @@ _CODES = {torch.float32: build.F32, torch.bfloat16: build.BF16}
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
             unit_offset: bool = False) -> torch.Tensor:
     """Row-wise RMSNorm over the last dim; output in x's dtype."""
-    if x.device.type == "cpu":
-        return ref.rmsnorm(x, w, eps=eps, unit_offset=unit_offset)
-    return rmsnorm_cuda(x, w, eps, unit_offset)
+    return _RmsNorm.apply(x, w, eps, unit_offset)
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps, unit_offset):
+        ctx.save_for_backward(x, w)
+        ctx.eps, ctx.unit_offset = eps, unit_offset
+        if x.device.type == "cpu":
+            return ref.rmsnorm(x, w, eps=eps, unit_offset=unit_offset)
+        return rmsnorm_cuda(x, w, eps, unit_offset)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_()
+            ww = w.detach().requires_grad_()
+            y = ref.rmsnorm(xx, ww, eps=ctx.eps, unit_offset=ctx.unit_offset)
+            dx, dw = torch.autograd.grad(y, (xx, ww), ct)
+        return dx, dw, None, None
 
 
 @functools.cache

@@ -1,0 +1,113 @@
+"""Training launcher CLI (port of `repro.launch.train` at pp = 1, tp = 1).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_1_7b \\
+      --no-reorder --seq 2048 --batch 4 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --no-reorder \\
+      --device cpu --steps 3 --dtype float32
+
+Runs on the card unless `--device cpu` is given.  At world size 1 it
+creates its own one-rank process group on an in-process store (no
+network); a multi-rank run initialises `torch.distributed` itself (one
+process per card, `--mesh D,1`) before calling `main`.  The vanilla
+bucketed schedule needs `--no-reorder`: the prefetch stack is not ported
+yet, and without the flag the run stops with that error.  The
+reference's observability and replanning flags are accepted and raise
+"not yet ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import tempfile
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_OBS_FLAGS = ("metrics_jsonl", "trace_out", "profile_out",
+              "replan_threshold")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3_1_7b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--mesh", default="1,1",
+                    help="'data,model'; the model (tp) axis must be 1")
+    ap.add_argument("--pp", type=int, default=1)
+    ap.add_argument("--cp", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--bucket-mode", default="block")
+    ap.add_argument("--comm-precision", default="bf16")
+    ap.add_argument("--no-reorder", action="store_true")
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
+                    help="compute (param) dtype; storage and reduce are fp32")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train"))
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--metrics-jsonl", default=None)
+    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--profile-out", default=None)
+    ap.add_argument("--replan-threshold", type=float, default=None)
+    return ap.parse_args(argv)
+
+
+def build_trainer(args):
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    unported = [f"--{f.replace('_', '-')}" for f in _OBS_FLAGS
+                if getattr(args, f) is not None]
+    if unported:
+        raise NotImplementedError(
+            f"{unported}: the observability slice (metrics registry, "
+            "traces, profile-guided replanning) is not yet ported to "
+            "repro_torch")
+    if args.grad_compression:
+        raise NotImplementedError(
+            "--grad-compression is not yet ported to repro_torch")
+    if args.pp > 1 or args.cp > 1:
+        raise NotImplementedError(
+            f"--pp {args.pp} / --cp {args.cp}: pipeline and context "
+            "parallelism are not yet ported to repro_torch")
+    mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+    if len(mesh_shape) != 2:
+        raise SystemExit(f"--mesh must be 'data,model', got {args.mesh!r}")
+    dcfg = DistConfig(
+        mesh_shape=mesh_shape, param_dtype=DTYPES[args.dtype],
+        reduce_dtype=torch.float32, bucket_mode=args.bucket_mode,
+        reorder=not args.no_reorder,
+        comm_precision=args.comm_precision, microbatches=args.microbatches)
+    _, model = get_arch(args.arch, smoke=args.smoke)
+    shape = ShapeConfig("train", args.seq, args.batch, "train")
+    tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=args.steps,
+                         log_every=1, warmup=10, ckpt_dir=args.ckpt_dir)
+    return Trainer(model, dcfg, shape, AdamWConfig(lr=args.lr), tcfg,
+                   device=args.device)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    trainer = build_trainer(args)
+    print(f"plan: {trainer.plan.describe()}")
+    _, _, hist = trainer.run()
+    for h in hist:
+        print(f"step {h['step']} loss {h['loss']:.6f} grad_norm "
+              f"{h['grad_norm']:.6f} lr {h['lr']:.3e} {h['dt'] * 1e3:.1f}ms")
+    print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    return trainer, hist
+
+
+if __name__ == "__main__":
+    main()

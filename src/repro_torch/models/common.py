@@ -3,12 +3,16 @@
 `ArchConfig` keeps the reference's field names, defaults and derived head
 layout (`gqa_layout`) so that parameter shapes line up exactly with the
 reference's on every arch, padded or not.  `ShapeConfig` describes one
-(seq_len, global_batch, kind) cell.
+(seq_len, global_batch, kind) cell.  `BlockSegments` is the segmented
+block contract: one block as an ordered chain of segments, each owning the
+params its globs name (`core/stack.py` gathers each segment's buckets
+inside that segment's remat wrap).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,6 +21,36 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                 # 'train' | 'prefill' | 'decode'
+
+
+@dataclasses.dataclass(frozen=True)
+class InputSpec:
+    """Shape and numpy dtype name of one batch field (`input_specs`)."""
+    shape: tuple[int, ...]
+    dtype: str
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSegments:
+    """Ordered segment chain of ONE block: state_0 = x -> fns[0] -> ... ->
+    fns[S-1] -> (y, aux).
+
+      * ``names``       — segment labels, execution order (attn, mlp);
+      * ``param_globs`` — per-segment fnmatch globs over the block's param
+        names; each param belongs to the FIRST segment whose globs match;
+      * ``fns``         — fns[s](params, consts, state) -> state, where
+        `params` holds only segment s's gathered tensors.
+    """
+
+    names: tuple[str, ...]
+    param_globs: tuple[tuple[str, ...], ...]
+    fns: tuple[Callable, ...]
+
+    def __post_init__(self):
+        if not (len(self.names) == len(self.param_globs) == len(self.fns)):
+            raise ValueError("BlockSegments fields must be parallel, got "
+                             f"{len(self.names)}/{len(self.param_globs)}/"
+                             f"{len(self.fns)}")
 
 
 @dataclasses.dataclass(frozen=True)

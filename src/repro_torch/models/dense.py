@@ -1,4 +1,4 @@
-"""Dense decoder-only LM, serving half (port of `repro.models.dense`).
+"""Dense decoder-only LM (port of `repro.models.dense`).
 
 Runs llama3-style blocks (RoPE, SwiGLU, GQA) with the qwen3 variants
 (qk-norm, tied embeddings) and the attention flags the kernels take
@@ -6,23 +6,31 @@ Runs llama3-style blocks (RoPE, SwiGLU, GQA) with the qwen3 variants
 pairs and sandwich norms, and the gelu/geglu MLPs, are not ported yet.
 
 Parameters are plain dicts with the reference's tree and layouts; the
-block leaves are stacked on a leading (n_steps, ...) axis.  Two entry
-points, both at world size 1:
-  prefill_local — embed a (B, T) batch, run every block, write the KV cache,
-                  return the last-position logits;
-  decode_local  — one token per row at per-row positions against the cache.
+block leaves are stacked on a leading (n_steps, ...) axis.  Entry points:
+  loss_local    — training forward + masked cross-entropy on the flat
+                  ZeRO-3 storage shards (FSDP via core/stack), at pp=1;
+                  composed of the stage contract stage_pre / stage_blocks /
+                  stage_loss;
+  prefill_local — serving: embed a (B, T) batch, run every block, write
+                  the KV cache, return the last-position logits;
+  decode_local  — serving: one token per row at per-row positions.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.core.dist import DistConfig
 from repro_torch.core.meta import tree_map
+from repro_torch.core.remat import maybe_remat
+from repro_torch.core.stack import apply_stack
 from repro_torch.models import layers as LY
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import (ArchConfig, BlockSegments, InputSpec,
+                                       ShapeConfig)
 
 _UNPORTED = ("local_global_alternate", "post_norms")
 
@@ -39,7 +47,7 @@ class DenseLM:
 
     # ------------------------------------------------------------- metas --
     def block_metas(self, dcfg: DistConfig) -> dict:
-        cfg, dt = self.cfg, dcfg.param_dtype
+        cfg, dt = self.cfg, dcfg.storage_dtype
         return {
             "ln1": LY.norm_meta("ln1", cfg.d_model, dt),
             "attn": LY.attn_metas(cfg, dcfg, dt, prefix="attn."),
@@ -48,7 +56,7 @@ class DenseLM:
         }
 
     def metas(self, dcfg: DistConfig) -> dict:
-        cfg, dt = self.cfg, dcfg.param_dtype
+        cfg, dt = self.cfg, dcfg.storage_dtype
         m = {
             "embed": LY.embed_meta("embed", cfg, dt),
             "blocks": self.block_metas(dcfg),
@@ -62,6 +70,16 @@ class DenseLM:
     def stacked_keys(self) -> dict:
         """Top-level param groups carrying a leading layer-stack dim."""
         return {"blocks": self.n_steps}
+
+    def input_specs(self, shape: ShapeConfig, dcfg: DistConfig) -> dict:
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind != "train":
+            raise NotImplementedError(
+                f"input_specs for kind={shape.kind!r}: the serving steps "
+                "take their inputs directly")
+        return {"tokens": InputSpec((B, S), "int32"),
+                "targets": InputSpec((B, S), "int32"),
+                "valid": InputSpec((B, S), "float32")}
 
     # -------------------------------------------------------------- init --
     def init_block_full(self, generator, dcfg, device, dtype) -> dict:
@@ -95,36 +113,111 @@ class DenseLM:
             p["head"] = LY.head_init(generator, cfg, device, dtype)
         return p
 
+    def consts(self, seq_len: int, device) -> dict:
+        cos, sin = LY.rope_cache(seq_len, self.cfg.head_dim,
+                                 self.cfg.rope_theta, device)
+        return {"rope_cos": cos, "rope_sin": sin}
+
     # ------------------------------------------------------------- block --
     @property
     def _q_scale(self):
         return 1.0 / math.sqrt(self.cfg.head_dim)
 
+    def _attn_half(self, p, rope, x, dcfg):
+        """Attention residual branch (ln1 + attn.*): (x + h, (k, v))."""
+        cfg = self.cfg
+        h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        h, kv = LY.attn_apply(p["attn"], h, rope, cfg, dcfg,
+                              window=cfg.sliding_window,
+                              q_scale=self._q_scale)
+        return x + h, kv
+
+    def _mlp_half(self, p, x, dcfg):
+        """FFN residual branch (ln2 + mlp.*)."""
+        h = LY.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
+        return x + LY.mlp_apply(p["mlp"], h, self.cfg, dcfg)
+
+    def block_fn(self, p, consts, x, dcfg: DistConfig):
+        rope = (consts["rope_cos"], consts["rope_sin"])
+        x, _ = self._attn_half(p, rope, x, dcfg)
+        return self._mlp_half(p, x, dcfg), {}
+
+    def block_segments(self, dcfg: DistConfig) -> BlockSegments:
+        """Segmented block contract (attn / mlp residual branches)."""
+        def seg_attn(p, consts, x):
+            return self._attn_half(p, (consts["rope_cos"],
+                                       consts["rope_sin"]), x, dcfg)[0]
+
+        def seg_mlp(p, consts, x):
+            return self._mlp_half(p, x, dcfg), {}
+
+        return BlockSegments(
+            names=("attn", "mlp"),
+            param_globs=(("ln1", "attn/*", "pn1"), ("ln2", "mlp/*", "pn2")),
+            fns=(seg_attn, seg_mlp))
+
     def _logits(self, params, x):
-        """x: (B, S, D) -> fp32 logits (B, S, V) (the product runs in the
-        weights' dtype and is then widened)."""
-        w = params["embed"].t() if self.cfg.tie_embeddings else params["head"]
-        return LY._softcap(torch.matmul(x, w).float(), self.cfg.final_softcap)
+        """x: (B, S, D) -> fp32 logits (B, S, V) from the full params."""
+        w = params["embed"] if self.cfg.tie_embeddings else params["head"]
+        return LY.logits_f32(x, w, self.cfg)
+
+    # ------------------------------------------------------------- train --
+    def _embed_in(self, storage, tokens, dcfg):
+        cfg = self.cfg
+        emb_meta = LY.embed_meta("embed", cfg, dcfg.storage_dtype)
+
+        def embed_fn(emb_shard, ids):
+            table = coll.replicate(emb_shard, emb_meta, dcfg)
+            return LY.embed_apply(table, ids, cfg, dcfg)
+
+        return maybe_remat(embed_fn, "fsdp_only" if dcfg.remat != "none"
+                           else "none")(storage["embed"], tokens)
+
+    def _lm_head(self, storage, x, dcfg):
+        cfg = self.cfg
+        key = "embed" if cfg.tie_embeddings else "head"
+        meta = (LY.embed_meta if cfg.tie_embeddings else LY.head_meta)(
+            key, cfg, dcfg.storage_dtype)
+        return LY.logits_f32(x, coll.replicate(storage[key], meta, dcfg), cfg)
+
+    # -- the stage-partition contract; composes to loss_local at pp=1
+    def stage_pre(self, storage, mb, dcfg: DistConfig):
+        """tokens -> embeddings (+ zero aux)."""
+        return self._embed_in(storage, mb["tokens"], dcfg), {}
+
+    def stage_blocks(self, storage, state, dcfg: DistConfig):
+        """The layer stack, vanilla FSDP schedule (core/stack)."""
+        x, aux = state
+        consts = self.consts(x.shape[1], x.device)
+        blk = functools.partial(self.block_fn, dcfg=dcfg)
+        x, aux2 = apply_stack(blk, self.block_metas(dcfg), dcfg,
+                              storage["blocks"], consts, x,
+                              segments=self.block_segments(dcfg))
+        return x, {k: aux.get(k, 0) + v for k, v in aux2.items()}
+
+    def stage_loss(self, storage, state, mb, dcfg: DistConfig):
+        """Final norm, LM head, masked cross-entropy."""
+        cfg = self.cfg
+        x, _ = state
+        fn_meta = LY.norm_meta("final_norm", cfg.d_model, dcfg.storage_dtype)
+        w_fn = coll.replicate(storage["final_norm"], fn_meta, dcfg)
+        x = LY.rmsnorm(x, w_fn, cfg.norm_eps)
+        logits = self._lm_head(storage, x, dcfg)
+        loss, _ = LY.vocab_parallel_xent(logits, mb["targets"], mb["valid"])
+        return loss
+
+    def loss_local(self, storage, batch, dcfg: DistConfig):
+        """batch: tokens/targets (B, S) int, valid (B, S) fp32.  Returns
+        (this rank's masked mean loss, aux)."""
+        state = self.stage_blocks(storage,
+                                  self.stage_pre(storage, batch, dcfg), dcfg)
+        return self.stage_loss(storage, state, batch, dcfg), state[1]
 
     # ------------------------------------------------------------- serve --
     def _serve_sub(self, p, rope, x, dcfg):
         """Prefill block: returns the block output and this layer's (k, v)."""
-        cfg = self.cfg
-        h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k, v, head_mask = LY._local_qkv(p["attn"], h, cfg, dcfg)
-        if cfg.qk_norm:
-            q = LY.rmsnorm(q, p["attn"]["q_norm"], cfg.norm_eps)
-            k = LY.rmsnorm(k, p["attn"]["k_norm"], cfg.norm_eps)
-        cos, sin = rope
-        q = LY.apply_rope(q, cos, sin)
-        k = LY.apply_rope(k, cos, sin)
-        out = LY.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                           softcap=cfg.attn_softcap, q_scale=self._q_scale)
-        out = out * head_mask[None, None, :, None]
-        B, S, hl, hd = out.shape
-        x = x + torch.matmul(out.reshape(B, S, hl * hd), p["attn"]["wo"])
-        h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + LY.mlp_apply(p["mlp"], h, cfg, dcfg), (k, v)
+        x, kv = self._attn_half(p, rope, x, dcfg)
+        return self._mlp_half(p, x, dcfg), kv
 
     def prefill_local(self, params, batch, dcfg: DistConfig, cache):
         """params: full params, blocks stacked (n_steps, ...); batch:

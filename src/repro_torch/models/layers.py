@@ -1,11 +1,14 @@
-"""Layer primitives of the serving path (port of `repro.models.layers`).
+"""Layer primitives of the serving and training paths (port of
+`repro.models.layers`).
 
 Each unit comes as metas / init / apply over plain dicts of tensors, with
 the reference's parameter layouts: ``wq`` (d, hq*hd), ``wk``/``wv`` stored
 transposed as (kvp*hd, d), ``wo`` (hq*hd, d); the head layout (padded q and
 kv head counts, the head mask) comes from `ArchConfig.gqa_layout`.  The
-port serves at tp=1, so the reference's sequence-parallel gathers and
-scatters are identities and are left out.
+port runs at tp=1, so the reference's sequence-parallel gathers and
+scatters are identities and are left out.  Every apply is differentiable:
+rmsnorm and attention through their kernels' `autograd.Function`s, the
+loss through the cross-entropy kernels.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.dist import DistConfig
 from repro_torch.core.meta import ParamMeta
+from repro_torch.kernels.cross_entropy import ops as xent_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.common import ArchConfig
@@ -122,6 +126,54 @@ def embed_apply(table, ids, cfg: ArchConfig, dcfg: DistConfig):
     return torch.where(hit[..., None], x, 0).to(dcfg.param_dtype)
 
 
+class _LogitsF32(torch.autograd.Function):
+    """x (R, D) @ w -> fp32 logits (R, V), from operands in x's dtype with
+    fp32 accumulation (the reference's ``preferred_element_type=float32``):
+    `torch.mm(..., out_dtype=float32)` for bf16 on the card, an fp32 product
+    elsewhere.  w is (D, V), or the (V, D) embedding table when `tied`.
+    The backward multiplies in x's dtype (the fp32 cotangent is rounded to
+    it first), so the bf16 step keeps its head products on tensor cores."""
+
+    @staticmethod
+    def forward(ctx, x, w, tied):
+        ctx.save_for_backward(x, w)
+        ctx.tied = tied
+        wt = w.t() if tied else w
+        if (x.dtype == torch.bfloat16 and x.is_cuda
+                and hasattr(torch.ops.aten.mm, "dtype")):
+            return torch.mm(x, wt, out_dtype=torch.float32)
+        return torch.mm(x.float(), wt.float())
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        ct = ct.to(x.dtype)
+        wt = w.t() if ctx.tied else w
+        dx = torch.mm(ct, wt.t())
+        dw = torch.mm(ct.t(), x) if ctx.tied else torch.mm(x.t(), ct)
+        return dx, dw, None
+
+
+def logits_f32(x, w, cfg: ArchConfig):
+    """x: (B, S, D) -> fp32 logits (B, S, V) against the head (D, V) or,
+    under tied embeddings, the embedding table (V, D); then the final
+    softcap."""
+    B, S, D = x.shape
+    out = _LogitsF32.apply(x.reshape(B * S, D), w, cfg.tie_embeddings)
+    return _softcap(out.view(B, S, -1), cfg.final_softcap)
+
+
+def vocab_parallel_xent(logits, targets, valid):
+    """Masked mean cross-entropy over the valid tokens (the reference's
+    `vocab_parallel_xent` at tp=1), per-row losses from the cross-entropy
+    kernel.  Returns (loss, aux)."""
+    B, S, V = logits.shape
+    per_tok = xent_ops.xent(logits.reshape(B * S, V),
+                            targets.reshape(-1)).view(B, S)
+    loss = (per_tok * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return loss, {}
+
+
 def head_meta(name: str, cfg: ArchConfig, dtype) -> ParamMeta:
     return ParamMeta(name, (cfg.d_model, cfg.vocab), tp_dim=1, dtype=dtype)
 
@@ -198,6 +250,24 @@ def _local_qkv(p, xg, cfg: ArchConfig, dcfg: DistConfig):
     k = torch.matmul(xg, p["wk"].t()).view(B, S, lay["kvp"], hd)
     v = torch.matmul(xg, p["wv"].t()).view(B, S, lay["kvp"], hd)
     return q, k, v, head_mask(cfg, dcfg, xg.device, q.dtype)
+
+
+def attn_apply(p, x, rope, cfg: ArchConfig, dcfg: DistConfig, window=None,
+               q_scale=None):
+    """Attention sublayer (train/prefill path): x (B, S, D) -> (projected
+    output (B, S, D), (k, v) after RoPE).  rope: (cos, sin) of (S, hd/2)."""
+    q, k, v, hmask = _local_qkv(p, x, cfg, dcfg)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = attention(q, k, v, causal=True, window=window,
+                    softcap=cfg.attn_softcap, q_scale=q_scale)
+    out = out * hmask[None, None, :, None]
+    B, S, hl, hd = out.shape
+    return torch.matmul(out.reshape(B, S, hl * hd), p["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------

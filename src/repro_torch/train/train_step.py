@@ -1,0 +1,93 @@
+"""Training step assembly at pp = 1 (port of `repro.train.train_step`):
+SimpleFSDP forward/backward + gradient accumulation over microbatches +
+global-norm clipping + AdamW + LR schedule.
+
+The steps are plain callables built from a `Parallelized` bundle
+(`core/api.py`).  Storage and optimizer state are this rank's shards; a
+batch is global and each rank takes its rows.  The logged loss is the mean
+over the data-parallel ranks, as the reference's `pmean`.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.meta import leaves, tree_map, unflatten_like
+from repro_torch.optim.adamw import AdamWConfig, apply_adamw, init_opt_state
+from repro_torch.optim.schedule import warmup_cosine
+
+
+def _loss_and_grads(par, storage, batch):
+    """(loss, grads) of the model's local loss w.r.t. every storage leaf."""
+    dcfg = par.dcfg
+    params = [a.detach().requires_grad_() for a in leaves(storage)]
+    loss = par.model.loss_local(unflatten_like(storage, params), batch,
+                                dcfg)[0]
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), unflatten_like(storage, grads)
+
+
+def _rank_mean(x: torch.Tensor, par) -> torch.Tensor:
+    if par.mesh.size > 1:
+        x = x.clone()
+        dist.all_reduce(x)
+        x /= par.mesh.size
+    return x
+
+
+def make_loss_step(par):
+    """step(storage, batch) -> (loss, grads)."""
+    def step(storage, batch):
+        loss, grads = _loss_and_grads(par, storage, par.local_batch(batch))
+        return _rank_mean(loss, par), grads
+    return step
+
+
+def make_train_step(par, ocfg: AdamWConfig,
+                    schedule: Callable | None = None):
+    """step(storage, opt_state, batch) -> (storage, opt_state, metrics),
+    updating storage and opt_state in place.  metrics: loss, grad_norm and
+    lr as device scalars."""
+    dcfg = par.dcfg
+    sched = schedule or (lambda t: torch.full((), ocfg.lr,
+                                              device=t.device))
+
+    def step(storage, opt_state, batch):
+        b = par.local_batch(batch)
+        k = dcfg.microbatches
+        if k > 1:
+            rows = next(iter(b.values())).shape[0] // k
+            mbs = [{n: a[i * rows:(i + 1) * rows] for n, a in b.items()}
+                   for i in range(k)]
+            loss, grads = _loss_and_grads(par, storage, mbs[0])
+            for mb in mbs[1:]:
+                l, g = _loss_and_grads(par, storage, mb)
+                loss = loss + l
+                tree_map(lambda acc, x: acc.add_(x), grads, g)
+            loss = loss * (1.0 / k)
+            tree_map(lambda acc: acc.mul_(1.0 / k), grads)
+        else:
+            loss, grads = _loss_and_grads(par, storage, b)
+        lr = sched(opt_state["step"])
+        gnorm = apply_adamw(storage, grads, opt_state, dcfg, ocfg, lr)
+        metrics = {"loss": _rank_mean(loss, par), "grad_norm": gnorm,
+                   "lr": lr.to(torch.float32)}
+        return storage, opt_state, metrics
+
+    return step
+
+
+def default_schedule(ocfg: AdamWConfig, total_steps: int, warmup: int = 100):
+    return functools.partial(warmup_cosine, peak_lr=ocfg.lr, warmup=warmup,
+                             total=total_steps)
+
+
+def init_train_state(par, generator: torch.Generator):
+    """Fresh seeded storage (this rank's shards, made on the device) and
+    optimizer state."""
+    storage = par.init_storage(generator)
+    return storage, init_opt_state(storage)

@@ -6,13 +6,19 @@ only torch and the port, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 chip_smoke.py holds the kernels against their plain versions at the
-serving path's full shapes; these are small, quick cases.  Tolerances:
+serving and training paths' full shapes; these are small, quick cases.
+The gradients of the rmsnorm and flash `autograd.Function`s (kernel
+forward, plain-torch backward) are held against autograd through the
+plain versions.  Tolerances:
 TOL32 (rtol 2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels.adamw import ops as adamw_ops, ref as adamw_ref
+from repro_torch.kernels.cross_entropy import ops as xent_ops, \
+    ref as xent_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops, \
     ref as flash_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
@@ -88,3 +94,143 @@ def test_flash_kernel_rejects_unsupported_head_dim(dev):
     q = _randn(dev, 1, 8, 2, 32)
     with pytest.raises(ValueError, match="hd"):
         flash_ops.flash_attention(q, q, q)
+
+
+def _grads(fn, inputs, ct):
+    inputs = [a.detach().requires_grad_() for a in inputs]
+    out = fn(*inputs)
+    return (out, *torch.autograd.grad(out, inputs, ct))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gradient_matches_plain_autograd(dev, dtype):
+    x = _randn(dev, 2, 33, 256, dtype=dtype) * 2
+    w = _randn(dev, 256, dtype=dtype, seed=1)
+    ct = _randn(dev, 2, 33, 256, dtype=dtype, seed=2)
+    n = rms_ops.launches
+    got = _grads(lambda a, b: rms_ops.rmsnorm(a, b, 1e-5), (x, w), ct)
+    assert rms_ops.launches == n + 1
+    want = _grads(lambda a, b: rms_ref.rmsnorm(a, b, 1e-5), (x, w), ct)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a.float(), b.float(), **(TOL32 if dtype == torch.float32 else TOL))
+
+
+@pytest.mark.parametrize("S,T_chunk", [(200, 64), (130, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_matches_plain_autograd(dev, S, T_chunk, dtype,
+                                               monkeypatch):
+    monkeypatch.setattr(flash_ops, "Q_CHUNK", T_chunk)
+    q = _randn(dev, 2, S, 4, 64, dtype=dtype)
+    k = _randn(dev, 2, S, 2, 64, dtype=dtype, seed=1)
+    v = _randn(dev, 2, S, 2, 64, dtype=dtype, seed=2)
+    ct = _randn(dev, 2, S, 4, 64, dtype=dtype, seed=3)
+    n = flash_ops.launches
+    got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
+    assert flash_ops.launches == n + 1
+    want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a.float(), b.float(), **(TOL32 if dtype == torch.float32 else TOL))
+
+
+def _per_g(dx, g):
+    return dx.float() / g.float().abs()[:, None]
+
+
+@pytest.mark.parametrize("R,V", [(8, 2048), (9, 5000), (16, 4096), (3, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tdtype", [torch.int32, torch.int64])
+def test_xent_kernels_match_plain(dev, R, V, dtype, tdtype):
+    x = _randn(dev, R, V, dtype=dtype) * 3
+    t = torch.randint(0, V, (R,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(4))
+    t = t.to(tdtype)
+    t[0] = V + 5                       # out of range: no target logit
+    g = _randn(dev, R, seed=5)
+    nf, nb = xent_ops.fwd_launches, xent_ops.bwd_launches
+    loss, lse = xent_ops.xent_fwd_cuda(x, t)
+    dx = xent_ops.xent_bwd_cuda(x, t, lse, g)
+    assert (xent_ops.fwd_launches, xent_ops.bwd_launches) == (nf + 1, nb + 1)
+    want_loss, want_lse = xent_ref.xent(x, t)
+    torch.testing.assert_close(loss, want_loss, **TOL32)
+    torch.testing.assert_close(lse, want_lse, **TOL32)
+    # each row over |g|: softmax - onehot, so the softmax terms meet the
+    # tolerance at their own size, not scaled down by g
+    want = _per_g(xent_ref.dlogits(x, t, want_lse, g), g)
+    tol = TOL32 if dtype == torch.float32 else TOL
+    torch.testing.assert_close(_per_g(dx, g), want, **tol)
+    assert dx.dtype == dtype
+    onehot_only = torch.zeros_like(x).scatter_(
+        1, t.long().clamp(0, V - 1)[:, None], -g[:, None].to(dtype))
+    assert not torch.allclose(_per_g(onehot_only, g), want, **tol)
+
+
+def test_xent_autograd_function_matches_plain(dev):
+    x = _randn(dev, 9, 5000) * 3
+    t = torch.arange(9, device=dev) * 500
+    ct = _randn(dev, 9, seed=1)
+    got = _grads(lambda a: xent_ops.xent(a, t), (x,), ct)
+    want = _grads(lambda a: xent_ref.xent(a, t)[0], (x,), ct)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL32)
+
+
+def test_xent_kernels_reject_what_they_do_not_take(dev):
+    x = _randn(dev, 4, 64)
+    t = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        xent_ops.xent_fwd_cuda(x.t(), t)               # not contiguous
+    with pytest.raises(TypeError):
+        xent_ops.xent_fwd_cuda(x.half(), t)
+    with pytest.raises(TypeError):
+        xent_ops.xent_fwd_cuda(x, t.float())
+
+
+@pytest.mark.parametrize("n", [5000, 4096, 1, 1_000_003])
+def test_adamw_kernel_matches_plain(dev, n):
+    p, g, m = (_randn(dev, n, seed=s) for s in range(3))
+    v = _randn(dev, n, seed=3).abs()
+    lr = torch.tensor(3e-4, device=dev)
+    t = torch.tensor(7, dtype=torch.int32, device=dev)
+    scale = torch.tensor(0.5, device=dev)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    want = adamw_ref.adamw_update(p, g, m, v, lr=lr, t=t, scale=scale,
+                                  **hyper)
+    p0 = p.clone()
+    k = adamw_ops.launches
+    adamw_ops.adamw_update(p, g, m, v, lr=lr, t=t, scale=scale, **hyper)
+    assert adamw_ops.launches == k + 1
+    torch.testing.assert_close(p - p0, want[0] - p0, **TOL32)
+    for a, b in zip((p, m, v), want):
+        torch.testing.assert_close(a, b, **TOL32)
+
+
+@pytest.mark.parametrize("n", [5000, 1_000_003])
+def test_adamw_kernel_applies_weight_decay(dev, n):
+    """lr 1e-2, wd 1: dropping the decay moves the update by 1e-2*|p|,
+    far outside TOL32, so the update p_new - p is held to the plain one."""
+    p, g, m = (_randn(dev, n, seed=s) for s in range(3))
+    v = _randn(dev, n, seed=3).abs()
+    kw = dict(lr=torch.tensor(1e-2, device=dev),
+              t=torch.tensor(3, dtype=torch.int32, device=dev),
+              scale=torch.tensor(1.0, device=dev), b1=0.9, b2=0.95, eps=1e-8)
+    want = adamw_ref.adamw_update(p, g, m, v, wd=1.0, **kw)[0] - p
+    no_decay = adamw_ref.adamw_update(p, g, m, v, wd=0.0, **kw)[0] - p
+    assert not torch.allclose(no_decay, want, **TOL32)
+    p0 = p.clone()
+    adamw_ops.adamw_update(p, g, m, v, wd=1.0, **kw)
+    torch.testing.assert_close(p - p0, want, **TOL32)
+
+
+def test_adamw_kernel_rejects_what_it_does_not_take(dev):
+    p = _randn(dev, 64)
+    lr, scale = torch.tensor(1e-3, device=dev), torch.tensor(1.0, device=dev)
+    t = torch.tensor(1, dtype=torch.int32, device=dev)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    with pytest.raises(ValueError):
+        adamw_ops.adamw_update(p, p.bfloat16(), p.clone(), p.clone(), lr=lr,
+                               t=t, scale=scale, **hyper)
+    with pytest.raises(ValueError):
+        adamw_ops.adamw_update(p, p.clone(), p.clone(), p.clone(), lr=lr,
+                               t=t.float(), scale=scale, **hyper)

@@ -1,6 +1,7 @@
 """Package-level contracts of the PyTorch port: it imports without JAX or
 the reference, never runs on the CPU unless asked, keeps CPU tensors away
-from the kernel build, and its launcher runs end to end on the CPU."""
+from the kernel build, and its launchers (serve and train) run end to end
+on the CPU."""
 
 import dataclasses
 import os
@@ -13,9 +14,12 @@ import torch
 
 from repro_torch.core.dist import DistConfig, resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels.adamw import ops as adamw_ops
+from repro_torch.kernels.cross_entropy import ops as xent_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.launch import serve as launch
+from repro_torch.launch import train as launch_train
 from repro_torch.models.common import ShapeConfig
 from repro_torch.models.dense import DenseLM
 from repro_torch.models.registry import ARCH_IDS, PORTED, get_arch
@@ -42,11 +46,16 @@ def test_imports_neither_jax_nor_the_reference():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert 'repro_torch.kernels.rmsnorm.ops' in mods, mods\n"
         "assert 'repro_torch.kernels.flash_attention.ops' in mods, mods\n"
+        "for m in ('kernels.cross_entropy.ops', 'kernels.adamw.ops',\n"
+        "          'core.collectives', 'core.stack', 'core.api',\n"
+        "          'train.trainer', 'launch.train', 'checkpoint.checkpointer',\n"
+        "          'data.pipeline', 'ft.failures', 'optim.adamw'):\n"
+        "    assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout) >= 20
+    assert int(r.stdout) >= 40
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -123,3 +132,49 @@ def test_full_width_llama3_layout_and_size():
     m = model.metas(dcfg)
     assert m["blocks"]["attn"]["wk"].global_shape == (1024, 4096)
     assert m["head"].global_shape == (4096, 128_256)
+
+
+def test_train_launcher_runs_end_to_end_on_cpu(tmp_path):
+    r = _run(["-m", "repro_torch.launch.train", "--smoke", "--no-reorder",
+              "--device", "cpu", "--steps", "2", "--seq", "16", "--batch",
+              "2", "--dtype", "float32", "--ckpt-dir", str(tmp_path)])
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("plan: mesh[data=1xmodel=1]")
+    assert [l.split()[:2] for l in lines if l.startswith("step ")] == \
+        [["step", "1"], ["step", "2"]]
+    assert (tmp_path / "step_00000002" / "manifest.json").exists()
+
+
+def test_train_launcher_refuses_what_is_not_ported(monkeypatch, tmp_path):
+    base = ["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    for extra, match in ((["--steps", "1"], "prefetch stack"),
+                         (["--no-reorder", "--metrics-jsonl", "x"],
+                          "observability"),
+                         (["--no-reorder", "--replan-threshold", "0.1"],
+                          "observability"),
+                         (["--no-reorder", "--pp", "2"], "pipeline"),
+                         (["--no-reorder", "--mesh", "1,2"], "tp=2"),
+                         (["--no-reorder", "--grad-compression"],
+                          "grad-compression")):
+        with pytest.raises(NotImplementedError, match=match):
+            launch_train.main(base + extra)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke", "--no-reorder", "--ckpt-dir",
+                           str(tmp_path)])
+
+
+def test_cpu_training_never_touches_the_kernel_build(monkeypatch, tmp_path):
+    def refuse(*a, **k):
+        raise AssertionError("the kernel build was reached from the CPU")
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "build", refuse)
+    counts = lambda: (rms_ops.launches, flash_ops.launches,  # noqa: E731
+                      xent_ops.fwd_launches, xent_ops.bwd_launches,
+                      adamw_ops.launches)
+    before = counts()
+    trainer, hist = launch_train.main([
+        "--smoke", "--no-reorder", "--device", "cpu", "--steps", "1",
+        "--seq", "8", "--batch", "2", "--ckpt-dir", str(tmp_path)])
+    assert len(hist) == 1 and counts() == before
