@@ -12,29 +12,57 @@ without printing the final line):
      port never calls it) and the least time the card could take (bound);
      the rmsnorm and flash gradients (kernel forward, plain backward)
      against autograd through the plain versions.
-  3. port on the card vs port on the CPU: llama3 and qwen3 SMOKE configs,
+  3. quant kernels vs plain: the wire codec's quant and dequant kernels,
+     fp8 / int8 x RTN / SR x f32 / bf16 inputs at 129, 5000 and the
+     largest bucket of the full-width path (plus the largest error-feedback
+     leaf, fp8 RTN), on buffers with all-zero chunks, ties and values at
+     exactly +-QMAX*scale: wire bytes, scales, decoded values and the SR
+     seed must equal the plain version EXACTLY; two planted wrong results
+     (RTN in place of SR, one per-tensor scale in place of per-chunk) must
+     be told apart; times and byte bounds.
+ 3b. quantized reduce-scatter, card vs CPU: the largest full-width bucket's
+     gradients through `finalize_grad_bucket` (fp8_ef, int8_ef, fp8 with
+     grad_compression) and the error-feedback hop: bit for bit.
+  4. port on the card vs port on the CPU: llama3 and qwen3 SMOKE configs,
      fp32, the same numpy-seeded weights; prefill and 4 decode steps.
-  4. smoke training, card vs CPU: `repro_torch.launch.train`'s trainer,
+  5. smoke training, card vs CPU: `repro_torch.launch.train`'s trainer,
      qwen3 SMOKE, fp32, --no-reorder, 3 steps from one CPU-made checkpoint
      (loss, grad norm, storage at TOL32); a restart after an injected
      failure that must end bit-exact; launch counters of every kernel;
      one bf16 loss step, card vs CPU, at TOL.
-  5. full-width serve: llama3-8b, bf16, seeded weights made on the card,
+  6. smoke quantized training, card vs CPU: the same trainer with the
+     prefetch stack (reorder on) at int8_ag and fp8_ef, from one CPU-made
+     checkpoint: int8_ag's first loss step (loss, gradients) at TOL32 and
+     its quantized gathered weights byte-equal; every later step, and
+     every fp8_ef step, within the harness bounds (losses rtol 5e-2,
+     per-coordinate weight drift <= 4*lr*steps: the stochastic-rounding
+     seed depends on every bit of the gradient); a non-zero error-feedback
+     accumulator; a bit-exact fp8_ef restart, EF included; both quant
+     kernels launched.
+  7. full-width serve: llama3-8b, bf16, seeded weights made on the card,
      batch 4, prompt 2000, gen 64 (T = 2064) through
      `repro_torch.launch.serve`; launch counters; and a consistency check,
      prefill over p+1 tokens against prefill over p tokens + one decode step.
-  6. full-width training: qwen3-1.7b, bf16 compute, fp32 storage, B 4,
+  8. full-width training: qwen3-1.7b, bf16 compute, fp32 storage, B 4,
      T 2048, remat fsdp_only, block buckets, reorder off, through
      `parallelize(...).train_step` on `SyntheticC4` batches: 1 warm-up
      step, 6 timed steps; step ms, tokens/s, MFU, peak memory, a profiler
      window's device busy share, launches per step, finite losses.
-  7. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
+  9. full-width prefetch training: the same with reorder on (the
+     bucket+reorder prefetch stack, the reference launcher's default
+     schedule), bf16 wire: the reorder on / off comparison in one call.
+ 10. full-width quantized training (the main path of this slice): the
+     prefetch stack with comm_precision fp8_ef; the same readings plus the
+     collectives per step and the error-feedback accumulator.
+ 11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
 fp32.  Tolerances: TOL32 (rtol 2e-4, atol 2e-5) for fp32 and TOL (rtol 2e-2,
 atol 2e-2) for bf16, those of tests/test_kernels.py; the full-width bf16
 consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY) and an
-equal argmax.
+equal argmax; the quant kernels are held to zero difference; quantized
+training runs that dither differently on the two devices are held to the
+bounds of tests/dist_harness.py's quant case (QUANT_LOSS_RTOL, drift).
 """
 
 from __future__ import annotations
@@ -67,6 +95,8 @@ B, PROMPT, GEN = 4, 2000, 64
 T = PROMPT + GEN
 # full-width training cell: qwen3-1.7b at the reference launcher's default
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 2048, 6
+# quantized runs that dither differently: tests/dist_harness.py case_quant
+QUANT_LOSS_RTOL, QUANT_LR = 5e-2, 1e-3
 
 
 def say(*a):
@@ -440,15 +470,237 @@ def phase_train_kernels(state):
                                library_ms=lib, bound_ms=bound)
 
 
+def _codec_input(n, dtype, seed):
+    """A wire buffer on the card: random values, an all-zero first chunk
+    and, where n allows, a chunk with absmax 127 holding int8 ties k + 0.5
+    at scale 1.0 and one with absmax 448 holding e4m3 ties (1.0625, 17,
+    ...); both hold values at exactly +-QMAX * scale."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda") * 3
+    c = 128
+    x[:c] = 0
+    if n >= 3 * c:
+        x[c:c + 20] = torch.arange(-10, 10, device="cuda") + 0.5
+        x[c + 20], x[c + 21] = 127.0, -127.0
+        x[2 * c:2 * c + 6] = torch.tensor(
+            [448.0, -448.0, 1.0625, -17.0, 0.5 + 2 ** -5, 208.0],
+            device="cuda")
+    return x.to(dtype)
+
+
+def _bits(a):
+    return a.float().view(torch.int32)
+
+
+def check_exact(what, got, want):
+    """Zero difference, bit for bit (as int32 patterns of the f32 values,
+    or as bytes of the wire values)."""
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {want.numel()} differ")
+
+
+def check_rejects_exact(what, planted, want):
+    bad = int((planted != want).sum())
+    if not bad:
+        raise AssertionError(f"{what}: the exact check cannot tell it apart")
+    say(f"  {what}: rejected ({bad} of {want.numel()} values differ)")
+
+
+def _largest_bucket(dcfg):
+    """The param metas of the largest bucket of the full-width prefetch
+    path (qwen3-1.7b, block buckets split at the segments)."""
+    from repro_torch.core.bucketing import plan_for, split_plan_at_segments
+    from repro_torch.core.meta import named_leaves
+    from repro_torch.models.registry import get_arch
+    _, model = get_arch("qwen3_1_7b")
+    tree = model.block_metas(dcfg)
+    metas = [m for _, m in named_leaves(tree)]
+    plan = split_plan_at_segments(plan_for(tree, dcfg), tree,
+                                  model.block_segments(dcfg))
+    return max(([metas[i] for i in g] for g in plan.index_groups(tree)),
+               key=lambda ms: sum(m.chunk_len(dcfg) for m in ms))
+
+
+def _quant_sizes():
+    """(largest bucket of the full-width prefetch path, largest storage
+    leaf = the error-feedback hop's largest call), in elements."""
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.runtime import model_abstract_storage
+    _, model = get_arch("qwen3_1_7b")
+    dcfg = DistConfig(comm_precision="fp8_ef")
+    bucket = sum(m.chunk_len(dcfg) for m in _largest_bucket(dcfg))
+    leaf = max(a.numel() for a in _leaves(model_abstract_storage(model,
+                                                                dcfg)))
+    return bucket, leaf
+
+
+def phase_quant_kernels(state):
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+    bucket, leaf = _quant_sizes()
+    say(f"quant / dequant kernels vs plain, exact (largest bucket {bucket}, "
+        f"largest error-feedback leaf {leaf} elements):")
+    # the largest |kernel - plain| over every case: wire values and scales
+    # for quant, decoded values for dequant (the exact checks raise on
+    # any bit of difference)
+    cases, err_q, err_d = 0, 0.0, 0.0
+    for n in (129, 5000, bucket):
+        for dt in (torch.float32, torch.bfloat16):
+            x = _codec_input(n, dt, seed=n)
+            want_seed = int(qref.buffer_seed(qref.chunk(x)[0]))
+            check_exact(f"n={n} {dt} SR seed", torch.tensor(
+                int(qops.seed_cuda(x)) & qref.M32 | 1), torch.tensor(
+                want_seed))
+            for codec in qref.CODECS:
+                for sr in (False, True):
+                    what = f"n={n} {str(dt)[6:]} {codec} " + \
+                        ("SR" if sr else "RTN")
+                    q, sc = qops.quantize_cuda(x, codec, sr)
+                    wq, ws = qref.quantize(x, codec, sr)
+                    check_exact(f"{what} wire bytes", q.view(torch.uint8),
+                                wq.view(torch.uint8))
+                    check_exact(f"{what} scales", _bits(sc), _bits(ws))
+                    out = qops.dequantize_cuda(q, sc, n, x.shape, dt)
+                    want = qref.dequantize(wq, ws, n, x.shape, dt)
+                    check_exact(f"{what} decoded", _bits(out), _bits(want))
+                    err_q = max(err_q, max_err(q, wq), max_err(sc, ws))
+                    err_d = max(err_d, max_err(out, want))
+                    cases += 1
+                    del q, sc, wq, ws, out, want
+            del x
+    say(f"  {cases} cases: wire bytes, scales, decoded values and SR "
+        "seeds equal the plain version bit for bit")
+    x = _codec_input(leaf, torch.float32, seed=1)
+    q, sc = qops.quantize_cuda(x, "fp8", False)
+    wq, ws = qref.quantize(x, "fp8", False)
+    check_exact(f"n={leaf} f32 fp8 RTN wire bytes", q.view(torch.uint8),
+                wq.view(torch.uint8))
+    check_exact(f"n={leaf} f32 fp8 RTN scales", _bits(sc), _bits(ws))
+    err_q = max(err_q, max_err(q, wq), max_err(sc, ws))
+    say(f"  the error-feedback leaf (n={leaf}, f32 fp8 RTN): equal")
+    say(f"  max abs err over every case: quant {err_q:.3e}, dequant "
+        f"{err_d:.3e}")
+    del x, q, sc, wq, ws
+    torch.cuda.empty_cache()
+
+    # planted wrong results: the exact check must see each
+    x = _codec_input(bucket, torch.float32, seed=2)
+    got = qops.roundtrip(x, "fp8", True)
+    want = qref.roundtrip(x, "fp8", True)
+    check_exact("fp8 SR round trip", _bits(got), _bits(want))
+    check_rejects_exact("planted RTN in place of SR",
+                        _bits(qref.roundtrip(x, "fp8", False)), _bits(want))
+    x2, _ = qref.chunk(x)
+    one_scale = torch.full_like(x2[:, :1], float(x2.abs().max()) / 448.0)
+    per_tensor = (qref.encode_chunks(x2, one_scale, "fp8", False)
+                  .float() * one_scale).reshape(-1)[:bucket]
+    check_rejects_exact("planted per-tensor scale in place of per-chunk",
+                        _bits(per_tensor), _bits(qref.roundtrip(x, "fp8")))
+    del got, want, x2, one_scale, per_tensor
+
+    say("timing at the largest bucket (ms: kernel / plain / bound):")
+    for dt, codec, sr in ((torch.float32, "fp8", True),
+                          (torch.bfloat16, "fp8", False),
+                          (torch.float32, "int8", True),
+                          (torch.float32, "fp8", False)):
+        x = _codec_input(bucket, dt, seed=3)
+        q, sc = qops.quantize_cuda(x, codec, sr)
+        ms_q = time_ms(lambda: qops.quantize_cuda(x, codec, sr))
+        plain_q = time_ms(lambda: qref.quantize(x, codec, sr))
+        ms_d = time_ms(lambda: qops.dequantize_cuda(q, sc, bucket, x.shape,
+                                                    dt))
+        plain_d = time_ms(lambda: qref.dequantize(q, sc, bucket, x.shape,
+                                                  dt))
+        # quant reads x once, writes one byte an element and a f32 scale a
+        # chunk; dequant the reverse; ~8 fp32 operations an element
+        wire = bucket + 4 * sc.numel()
+        bound_q, by_q = _bound(bucket * x.element_size() + wire, 8.0 * bucket)
+        bound_d, by_d = _bound(wire + bucket * x.element_size(), 2.0 * bucket)
+        say(f"  {str(dt)[6:]} {codec} {'SR' if sr else 'RTN'}: quant "
+            f"{ms_q:.4f} / {plain_q:.4f} / {bound_q:.4f} "
+            f"({(bucket * x.element_size() + wire) / ms_q / 1e6:.0f} GB/s); "
+            f"dequant {ms_d:.4f} / {plain_d:.4f} / {bound_d:.4f} "
+            f"({(bucket * x.element_size() + wire) / ms_d / 1e6:.0f} GB/s)")
+        if dt == torch.float32 and codec == "fp8" and sr:
+            state["quant_fwd"] = dict(max_abs_err=err_q, ms=ms_q,
+                                      plain_ms=plain_q, bound_ms=bound_q,
+                                      bound_by=by_q, library_ms=None)
+            state["dequant_fwd"] = dict(max_abs_err=err_d, ms=ms_d,
+                                        plain_ms=plain_d, bound_ms=bound_d,
+                                        bound_by=by_d, library_ms=None)
+        del x, q, sc
+        torch.cuda.empty_cache()
+
+
+def phase_quant_grad_bucket(state):
+    """The gradient half of the quantized path on the largest full-width
+    bucket, card against CPU, bit for bit: the same bf16 gradients packed
+    and finalized by `finalize_grad_bucket` (the stochastic codec per
+    class buffer in the quant kernels, the NCCL reduce-scatter, mean,
+    split; on the CPU the plain codec and gloo), then the error-feedback
+    hop (fp8 RTN in the kernels) on the reduced chunks."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.dist import DistConfig, make_mesh
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.optim.adamw import error_feedback
+    for precision, kw in (("fp8_ef", {}), ("int8_ef", {}),
+                          ("fp8", dict(grad_compression=True))):
+        dcfg = DistConfig(comm_precision=precision, **kw)
+        make_mesh(dcfg)
+        metas = _largest_bucket(dcfg)
+        shapes = [m.shard_shape(dcfg) for m in metas]
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        grads = [(torch.randn(m.local_shape(dcfg), generator=gen,
+                              device="cuda") * 1e-3).to(dcfg.param_dtype)
+                 for m in metas]
+        efs = [torch.randn(s, generator=gen, device="cuda") * 1e-6
+               for s in shapes]
+        got = {}
+        for dev in ("cuda", "cpu"):
+            n0 = qops.quant_launches + qops.dequant_launches
+            chunks = coll.finalize_grad_bucket(
+                coll.pack_grad_bucket([g.to(dev) for g in grads], metas,
+                                      dcfg),
+                metas, dcfg, shapes).wait()
+            outs = list(chunks)
+            if dcfg.needs_ef:
+                ef = {str(i): e.to(dev, copy=True)
+                      for i, e in enumerate(efs)}
+                gq = error_feedback(
+                    {str(i): c for i, c in enumerate(chunks)}, ef)
+                outs += [gq[str(i)] for i in range(len(chunks))]
+                outs += [ef[str(i)] for i in range(len(chunks))]
+            launched = qops.quant_launches + qops.dequant_launches - n0
+            if (launched > 0) != (dev == "cuda"):
+                raise AssertionError(f"{precision} on {dev}: {launched} "
+                                     "quant kernel launches")
+            got[dev] = outs
+        n = sum(m.chunk_len(dcfg) for m in metas)
+        for k, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+            check_exact(f"{precision}{'+gc' if kw else ''} bucket output "
+                        f"{k}", _bits(a.cpu()), _bits(b))
+        say(f"  {precision}{' + grad_compression' if kw else ''}, bucket "
+            f"of {len(metas)} params / {n} elements: reduced chunks"
+            f"{', EF hop (gq, ef)' if dcfg.needs_ef else ''} equal the "
+            "CPU's bit for bit")
+        del grads, efs, got
+        torch.cuda.empty_cache()
+
+
 def _train_counts():
     from repro_torch.core import collectives as coll
     from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.cross_entropy import ops as xent_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     return dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
                 xent_fwd=xent_ops.fwd_launches,
                 xent_bwd=xent_ops.bwd_launches, adamw=adamw_ops.launches,
+                quant_fwd=quant_ops.quant_launches,
+                dequant_fwd=quant_ops.dequant_launches,
                 gathers=coll.gathers, reduce_scatters=coll.reduce_scatters)
 
 
@@ -457,10 +709,16 @@ def _reset_counts():
     from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.cross_entropy import ops as xent_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     rms_ops.launches = flash_ops.launches = adamw_ops.launches = 0
     xent_ops.fwd_launches = xent_ops.bwd_launches = 0
+    quant_ops.quant_launches = quant_ops.dequant_launches = 0
     coll.gathers = coll.reduce_scatters = 0
+
+
+COLLECTIVES = ("gathers", "reduce_scatters")
+QUANT = ("quant_fwd", "dequant_fwd")
 
 
 def phase_smoke_train(state):
@@ -496,10 +754,10 @@ def phase_smoke_train(state):
             runs[dev] = (storage, hist, _train_counts())
         counts = runs["cuda"][2]
         say(f"  launches in the smoke run on the card: {counts}")
-        if min(counts.values()) <= 0:
+        if min(v for k, v in counts.items() if k not in QUANT) <= 0:
             raise AssertionError(f"a kernel never launched: {counts}")
         if max(v for k, v in runs["cpu"][2].items()
-               if k not in ("gathers", "reduce_scatters")) > 0:
+               if k not in COLLECTIVES) > 0:
             raise AssertionError("the CPU run launched a kernel")
         for hc, hg in zip(runs["cpu"][1], runs["cuda"][1]):
             for k in ("loss", "grad_norm"):
@@ -550,9 +808,137 @@ def phase_smoke_train(state):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_smoke_quant_train(state):
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.meta import leaves, named_leaves, tree_map
+    from repro_torch.ft.failures import InjectedFailures
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.train.trainer import Trainer
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_qtrain_"))
+    steps = 3
+    try:
+        def trainer(dev, sub, precision):
+            return launch_train.build_trainer(launch_train.parse_args([
+                "--arch", "qwen3_1_7b", "--smoke", "--steps", str(steps),
+                "--seq", "32", "--batch", "4", "--dtype", "float32",
+                "--device", dev, "--comm-precision", precision, "--lr",
+                str(QUANT_LR), "--ckpt-dir", str(root / sub)]))
+
+        # one CPU-made step-0 checkpoint (EF at zero) starts every run
+        cpu = trainer("cpu", "seed", "fp8_ef")
+        storage, opt = init_train_state(cpu.par,
+                                        torch.Generator().manual_seed(0))
+        cpu.ckpt.save(0, cpu.par.unshard(storage), {
+            k: v if k == "step" else cpu.par.unshard(v)
+            for k, v in opt.items()}, cpu.model, cpu.dcfg)
+        drift_bound = 4.0 * QUANT_LR * steps
+        for precision in ("int8_ag", "fp8_ef"):
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                shutil.copytree(root / "seed", root / f"{precision}_{dev}")
+                tr = trainer(dev, f"{precision}_{dev}", precision)
+                if precision == "int8_ag":
+                    # the first loss step and the quantized gathered weights
+                    whole, _, _ = tr.ckpt.restore(0, tr.model, tr.dcfg)
+                    st = tree_map(lambda a: a.to(tr.par.device),
+                                  tr.par.shard(whole))
+                    runs[f"{dev}_step"] = tr.par.loss_step()(
+                        st, tr.data.batch(0))
+                    blk = tree_map(lambda a: a[0], st["blocks"])
+                    metas = tr.model.block_metas(tr.dcfg)
+                    runs[f"{dev}_gathered"] = coll.gather_group_start(
+                        leaves(blk), leaves(metas), tr.dcfg).wait()
+                _reset_counts()
+                st, opt_state, hist = tr.run()
+                runs[dev] = (st, opt_state, hist, _train_counts())
+            counts = runs["cuda"][3]
+            say(f"  {precision} launches on the card: {counts}")
+            if min(counts[k] for k in QUANT) <= 0:
+                raise AssertionError(f"{precision}: a quant kernel never "
+                                     f"launched: {counts}")
+            if max(v for k, v in runs["cpu"][3].items()
+                   if k not in COLLECTIVES) > 0:
+                raise AssertionError("the CPU run launched a kernel")
+            if precision == "int8_ag":
+                (lc, gc), (lg, gg) = runs["cpu_step"], runs["cuda_step"]
+                check_close("int8_ag first loss cuda vs cpu", lg.cpu(), lc,
+                            TOL32)
+                errs = [check_close(f"int8_ag first grad {n}", a.cpu(), b,
+                                    TOL32)
+                        for (n, a), (_, b) in zip(named_leaves(gg),
+                                                  named_leaves(gc))]
+                say(f"  int8_ag first-step grads: max abs err "
+                    f"{max(errs):.3e}")
+                for a, b in zip(runs["cuda_gathered"],
+                                runs["cpu_gathered"]):
+                    check_exact("int8_ag gathered quantized weights",
+                                _bits(a.cpu()), _bits(b))
+                say("  int8_ag quantized gathered weights: byte-equal")
+            hc, hg = runs["cpu"][2], runs["cuda"][2]
+            for c, g in zip(hc, hg):
+                check_close(f"{precision} step {c['step']} loss cuda vs cpu",
+                            torch.tensor(g["loss"]), torch.tensor(c["loss"]),
+                            dict(rtol=QUANT_LOSS_RTOL, atol=0.0))
+            drift = max(max_err(a.cpu(), b) for (_, a), (_, b) in zip(
+                named_leaves(runs["cuda"][0]), named_leaves(runs["cpu"][0])))
+            say(f"  {precision} weight drift cuda vs cpu after {steps} steps:"
+                f" {drift:.3e} (bound {drift_bound:.1e})")
+            if not drift <= drift_bound:
+                raise AssertionError(f"{precision}: drift {drift:.3e}")
+            if precision == "fp8_ef":
+                ef = max(a.abs().max().item()
+                         for a in leaves(runs["cuda"][1]["ef"]))
+                say(f"  fp8_ef accumulator on the card: max |ef| {ef:.3e}")
+                if not ef > 0:
+                    raise AssertionError("the EF accumulator stayed zero")
+                state["smoke_fp8_ef"] = runs["cuda"]
+
+        # restart after an injected failure: bit-exact, EF included
+        shutil.copytree(root / "seed", root / "restart")
+        ref = trainer("cuda", "restart", "fp8_ef")
+        tr = Trainer(ref.model, ref.dcfg, ref.shape, ref.ocfg,
+                     dataclasses.replace(ref.tcfg, ckpt_every=1),
+                     failure_source=InjectedFailures((2,)), device="cuda")
+        resumed, opt_r, _ = tr.run()
+        clean, opt_c = state["smoke_fp8_ef"][:2]
+        pairs = list(zip(leaves(resumed), leaves(clean))) + list(zip(
+            leaves(opt_r["ef"]), leaves(opt_c["ef"])))
+        exact = all(torch.equal(a, b) for a, b in pairs)
+        say(f"  fp8_ef restart after a failure at step 2: restarts "
+            f"{tr.restarts}, {'bit-exact' if exact else 'NOT bit-exact'} "
+            "(storage and EF)")
+        if tr.restarts != 1 or not exact:
+            raise AssertionError("the restarted fp8_ef run is not bit-exact")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_full_train(state):
-    from repro_torch.core.api import parallelize
+    # the reference's DistConfig defaults but reorder: bf16 compute, fp32
+    # storage and reduce, bf16 gathers, block buckets, remat fsdp_only
     from repro_torch.core.dist import DistConfig
+    _full_train(state, "train", DistConfig(reorder=False))
+
+
+def phase_full_prefetch_train(state):
+    # the reference launcher's defaults: the prefetch stack, bf16 wire
+    from repro_torch.core.dist import DistConfig
+    _full_train(state, "train_prefetch", DistConfig())
+
+
+def phase_full_quant_train(state):
+    # the reference launcher's defaults (the prefetch stack) at fp8_ef
+    from repro_torch.core.dist import DistConfig
+    _full_train(state, "train_fp8_ef", DistConfig(comm_precision="fp8_ef"),
+                need=QUANT)
+
+
+def _full_train(state, key, dcfg, need=()):
+    from repro_torch.core.api import parallelize
     from repro_torch.data.pipeline import DataConfig, SyntheticC4
     from repro_torch.models.common import ShapeConfig
     from repro_torch.models.registry import get_arch
@@ -560,19 +946,17 @@ def phase_full_train(state):
     from repro_torch.train.train_step import default_schedule, \
         init_train_state
     cfg, model = get_arch("qwen3_1_7b")
-    # the reference's DistConfig defaults but reorder: bf16 compute, fp32
-    # storage and reduce, bf16 gathers, block buckets, remat fsdp_only
-    dcfg = DistConfig(reorder=False)
     shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
     par = parallelize(model, dcfg, shape, device="cuda")
-    say(f"plan: {par.plan.describe()}")
+    say(f"plan: {par.plan.describe()} reorder={dcfg.reorder}")
     t0 = time.perf_counter()
     storage, opt_state = init_train_state(
         par, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n = sum(a.numel() for a in _leaves(storage))
     say(f"qwen3-1.7b: {n / 1e9:.4f}B storage elements (padded), fp32 "
-        f"storage + m + v made on the card in {time.perf_counter() - t0:.1f}s")
+        f"storage + {' + '.join(k for k in opt_state if k != 'step')} made "
+        f"on the card in {time.perf_counter() - t0:.1f}s")
     ocfg = AdamWConfig()
     step = par.train_step(ocfg, default_schedule(ocfg, 100, 10))
     data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_T,
@@ -597,7 +981,8 @@ def phase_full_train(state):
     tokens = TRAIN_B * TRAIN_T
     step_s = sorted(times)[len(times) // 2]
     # model FLOPs: 6 x matmul params x tokens (blocks + the tied head; the
-    # lookup has none) + causal attention, 3 x its forward
+    # lookup has none) + causal attention, 3 x its forward; remat's
+    # recompute is not counted
     lay = cfg.gqa_layout(1)
     d, hd = cfg.d_model, cfg.head_dim
     mm_params = cfg.n_layers * (2 * d * lay["hq"] * hd + 2 * d * lay["kvp"]
@@ -615,16 +1000,21 @@ def phase_full_train(state):
     say(f"  losses {losses}; grad_norm {float(m['grad_norm']):.4f}; "
         f"lr {float(m['lr']):.3e}")
     say(f"  launches per step: {per_step}")
-    state["train_launches"] = counts
+    state[f"{key}_launches"] = counts
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw")
+    need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw", *need)
     if min(counts[k] for k in need) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
-    busy = _profile("train step", lambda: step(storage, opt_state,
-                                               batches[-1]), 1, top=24)
-    state["train"] = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
-                          mfu=mfu, max_memory_allocated=peak, busy=busy)
+    if "ef" in opt_state:
+        ef = max(a.abs().max().item() for a in _leaves(opt_state["ef"]))
+        say(f"  error-feedback accumulator: max |ef| {ef:.3e}")
+        if not ef > 0:
+            raise AssertionError("the error-feedback accumulator is zero")
+    busy = _profile(f"{key} step", lambda: step(storage, opt_state,
+                                                batches[-1]), 1, top=24)
+    state[key] = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                      mfu=mfu, max_memory_allocated=peak, busy=busy)
 
 
 def _numpy_params(model, dcfg, seed):
@@ -794,6 +1184,12 @@ def _consistency(params, prefill, decode, x, label):
     return want, got, per_call
 
 
+# kernel families summed in every profiler window
+FAMILIES = {"quant codec (seed + quant + dequant kernels)":
+            ("quant_kernel", "seed_kernel", "dequant_kernel"),
+            "NCCL collectives": ("nccl",)}
+
+
 def _profile(label, fn, n, top=8):
     """Prints device kernel time against wall time over n calls, and the
     `top` kernels that take most of it (torch.profiler).  Returns the
@@ -823,6 +1219,12 @@ def _profile(label, fn, n, top=8):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         say(f"    {e.self_device_time_total / n / 1e3:9.3f} ms "
             f"{e.count // n:5d}x  {e.key[:90]}")
+    for family, keys in FAMILIES.items():
+        fam = [e for e in rows if any(k in e.key for k in keys)]
+        if fam:
+            us = sum(e.self_device_time_total for e in fam)
+            say(f"  {family}: {us / n / 1e3:.3f} ms, "
+                f"{sum(e.count for e in fam) // n} kernels per call")
     return dev_us / 1e6 / wall
 
 
@@ -835,32 +1237,37 @@ def _leaves(tree):
 
 
 def kernels_line(state):
-    """One row per ported kernel.  `launches` counts the full-width
-    training run (the path of this slice, which runs all five);
-    `launches_by_path` adds the serving run's counts."""
+    """One row per ported kernel.  `launches` counts the main path's run:
+    the full-width quantized training (fp8_ef, the prefetch stack), which
+    runs all seven; `launches_by_path` adds the serving run's and the bf16
+    training runs' (vanilla and prefetch) counts."""
     src = "src/repro_torch/csrc/"
-    train, serve = state["train_launches"], state["launches"]
+    main, train, prefetch, serve = (
+        state["train_fp8_ef_launches"], state["train_launches"],
+        state["train_prefetch_launches"], state["launches"])
+
+    def row(name, key, source, replaces, serve_key=None):
+        by_path = dict(train=train[key], train_prefetch=prefetch[key],
+                       train_fp8_ef=main[key])
+        if serve_key:
+            by_path["serve"] = serve[serve_key]
+        return dict(name=name, route="cuda", source=src + source,
+                    replaces="src/repro/kernels/" + replaces,
+                    launches=main[key], **state[key],
+                    launches_by_path=by_path)
+
     rows = [
-        dict(name="rmsnorm", route="cuda", source=src + "rmsnorm.cu",
-             replaces="src/repro/kernels/rmsnorm/kernel.py:29",
-             launches=train["rmsnorm"], **state["rmsnorm"],
-             launches_by_path=dict(serve=serve["rmsnorm"],
-                                   train=train["rmsnorm"])),
-        dict(name="flash_attention", route="cuda",
-             source=src + "flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention/kernel.py:77",
-             launches=train["flash"], **state["flash"],
-             launches_by_path=dict(serve=serve["flash"],
-                                   train=train["flash"])),
-        dict(name="xent_fwd", route="cuda", source=src + "cross_entropy.cu",
-             replaces="src/repro/kernels/cross_entropy/kernel.py:61",
-             launches=train["xent_fwd"], **state["xent_fwd"]),
-        dict(name="xent_bwd", route="cuda", source=src + "cross_entropy.cu",
-             replaces="src/repro/kernels/cross_entropy/kernel.py:96",
-             launches=train["xent_bwd"], **state["xent_bwd"]),
-        dict(name="adamw_flat", route="cuda", source=src + "adamw.cu",
-             replaces="src/repro/kernels/adamw/kernel.py:40",
-             launches=train["adamw"], **state["adamw"]),
+        row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
+            "rmsnorm"),
+        row("flash_attention", "flash", "flash_attention.cu",
+            "flash_attention/kernel.py:77", "flash"),
+        row("xent_fwd", "xent_fwd", "cross_entropy.cu",
+            "cross_entropy/kernel.py:61"),
+        row("xent_bwd", "xent_bwd", "cross_entropy.cu",
+            "cross_entropy/kernel.py:96"),
+        row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40"),
+        row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46"),
+        row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
     ]
     return json.dumps({"kernels": rows})
 
@@ -878,10 +1285,19 @@ def main() -> int:
     for name, phase in [("device", phase_device),
                         ("kernels vs plain", phase_kernels),
                         ("training kernels vs plain", phase_train_kernels),
+                        ("quant kernels vs plain", phase_quant_kernels),
+                        ("quantized reduce-scatter cuda vs cpu",
+                         phase_quant_grad_bucket),
                         ("smoke cuda vs cpu", phase_smoke_parity),
                         ("smoke training cuda vs cpu", phase_smoke_train),
+                        ("smoke quantized training cuda vs cpu",
+                         phase_smoke_quant_train),
                         ("full-width serve", phase_full_width),
-                        ("full-width training", phase_full_train)]:
+                        ("full-width training", phase_full_train),
+                        ("full-width prefetch training",
+                         phase_full_prefetch_train),
+                        ("full-width quantized training",
+                         phase_full_quant_train)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

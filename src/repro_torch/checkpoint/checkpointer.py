@@ -4,7 +4,12 @@
 Layout: one .npy per leaf holding the LOGICAL full array in the storage
 dtype (`unshard_params`), named by its '/'-joined path with '/' -> '__',
 plus `opt_step` and a JSON manifest (step, leaf index, extra).  A checkpoint
-written by either package loads in the other.  Writes go to a temp
+written by either package loads in the other.  The optimizer state's
+error-feedback accumulator (`ef`, fp32, storage-shaped) is written as
+`ef/...` leaves beside `m/` and `v/` when the state has one.  The
+reference's checkpointer does not write it, and its restore of a `*_ef`
+run fails on the missing leaves; the port restores a checkpoint without
+them, for a config that needs one, with the accumulator at zero.  Writes go to a temp
 directory that is renamed into place; an optional thread makes saves
 async.  `save` takes the WHOLE storage (every rank's chunk, see
 `Parallelized.unshard`); `restore` returns whole storage on the CPU.
@@ -21,8 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.dist import DistConfig
-from repro_torch.core.meta import named_leaves
+from repro_torch.core.meta import named_leaves, tree_map
 from repro_torch.models import runtime as RT
+
+
+_OPT_TREES = ("m", "v", "ef")   # storage-shaped optimizer trees
 
 
 def _host(a) -> np.ndarray:
@@ -41,14 +49,11 @@ class Checkpointer:
              extra: dict | None = None):
         from repro_torch.core.api import unshard_params
         metas = model.metas(dcfg)
+        trees = {"params": storage, **{k: opt_state[k] for k in _OPT_TREES
+                                       if k in opt_state}}
         payload = dict(named_leaves({
-            "params": {k: unshard_params(storage[k], metas[k], dcfg)
-                       for k in storage},
-            "m": {k: unshard_params(opt_state["m"][k], metas[k], dcfg)
-                  for k in opt_state["m"]},
-            "v": {k: unshard_params(opt_state["v"][k], metas[k], dcfg)
-                  for k in opt_state["v"]},
-        }))
+            name: {k: unshard_params(t[k], metas[k], dcfg) for k in t}
+            for name, t in trees.items()}))
         payload["opt_step"] = opt_state["step"]
         if self._thread is not None:
             self._thread.join()     # the previous async save lands first
@@ -89,7 +94,8 @@ class Checkpointer:
 
     def restore(self, step: int, model, dcfg: DistConfig):
         """Returns (whole storage, opt_state, manifest) on the CPU, laid out
-        for `dcfg`."""
+        for `dcfg`.  opt_state has "ef" when `dcfg.needs_ef`: the
+        checkpoint's, or zeros when it holds none."""
         from repro_torch.core.api import shard_params
         d = os.path.join(self.root, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
@@ -113,4 +119,9 @@ class Checkpointer:
         opt_state = {"m": layout("m/"), "v": layout("v/"),
                      "step": torch.tensor(int(loaded["opt_step"]),
                                           dtype=torch.int32)}
+        if dcfg.needs_ef:
+            opt_state["ef"] = layout("ef/") if any(
+                k.startswith("ef/") for k in loaded) else tree_map(
+                lambda a: torch.zeros(a.shape, dtype=torch.float32),
+                opt_state["m"])
         return layout("params/"), opt_state, manifest

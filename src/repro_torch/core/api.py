@@ -75,23 +75,19 @@ class ParallelPlan:
                         zip(d.mesh_axes, d.mesh_shape))
         buckets = ",".join(f"{k}:{p.n_buckets}"
                            for k, p in self.bucket_plans.items())
+        quant = f" comm={d.comm_precision}" \
+            if d.comm_precision != "bf16" else ""
         return (f"mesh[{mesh}] fsdp={d.fsdp_axes} tp={d.tp_size} "
-                f"remat={self.remat} buckets[{buckets}]")
+                f"remat={self.remat} buckets[{buckets}]{quant}")
 
 
 def plan_parallel(model, dcfg: DistConfig, shape=None) -> ParallelPlan:
     """Build + validate the frozen `ParallelPlan` for one (model, dcfg).
     Raises a pointed "not yet ported" error for every layout the port does
-    not run (tp > 1, pp/cp axes, quantized collectives, the prefetch stack,
-    the auto bucket and memory planners)."""
+    not run (tp > 1, pp/cp axes, comm_precision='auto', the auto bucket and
+    memory planners)."""
     from repro_torch.models.runtime import stacked_keys as model_stacked_keys
     check_trainable(dcfg)
-    if dcfg.reorder:
-        raise NotImplementedError(
-            "reorder=True: the bucket+reorder prefetch stack (the "
-            "reference's core/stack.py `_prefetch_stack`, ROADMAP item 5) "
-            "is not yet ported to repro_torch; pass reorder=False "
-            "(--no-reorder) for the vanilla bucketed schedule")
     parse_remat(dcfg.remat)
     if shape is not None:
         rows = dcfg.dp_total * max(1, dcfg.microbatches)

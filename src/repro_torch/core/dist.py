@@ -3,10 +3,12 @@ and the process group the FSDP collectives run on.
 
 One frozen `DistConfig` flows through the port, as in the reference.  It
 carries the fields the serving path and the pp=1 FSDP training path read:
-the (data, model) mesh, the ZeRO-3 domain, the mixed-precision dtypes and
-the SimpleFSDP schedule knobs.  What the port does not run yet raises a
-pointed "not yet ported" error (`check_trainable`): tp > 1, pipeline or
-context axes, HSDP replication axes, and any `comm_precision` but "bf16".
+the (data, model) mesh, the ZeRO-3 domain, the mixed-precision dtypes, the
+SimpleFSDP schedule knobs (bucketing, the prefetch stack and its Table-6
+flags) and the wire precision of the collectives.  What the port does not
+run yet raises a pointed "not yet ported" error (`check_trainable`): tp > 1,
+pipeline or context axes, HSDP replication axes, and
+`comm_precision="auto"` (it needs the bucket planners).
 `make_mesh` checks (or, at world size 1, creates) the `torch.distributed`
 process group the FSDP collectives run on.
 """
@@ -20,6 +22,30 @@ import torch
 import torch.distributed as dist
 
 TP_AXIS = "model"
+
+# Wire-precision vocabulary of the bucket collectives (the reference's
+# `repro.core.dist`): 'bf16' is uncompressed; '*_ag' quantizes the param
+# all-gathers only (RTN); 'fp8' / 'int8' add a stochastically rounded grad
+# reduce-scatter; '*_ef' add the error-feedback accumulator in the
+# optimizer state; 'auto' lets the planner pick from AUTO_PRECISIONS per
+# bucket (not ported: it needs the bucket planners).
+COMM_PRECISIONS = ("bf16", "fp8_ag", "fp8", "fp8_ef",
+                   "int8_ag", "int8", "int8_ef", "auto")
+AUTO_PRECISIONS = ("bf16", "fp8_ag", "fp8_ef", "int8_ag", "int8_ef")
+
+
+def precision_codecs(precision: str) -> tuple[str | None, str | None]:
+    """(all-gather codec, reduce-scatter codec) of one RESOLVED precision;
+    None means uncompressed."""
+    return {
+        "bf16": (None, None),
+        "fp8_ag": ("fp8", None),
+        "fp8": ("fp8", "fp8"),
+        "fp8_ef": ("fp8", "fp8"),
+        "int8_ag": ("int8", None),
+        "int8": ("int8", "int8"),
+        "int8_ef": ("int8", "int8"),
+    }[precision]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +63,36 @@ class DistConfig:
     # cast to param_dtype BEFORE the all-gather (halves the gathered bytes)
     gather_in_param_dtype: bool = True
 
-    # SimpleFSDP schedule knobs (paper SS3.2)
+    # SimpleFSDP schedule knobs (paper SS3.2, Tables 5/6)
     bucket_mode: object = "block"      # 'none' | 'block' | a BucketPlan
-    reorder: bool = True               # prefetch stack: not yet ported
+    reorder: bool = True               # the bucket+reorder prefetch stack
+    # pipeline the prefetch per block segment (attn / mlp); off = one
+    # whole-layer gather point per layer
+    segment_prefetch: bool = True
+    # Table 6: issue the prefetch all-gather before (True) or after (False)
+    # the current segment's compute, in forward and backward
+    ag_before_wait_fwd: bool = True
+    ag_before_wait_bwd: bool = False
+    # delay each bucket's reduce-scatter by one layer (paper: "Wr12 placed
+    # before RS34")
+    rs_delay: bool = True
     remat: str = "fsdp_only"           # core/remat.py vocabulary
-    comm_precision: str = "bf16"       # quantized collectives: not ported
+    # reduce-scatter in bf16, accumulated in reduce_dtype afterwards
+    grad_compression: bool = False
+    comm_precision: str = "bf16"       # COMM_PRECISIONS
     microbatches: int = 1              # gradient accumulation
+
+    def __post_init__(self):
+        if self.comm_precision not in COMM_PRECISIONS:
+            raise ValueError(f"comm_precision={self.comm_precision!r} not in "
+                             f"{COMM_PRECISIONS}")
+
+    @property
+    def needs_ef(self) -> bool:
+        """Whether the optimizer state carries the error-feedback
+        accumulator: the *_ef modes, and 'auto' (the planner may give any
+        bucket an _ef precision)."""
+        return self.comm_precision in ("fp8_ef", "int8_ef", "auto")
 
     def axis_size(self, name: str) -> int:
         return self.mesh_shape[self.mesh_axes.index(name)]
@@ -99,10 +149,12 @@ def check_trainable(dcfg: DistConfig) -> None:
             raise NotImplementedError(
                 f"axis {a!r} of size {s} replicates parameters (HSDP); "
                 "not yet ported to repro_torch — put it in fsdp_axes")
-    if dcfg.comm_precision != "bf16":
+    if dcfg.comm_precision == "auto":
         raise NotImplementedError(
-            f"comm_precision={dcfg.comm_precision!r}: quantized collectives "
-            "are not yet ported to repro_torch (ROADMAP item 8); use 'bf16'")
+            "comm_precision='auto': the per-bucket precision planner needs "
+            "the bucket planners (autowrap / irgraph / hw, ROADMAP item 4), "
+            "which are not yet ported to repro_torch; pick a fixed precision "
+            f"from {COMM_PRECISIONS[:-1]}")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

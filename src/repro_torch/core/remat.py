@@ -22,6 +22,12 @@ and gathered again before their backward use.  In the port:
 ``parse_remat`` validates a spec once; ``"auto:<GB>"`` (the budgeted
 memory planner, ROADMAP item 6) raises "not yet ported".  A comma-joined
 per-segment vector ("attn=full,mlp=fsdp_only") is supported.
+
+On the prefetch path (`reorder=True`, `core/stack.py`) the hand-written
+backward already saves only each layer's input and re-gathers per bucket,
+so ``none`` and ``fsdp_only`` change nothing there; ``full`` and
+``save_dots`` checkpoint a segment inside the backward's recompute, which
+bounds how much of it is resident at once (the values are the same).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.core import collectives as coll
 
 POLICIES = ("none", "fsdp_only", "full", "save_dots")
+_AGGRESSIVENESS = ("none", "fsdp_only", "save_dots", "full")
 AUTO_PREFIX = "auto"
 VECTOR_KIND = "vector"
 
@@ -111,6 +118,13 @@ def resolve_segment_policies(spec: str, seg_names) -> tuple[str, ...]:
             f"remat={spec!r}: named entries must cover the block segments "
             f"{seg_names} exactly; missing={missing} unknown={unknown}")
     return tuple(by_name[s] for s in seg_names)
+
+
+def most_aggressive(policies) -> str:
+    """The most memory-aggressive entry of a policy vector: what a
+    whole-block wrap uses so it never saves more than the vector
+    promised."""
+    return max(policies, key=_AGGRESSIVENESS.index)
 
 
 def _save_dots_policy(ctx, op, *args, **kwargs):

@@ -1,0 +1,164 @@
+"""Quantize / dequantize ops of the wire codec (port of
+`repro.kernels.quant.ops`): a CUDA tensor goes to the hand-written kernels
+(`csrc/quant.cu`: `quant_seed` + `quant_fwd`, `dequant_fwd`), a CPU tensor
+to the plain version (`ref.py`).  The two are equal bit for bit.
+
+`roundtrip` is the entry the collectives and the error-feedback hop use:
+encode the flat buffer to the wire codec and decode it back, which equals
+sending the quantized payload (dequantization commutes with the all-gather
+and with a reduce that sums each contribution quantized once).  The op is
+not differentiable: it runs only inside the collectives' hand-written
+forward and backward and the optimizer.
+
+There is no fallback: a CUDA input the kernels do not take, a failed build
+or a failed launch raises.  `quant_launches` / `dequant_launches` count
+kernel launches (the SR seed pass belongs to its quant launch).  The
+KV-cache codec of the reference (`encode_kv` / `decode_kv`) belongs to the
+serving slice that quantizes the cache and is not here yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.quant import ref
+
+QCHUNK = ref.QCHUNK
+
+quant_launches = 0
+dequant_launches = 0
+
+_DTYPES = {torch.float32: build.F32, torch.bfloat16: build.BF16}
+_CODECS = {"fp8": 0, "int8": 1}
+# inputs index the hash as u32 and the plain version as int64 products
+MAX_ELEMS = (1 << 31) - 1
+
+
+def roundtrip(x: torch.Tensor, codec: str | None,
+              stochastic: bool = False,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """x through the wire codec and back, in x's shape and dtype (x itself
+    when codec is None), written into `out` when given (contiguous, x's
+    shape and dtype; it may be x itself)."""
+    if codec is None:
+        return x
+    if x.device.type == "cpu":
+        y = ref.roundtrip(x, codec, stochastic)
+        return y if out is None else out.copy_(y)
+    q, s = quantize_cuda(x, codec, stochastic)
+    return dequantize_cuda(q, s, x.numel(), x.shape, x.dtype, out=out)
+
+
+@functools.cache
+def _fns():
+    lib = build.library().cdll
+    p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+        ctypes.c_float
+    lib.quant_seed.argtypes = [p, i, ll, p, i, p]
+    lib.quant_fwd.argtypes = [p, i, ll, i, i, p, f, f, p, p, i, p]
+    lib.dequant_fwd.argtypes = [p, p, i, ll, p, i, i, p]
+    for fn in (lib.quant_seed, lib.quant_fwd, lib.dequant_fwd):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _dev_sms(dev: torch.device) -> int:
+    return _sms(dev.index if dev.index is not None
+                else torch.cuda.current_device())
+
+
+def _check_input(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: input on {x.device}; needs a CUDA tensor")
+    if x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"{what}: input {x.dtype} contiguous="
+                         f"{x.is_contiguous()}; the kernel takes contiguous "
+                         "float32 or bfloat16")
+    if x.numel() > MAX_ELEMS:
+        raise ValueError(f"{what}: {x.numel()} elements; at most "
+                         f"{MAX_ELEMS}")
+
+
+def seed_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The wraparound u32 sum of x's f32 bits (before the | 1), an int32
+    device scalar holding the u32 bits.  A helper pass of `quantize_cuda`;
+    exposed for the checks against `ref.buffer_seed`."""
+    _check_input(x, "quant seed")
+    seed = torch.empty((), dtype=torch.int32, device=x.device)
+    if x.numel():
+        build.check(_fns().quant_seed(
+            x.data_ptr(), _DTYPES[x.dtype], x.numel(), seed.data_ptr(),
+            _dev_sms(x.device), build.stream_ptr(x.device)), "quant_seed")
+    else:
+        seed.zero_()
+    return seed
+
+
+def quantize_cuda(x: torch.Tensor, codec: str, stochastic: bool):
+    """The quant kernel: (q (m, QCHUNK), scales (m, 1) f32) of x."""
+    global quant_launches
+    _check_input(x, "quant kernel")
+    if codec not in _CODECS:
+        raise ValueError(f"unknown codec {codec!r}; one of {ref.CODECS}")
+    n = x.numel()
+    m = math.ceil(n / QCHUNK)
+    q = torch.empty((m, QCHUNK), dtype=ref.WIRE_DTYPE[codec],
+                    device=x.device)
+    s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return q, s
+    seed = seed_cuda(x) if stochastic else None
+    qmax = ref.QMAX[codec]
+    build.check(_fns().quant_fwd(
+        x.data_ptr(), _DTYPES[x.dtype], n, _CODECS[codec], int(stochastic),
+        None if seed is None else seed.data_ptr(), qmax, 1.0 / qmax,
+        q.data_ptr(), s.data_ptr(), _dev_sms(x.device),
+        build.stream_ptr(x.device)), "quant_fwd")
+    quant_launches += 1
+    return q, s
+
+
+def dequantize_cuda(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
+                    dtype, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The dequant kernel: the first n decoded values in `shape`, `dtype`,
+    written into `out` when given."""
+    global dequant_launches
+    codec = {v: k for k, v in ref.WIRE_DTYPE.items()}.get(q.dtype)
+    m = math.ceil(n / QCHUNK)
+    if (codec is None or q.device.type != "cuda" or tuple(q.shape) !=
+            (m, QCHUNK) or not q.is_contiguous()):
+        raise ValueError(f"dequant kernel: q {q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}; needs contiguous ({m}, {QCHUNK}) e4m3 "
+                         "or int8 on a CUDA device")
+    if (scales.device != q.device or scales.dtype != torch.float32
+            or scales.numel() != m or not scales.is_contiguous()):
+        raise ValueError(f"dequant kernel: scales {scales.dtype} "
+                         f"{tuple(scales.shape)} on {scales.device}; needs "
+                         f"{m} contiguous float32 on {q.device}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"dequant kernel: output {dtype}; float32 or "
+                         "bfloat16")
+    if out is None:
+        out = torch.empty(n, dtype=dtype, device=q.device)
+    elif (out.device != q.device or out.dtype != dtype or out.numel() != n
+          or not out.is_contiguous()):
+        raise ValueError(f"dequant kernel: out {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}; needs {n} "
+                         f"contiguous {dtype} on {q.device}")
+    if n:
+        build.check(_fns().dequant_fwd(
+            q.data_ptr(), scales.data_ptr(), _CODECS[codec], n,
+            out.data_ptr(), _DTYPES[dtype], _dev_sms(q.device),
+            build.stream_ptr(q.device)), "dequant_fwd")
+        dequant_launches += 1
+    return out.reshape(shape)

@@ -1,18 +1,18 @@
 """Training launcher CLI (port of `repro.launch.train` at pp = 1, tp = 1).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_1_7b \\
-      --no-reorder --seq 2048 --batch 4 --steps 20
-  PYTHONPATH=src python -m repro_torch.launch.train --smoke --no-reorder \\
-      --device cpu --steps 3 --dtype float32
+      --seq 2048 --batch 4 --steps 20 --comm-precision fp8_ef
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 3 --dtype float32 --comm-precision fp8_ef
 
 Runs on the card unless `--device cpu` is given.  At world size 1 it
 creates its own one-rank process group on an in-process store (no
 network); a multi-rank run initialises `torch.distributed` itself (one
-process per card, `--mesh D,1`) before calling `main`.  The vanilla
-bucketed schedule needs `--no-reorder`: the prefetch stack is not ported
-yet, and without the flag the run stops with that error.  The
-reference's observability and replanning flags are accepted and raise
-"not yet ported".
+process per card, `--mesh D,1`) before calling `main`.  The default
+schedule is the reference's: the bucket+reorder prefetch stack;
+`--no-reorder` runs the vanilla bucketed schedule.  `--comm-precision auto`
+and the reference's observability and replanning flags are accepted and
+raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import os
 import tempfile
 
 import torch
+
+from repro_torch.core.dist import COMM_PRECISIONS
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _OBS_FLAGS = ("metrics_jsonl", "trace_out", "profile_out",
@@ -43,7 +45,12 @@ def parse_args(argv=None):
     ap.add_argument("--cp", type=int, default=1)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--bucket-mode", default="block")
-    ap.add_argument("--comm-precision", default="bf16")
+    ap.add_argument("--comm-precision", default="bf16",
+                    choices=COMM_PRECISIONS,
+                    help="collective wire precision (kernels/quant): bf16 "
+                         "off; *_ag quantize the param all-gathers; fp8 / "
+                         "int8 also the grad reduce-scatter; *_ef add error "
+                         "feedback; auto is not ported")
     ap.add_argument("--no-reorder", action="store_true")
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
@@ -73,9 +80,6 @@ def build_trainer(args):
             f"{unported}: the observability slice (metrics registry, "
             "traces, profile-guided replanning) is not yet ported to "
             "repro_torch")
-    if args.grad_compression:
-        raise NotImplementedError(
-            "--grad-compression is not yet ported to repro_torch")
     if args.pp > 1 or args.cp > 1:
         raise NotImplementedError(
             f"--pp {args.pp} / --cp {args.cp}: pipeline and context "
@@ -87,7 +91,8 @@ def build_trainer(args):
         mesh_shape=mesh_shape, param_dtype=DTYPES[args.dtype],
         reduce_dtype=torch.float32, bucket_mode=args.bucket_mode,
         reorder=not args.no_reorder,
-        comm_precision=args.comm_precision, microbatches=args.microbatches)
+        comm_precision=args.comm_precision, microbatches=args.microbatches,
+        grad_compression=args.grad_compression)
     _, model = get_arch(args.arch, smoke=args.smoke)
     shape = ShapeConfig("train", args.seq, args.batch, "train")
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=args.steps,

@@ -106,15 +106,22 @@ def storage_from_jax(tree, model, dcfg: DistConfig, device="cuda"):
 
 
 def opt_state_from_jax(state, model, dcfg: DistConfig, device="cuda"):
-    """The reference's optimizer state {"m", "v", "step"} (numpy) -> the
-    port's; m and v are checked like the storage, step becomes an int32
-    device scalar."""
+    """The reference's optimizer state {"m", "v", "step"[, "ef"]} (numpy)
+    -> the port's; m, v (and the error-feedback accumulator, which the
+    state has exactly when `dcfg.needs_ef`) are checked like the storage,
+    step becomes an int32 device scalar."""
     dev = resolve_device(device)
-    if set(state) != {"m", "v", "step"}:
-        raise ValueError(f"opt_state: expected keys ['m', 'step', 'v'] (no "
-                         f"error feedback in the port), got {sorted(state)}")
-    return {"m": storage_from_jax(state["m"], model, dcfg, dev),
-            "v": storage_from_jax(state["v"], model, dcfg, dev),
-            "step": torch.tensor(int(np.asarray(state["step"])),
-                                 dtype=torch.int32, device=dev)}
+    keys = {"m", "v", "step"} | ({"ef"} if dcfg.needs_ef else set())
+    if set(state) != keys:
+        raise ValueError(
+            f"opt_state: expected keys {sorted(keys)} (error feedback "
+            f"exactly when comm_precision={dcfg.comm_precision!r} needs "
+            f"it), got {sorted(state)}")
+    out = {k: storage_from_jax(state[k], model, dcfg, dev)
+           for k in ("m", "v", "ef") if k in keys}
+    if "ef" in out:
+        out["ef"] = tree_map(lambda a: a.to(torch.float32), out["ef"])
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
 

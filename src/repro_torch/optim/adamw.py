@@ -1,5 +1,5 @@
-"""ZeRO-sharded AdamW (port of `repro.optim.adamw`, without error
-feedback: quantized collectives are not ported).
+"""ZeRO-sharded AdamW with the error-feedback hop of the quantized
+collectives (port of `repro.optim.adamw`).
 
 Parameters live as flat local shards (core/meta.py), so the optimizer is
 ZeRO-3 by construction: moments are allocated per shard and the update is
@@ -9,6 +9,13 @@ the reference.  The update runs in the fused AdamW kernel
 (`kernels/adamw`), one launch per storage leaf, reading lr, the step and
 the clip scale from device scalars: a step never syncs with the host.
 p, m and v are updated in place.
+
+Under a `*_ef` wire precision the state carries an fp32 error-feedback
+accumulator `ef` beside m and v (`DistConfig.needs_ef`): each step the
+shard-local reduced gradient plus `ef` goes through the fp8 wire codec
+(round to nearest; the reference uses fp8 here under int8_ef too), the
+decoded value feeds the norm and the update, and the rounding residual is
+kept for the next step.
 """
 
 from __future__ import annotations
@@ -19,8 +26,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.dist import DistConfig
-from repro_torch.core.meta import leaves, tree_map
+from repro_torch.core.meta import leaves, tree_map, unflatten_like
 from repro_torch.kernels.adamw import ops as adamw_ops
+from repro_torch.kernels.quant import ops as quant_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,13 +41,19 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
-def init_opt_state(storage_tree):
+def init_opt_state(storage_tree, cfg: DistConfig | None = None):
     """Fresh moments beside the storage and the step counter (an int32
-    device scalar)."""
+    device scalar), plus the fp32 error-feedback accumulator when
+    `cfg.needs_ef`."""
     dev = leaves(storage_tree)[0].device
-    return {"m": tree_map(torch.zeros_like, storage_tree),
-            "v": tree_map(torch.zeros_like, storage_tree),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    state = {"m": tree_map(torch.zeros_like, storage_tree),
+             "v": tree_map(torch.zeros_like, storage_tree),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg is not None and cfg.needs_ef:
+        state["ef"] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), storage_tree)
+    return state
 
 
 def global_grad_norm(grads_tree, cfg: DistConfig) -> torch.Tensor:
@@ -51,11 +65,35 @@ def global_grad_norm(grads_tree, cfg: DistConfig) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def error_feedback(grads, ef):
+    """The quantize-compensate hop: g2 = g + ef; gq = fp8 round trip of g2
+    (round to nearest); ef' = g2 - gq.  Returns gq; `ef` becomes ef' IN
+    PLACE (g2 is formed in its buffer)."""
+    out = []
+    for g, e in zip(leaves(grads), leaves(ef)):
+        e.add_(g.to(torch.float32))
+        gq = quant_ops.roundtrip(e, "fp8", stochastic=False)
+        e.sub_(gq)
+        out.append(gq)
+    return unflatten_like(grads, out)
+
+
 def apply_adamw(storage, grads, opt_state, cfg: DistConfig,
                 ocfg: AdamWConfig, lr: torch.Tensor) -> torch.Tensor:
     """One AdamW step on the sharded storage, IN PLACE on storage and
-    opt_state.  lr: fp32 device scalar.  Returns the global grad norm."""
+    opt_state (the error-feedback hop first; the state carries "ef"
+    exactly when `cfg.needs_ef`).  lr: fp32 device scalar.  Returns the
+    global grad norm."""
+    if ("ef" in opt_state) != cfg.needs_ef:
+        raise ValueError(
+            f"comm_precision={cfg.comm_precision!r} "
+            f"{'needs' if cfg.needs_ef else 'takes no'} error-feedback "
+            "state, but the optimizer state "
+            f"{'lacks' if cfg.needs_ef else 'carries'} 'ef': build it with "
+            "init_opt_state(storage, cfg)")
     t = opt_state["step"] + 1
+    if "ef" in opt_state:
+        grads = error_feedback(grads, opt_state["ef"])
     gnorm = global_grad_norm(grads, cfg)
     scale = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if ocfg.grad_clip else torch.ones_like(gnorm)

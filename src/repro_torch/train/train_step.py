@@ -88,6 +88,7 @@ def default_schedule(ocfg: AdamWConfig, total_steps: int, warmup: int = 100):
 
 def init_train_state(par, generator: torch.Generator):
     """Fresh seeded storage (this rank's shards, made on the device) and
-    optimizer state."""
+    optimizer state (with the error-feedback accumulator when the config's
+    wire precision needs one)."""
     storage = par.init_storage(generator)
-    return storage, init_opt_state(storage)
+    return storage, init_opt_state(storage, par.dcfg)

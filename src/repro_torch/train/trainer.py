@@ -4,7 +4,9 @@ restore, failure restart, straggler monitor, checkpoints and history.
 It resolves a `ParallelPlan` through `core/api.parallelize` and drives the
 plan's train step.  Checkpoints hold the logical (topology-independent)
 layout in the reference's format, so a run restarts from a checkpoint
-written by either package.  The reference's observability pieces (metrics
+written by either package; the port's also hold the error-feedback
+accumulator of a `*_ef` run (the reference's drop it, and resume with it
+at zero).  The reference's observability pieces (metrics
 registry, drift monitor, modeled step time, replanning) are not ported
 yet.
 """
@@ -72,18 +74,16 @@ class Trainer:
             to_dev = functools.partial(tree_map,
                                        lambda a: a.to(self.par.device))
             storage = to_dev(self.par.shard(storage))
-            opt_state = to_dev({"m": self.par.shard(opt_state["m"]),
-                                "v": self.par.shard(opt_state["v"]),
-                                "step": opt_state["step"]})
+            opt_state = to_dev({k: v if k == "step" else self.par.shard(v)
+                                for k, v in opt_state.items()})
             log.info("restored step %d", latest)
             return storage, opt_state, latest
         storage, opt_state = init_train_state(self.par, generator)
         return storage, opt_state, 0
 
     def _save(self, step, storage, opt_state):
-        whole = {"m": self.par.unshard(opt_state["m"]),
-                 "v": self.par.unshard(opt_state["v"]),
-                 "step": opt_state["step"]}
+        whole = {k: v if k == "step" else self.par.unshard(v)
+                 for k, v in opt_state.items()}
         storage = self.par.unshard(storage)
         if self.par.mesh.rank == 0:
             self.ckpt.save(step, storage, whole, self.model, self.dcfg)

@@ -7,7 +7,9 @@ only torch and the port, so it also runs where JAX is not installed:
 
 chip_smoke.py holds the kernels against their plain versions at the
 serving and training paths' full shapes; these are small, quick cases.
-The gradients of the rmsnorm and flash `autograd.Function`s (kernel
+The quant pair must equal its plain version bit for bit (wire bytes,
+scales, decoded values, the SR seed).  The gradients of the rmsnorm and
+flash `autograd.Function`s (kernel
 forward, plain-torch backward) are held against autograd through the
 plain versions.  Tolerances:
 TOL32 (rtol 2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16.
@@ -21,6 +23,7 @@ from repro_torch.kernels.cross_entropy import ops as xent_ops, \
     ref as xent_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops, \
     ref as flash_ref
+from repro_torch.kernels.quant import ops as quant_ops, ref as quant_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
 
 pytestmark = pytest.mark.cuda
@@ -234,3 +237,73 @@ def test_adamw_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         adamw_ops.adamw_update(p, p.clone(), p.clone(), p.clone(), lr=lr,
                                t=t.float(), scale=scale, **hyper)
+
+
+def codec_input(n, dtype, dev, seed=0):
+    """A buffer for the wire codec: random values, an all-zero first chunk
+    and, where n allows, a chunk whose absmax is 127 holding int8 ties
+    (k + 0.5 at scale 1.0) and one whose absmax is 448 holding e4m3 ties
+    (1.0625, 17, ...); both hold values at exactly +-QMAX * scale."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * 3
+    x[:quant_ref.QCHUNK] = 0
+    c = quant_ref.QCHUNK
+    if n >= 3 * c:
+        x[c:c + 20] = torch.arange(-10, 10) + 0.5
+        x[c + 20], x[c + 21] = 127.0, -127.0
+        x[2 * c:2 * c + 6] = torch.tensor([448.0, -448.0, 1.0625, -17.0,
+                                           0.5 + 2 ** -5, 208.0])
+    return x.to(dtype).to(dev)
+
+
+def _bits(a):
+    return a.float().view(torch.int32)
+
+
+@pytest.mark.parametrize("n", [129, 1024, 5000, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codec", ["fp8", "int8"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quant_kernels_match_plain_bit_for_bit(dev, n, dtype, codec,
+                                               stochastic):
+    x = codec_input(n, dtype, dev, seed=n)
+    x2, _ = quant_ref.chunk(x)
+    want_seed = int(quant_ref.buffer_seed(x2))
+    got_seed = int(quant_ops.seed_cuda(x)) & quant_ref.M32 | 1
+    assert got_seed == want_seed
+    nq, nd = quant_ops.quant_launches, quant_ops.dequant_launches
+    q, s = quant_ops.quantize_cuda(x, codec, stochastic)
+    assert quant_ops.quant_launches == nq + 1
+    wq, ws = quant_ref.quantize(x, codec, stochastic)
+    assert q.dtype == wq.dtype and q.shape == wq.shape
+    assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
+    assert torch.equal(_bits(s), _bits(ws))
+    out = quant_ops.dequantize_cuda(q, s, n, x.shape, dtype)
+    assert quant_ops.dequant_launches == nd + 1
+    want = quant_ref.dequantize(wq, ws, n, x.shape, dtype)
+    assert out.dtype == dtype and torch.equal(_bits(out), _bits(want))
+    rt = quant_ops.roundtrip(x, codec, stochastic)
+    assert torch.equal(_bits(rt), _bits(want))
+    # in place, as the reduce-scatter round-trips its gradient buffer
+    y = x.clone()
+    rt = quant_ops.roundtrip(y, codec, stochastic, out=y)
+    assert rt.data_ptr() == y.data_ptr()
+    assert torch.equal(_bits(y), _bits(want))
+
+
+def test_quant_kernels_reject_what_they_do_not_take(dev):
+    x = _randn(dev, 256)
+    with pytest.raises(ValueError):
+        quant_ops.quantize_cuda(x.half(), "fp8", False)
+    with pytest.raises(ValueError):
+        quant_ops.quantize_cuda(x.reshape(2, 128).t(), "fp8", False)
+    with pytest.raises(ValueError):
+        quant_ops.quantize_cuda(x, "fp4", False)
+    q, s = quant_ops.quantize_cuda(x, "int8", False)
+    with pytest.raises(ValueError):
+        quant_ops.dequantize_cuda(q, s, 300, (300,), torch.float32)
+    with pytest.raises(ValueError):
+        quant_ops.dequantize_cuda(q, s.double(), 256, (256,), torch.float32)
+    with pytest.raises(ValueError):
+        quant_ops.dequantize_cuda(q, s, 256, (256,), torch.float32,
+                                  out=x.bfloat16())

@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,6 +48,7 @@ def test_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.kernels.rmsnorm.ops' in mods, mods\n"
         "assert 'repro_torch.kernels.flash_attention.ops' in mods, mods\n"
         "for m in ('kernels.cross_entropy.ops', 'kernels.adamw.ops',\n"
+        "          'kernels.quant.ops', 'kernels.quant.ref',\n"
         "          'core.collectives', 'core.stack', 'core.api',\n"
         "          'train.trainer', 'launch.train', 'checkpoint.checkpointer',\n"
         "          'data.pipeline', 'ft.failures', 'optim.adamw'):\n"
@@ -148,15 +150,13 @@ def test_train_launcher_runs_end_to_end_on_cpu(tmp_path):
 
 def test_train_launcher_refuses_what_is_not_ported(monkeypatch, tmp_path):
     base = ["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
-    for extra, match in ((["--steps", "1"], "prefetch stack"),
+    for extra, match in ((["--comm-precision", "auto"], "not yet ported"),
                          (["--no-reorder", "--metrics-jsonl", "x"],
                           "observability"),
                          (["--no-reorder", "--replan-threshold", "0.1"],
                           "observability"),
                          (["--no-reorder", "--pp", "2"], "pipeline"),
-                         (["--no-reorder", "--mesh", "1,2"], "tp=2"),
-                         (["--no-reorder", "--grad-compression"],
-                          "grad-compression")):
+                         (["--no-reorder", "--mesh", "1,2"], "tp=2")):
         with pytest.raises(NotImplementedError, match=match):
             launch_train.main(base + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -178,3 +178,26 @@ def test_cpu_training_never_touches_the_kernel_build(monkeypatch, tmp_path):
         "--smoke", "--no-reorder", "--device", "cpu", "--steps", "1",
         "--seq", "8", "--batch", "2", "--ckpt-dir", str(tmp_path)])
     assert len(hist) == 1 and counts() == before
+
+
+def test_quantized_prefetch_training_runs_on_cpu_without_the_build(
+        monkeypatch, tmp_path):
+    """The launcher's default schedule (the prefetch stack) with quantized
+    collectives, error feedback and a bf16 reduce-scatter trains on the
+    CPU through the plain codec, never reaching the kernel build."""
+    from repro_torch.kernels.quant import ops as quant_ops
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel build was reached from the CPU")
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "build", refuse)
+    before = (quant_ops.quant_launches, quant_ops.dequant_launches)
+    trainer, hist = launch_train.main([
+        "--smoke", "--device", "cpu", "--steps", "2", "--seq", "8",
+        "--batch", "2", "--dtype", "float32", "--comm-precision", "fp8_ef",
+        "--grad-compression", "--ckpt-dir", str(tmp_path)])
+    assert trainer.dcfg.reorder and trainer.dcfg.grad_compression
+    assert trainer.plan.describe().endswith("comm=fp8_ef")
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert (quant_ops.quant_launches, quant_ops.dequant_launches) == before
+    assert (tmp_path / "step_00000002" / "ef__blocks__mlp__wg.npy").exists()
