@@ -39,6 +39,18 @@ without printing the final line):
      seed depends on every bit of the gradient); a non-zero error-feedback
      accumulator; a bit-exact fp8_ef restart, EF included; both quant
      kernels launched.
+ 6a. ssd kernel vs plain: the Mamba-2 SSD chunk scan at zamba2-1.2b's
+     layer shape (B 4, T 2048, H 64, P 64, N 64, chunk 128; bf16 and fp32,
+     the model's own dt and A ranges, B and C as strided halves of one
+     packed projection), the reference sweep's shapes and the smoke shape
+     with a ragged last chunk; a planted result with the state not carried
+     across chunks must be told apart; kernel / plain ms and the byte
+     bound; the gradients (kernel forward, plain backward) against autograd
+     through the plain version at the full shape.
+ 6b. zamba2 smoke training, card vs CPU: the launcher's trainer, zamba2
+     SMOKE (shared block hd 32, T 40: a ragged SSD chunk), fp32, 3 steps
+     from one CPU-made checkpoint, vanilla and prefetch: loss, grad norm,
+     storage at TOL32; ssd, flash, rmsnorm, xent and adamw launched.
   7. full-width serve: llama3-8b, bf16, seeded weights made on the card,
      batch 4, prompt 2000, gen 64 (T = 2064) through
      `repro_torch.launch.serve`; launch counters; and a consistency check,
@@ -51,16 +63,24 @@ without printing the final line):
   9. full-width prefetch training: the same with reorder on (the
      bucket+reorder prefetch stack, the reference launcher's default
      schedule), bf16 wire: the reorder on / off comparison in one call.
- 10. full-width quantized training (the main path of this slice): the
-     prefetch stack with comm_precision fp8_ef; the same readings plus the
-     collectives per step and the error-feedback accumulator.
+ 10. full-width quantized training (the main path of the third slice):
+     the prefetch stack with comm_precision fp8_ef; the same readings plus
+     the collectives per step and the error-feedback accumulator.
+ 10b. full-width zamba2-1.2b training (the main path of this slice): bf16,
+     B 4, T 2048, the prefetch stack at a bf16 wire, remat fsdp_only, block
+     buckets; the same readings, MFU from the FLOPs the step applies (the
+     Mamba layers once, the shared block once per invocation, the head,
+     attention and the SSD products), ssd launches per step.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
 fp32.  Tolerances: TOL32 (rtol 2e-4, atol 2e-5) for fp32 and TOL (rtol 2e-2,
 atol 2e-2) for bf16, those of tests/test_kernels.py; the full-width bf16
 consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY) and an
-equal argmax; the quant kernels are held to zero difference; quantized
+equal argmax; the fp32 ssd check at zamba2's layer shape applies TOL32's
+rtol to the summed |terms| of each element (`check_terms`: 33.5M outputs
+of 128-term fp32 sums, some cancelling); the quant kernels are held to
+zero difference; quantized
 training runs that dither differently on the two devices are held to the
 bounds of tests/dist_harness.py's quant case (QUANT_LOSS_RTOL, drift).
 """
@@ -137,6 +157,24 @@ def check_close(what, got, want, tol):
         raise AssertionError(f"{what}: outside tolerance (max abs err "
                              f"{err:.3e})")
     return err
+
+
+def check_terms(what, got, want, terms, tol):
+    """`tol` with its rtol applied to `terms`, the sum of the absolute
+    values of the terms that make up each element of `want`, in place of
+    |want|: where a long fp32 sum cancels, any two summation orders differ
+    by rounding of the terms, not of the result."""
+    err = (got.float() - want.float()).abs()
+    lim = tol["atol"] + tol["rtol"] * terms.float().abs()
+    ok = bool(torch.isfinite(got.float()).all()) and bool((err <= lim).all())
+    say(f"  {what}: max_abs_err {err.max().item():.3e}, max err / limit "
+        f"{(err / lim).max().item():.3f} (rtol {tol['rtol']} of the summed "
+        f"|terms|, atol {tol['atol']}); elementwise against |y|: "
+        f"{'within' if torch.allclose(got, want, **tol) else 'outside'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: outside tolerance")
+    return err.max().item()
 
 
 def check_rejects(what, planted, want, tol):
@@ -235,6 +273,10 @@ def phase_kernels(state):
          torch.float32, dict(causal=False), True),
         ("B2 T300 H4 Kh2 hd16 causal fp32", 2, 300, 4, 2, 16,
          torch.float32, dict(causal=True), True),
+        ("B2 T300 H4 Kh4 hd32 causal fp32 (zamba2 smoke's shared block)", 2,
+         300, 4, 4, 32, torch.float32, dict(causal=True), True),
+        ("B2 T300 H4 Kh4 hd32 causal bf16", 2, 300, 4, 4, 32,
+         torch.bfloat16, dict(causal=True), True),
     ]
     for i, (name, b, s, h, kh, hd, dt, kw, sdpa) in enumerate(flash_cases):
         q = randn(b, s, h, hd, dtype=dt)
@@ -696,11 +738,13 @@ def _train_counts():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     return dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
                 xent_fwd=xent_ops.fwd_launches,
                 xent_bwd=xent_ops.bwd_launches, adamw=adamw_ops.launches,
                 quant_fwd=quant_ops.quant_launches,
                 dequant_fwd=quant_ops.dequant_launches,
+                ssd=ssd_ops.launches,
                 gathers=coll.gathers, reduce_scatters=coll.reduce_scatters)
 
 
@@ -711,7 +755,9 @@ def _reset_counts():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     rms_ops.launches = flash_ops.launches = adamw_ops.launches = 0
+    ssd_ops.launches = 0
     xent_ops.fwd_launches = xent_ops.bwd_launches = 0
     quant_ops.quant_launches = quant_ops.dequant_launches = 0
     coll.gathers = coll.reduce_scatters = 0
@@ -719,6 +765,8 @@ def _reset_counts():
 
 COLLECTIVES = ("gathers", "reduce_scatters")
 QUANT = ("quant_fwd", "dequant_fwd")
+# kernels the dense paths do not run at a bf16 wire
+NOT_DENSE = QUANT + ("ssd",)
 
 
 def phase_smoke_train(state):
@@ -754,7 +802,7 @@ def phase_smoke_train(state):
             runs[dev] = (storage, hist, _train_counts())
         counts = runs["cuda"][2]
         say(f"  launches in the smoke run on the card: {counts}")
-        if min(v for k, v in counts.items() if k not in QUANT) <= 0:
+        if min(v for k, v in counts.items() if k not in NOT_DENSE) <= 0:
             raise AssertionError(f"a kernel never launched: {counts}")
         if max(v for k, v in runs["cpu"][2].items()
                if k not in COLLECTIVES) > 0:
@@ -937,7 +985,46 @@ def phase_full_quant_train(state):
                 need=QUANT)
 
 
-def _full_train(state, key, dcfg, need=()):
+def _ssd_flops(b, t, h, p, n, lc):
+    """FLOPs of one SSD chunk-scan forward: per (b, h) and chunk, the
+    causal lower triangle of C B^T (2N a pair) and of its product with x (2P
+    a pair), the inter-chunk product C S (2PN a row) and, before every chunk
+    but the last, the state update (2PN a row)."""
+    n_c = -(-t // lc)
+    pairs = lc * (lc + 1) / 2
+    return b * h * (n_c * (2 * n + 2 * p) * pairs + n_c * 2 * lc * p * n
+                    + (n_c - 1) * 2 * lc * p * n)
+
+
+def _model_flops(cfg, model, batch, seq):
+    """Model FLOPs of one training step (forward and backward, 3 x the
+    forward; remat's recompute not counted): 6 x the matmul parameters
+    applied per token x tokens, plus causal attention (4*hd a pair) and,
+    for zamba, the SSD's own products."""
+    tokens = batch * seq
+    lay = cfg.gqa_layout(1)
+    hd = cfg.head_dim
+    pairs = seq * (seq + 1) / 2
+    if cfg.family == "dense":
+        d = cfg.d_model
+        mm = cfg.n_layers * (2 * d * lay["hq"] * hd + 2 * d * lay["kvp"] * hd
+                             + 3 * d * cfg.d_ff) + cfg.vocab * d
+        attn = 3 * cfg.n_layers * 4.0 * batch * lay["hq"] * hd * pairs
+        return 6.0 * mm * tokens + attn
+    # zamba: the Mamba layers once, the shared block once per invocation
+    # (on the 2d-wide concat), the head once; the lookup has none
+    d, d2, di = cfg.d_model, 2 * cfg.d_model, model.d_inner
+    mamba = d * (2 * di + 2 * cfg.ssm_state + model.nh) + di * d
+    shared = (d2 * lay["hq"] * hd + 2 * lay["kvp"] * hd * d2
+              + lay["hq"] * hd * d + 2 * d2 * cfg.d_ff + cfg.d_ff * d)
+    mm = cfg.n_layers * mamba + model.n_super * shared + d * cfg.vocab
+    attn = 3 * model.n_super * 4.0 * batch * lay["hq"] * hd * pairs
+    ssd = 3 * cfg.n_layers * _ssd_flops(batch, seq, model.nh, model.hd,
+                                        model.ds, min(cfg.ssm_chunk, seq))
+    return 6.0 * mm * tokens + attn + ssd
+
+
+def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b"):
     from repro_torch.core.api import parallelize
     from repro_torch.data.pipeline import DataConfig, SyntheticC4
     from repro_torch.models.common import ShapeConfig
@@ -945,7 +1032,7 @@ def _full_train(state, key, dcfg, need=()):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import default_schedule, \
         init_train_state
-    cfg, model = get_arch("qwen3_1_7b")
+    cfg, model = get_arch(arch)
     shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
     par = parallelize(model, dcfg, shape, device="cuda")
     say(f"plan: {par.plan.describe()} reorder={dcfg.reorder}")
@@ -954,7 +1041,7 @@ def _full_train(state, key, dcfg, need=()):
         par, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n = sum(a.numel() for a in _leaves(storage))
-    say(f"qwen3-1.7b: {n / 1e9:.4f}B storage elements (padded), fp32 "
+    say(f"{cfg.name}: {n / 1e9:.4f}B storage elements (padded), fp32 "
         f"storage + {' + '.join(k for k in opt_state if k != 'step')} made "
         f"on the card in {time.perf_counter() - t0:.1f}s")
     ocfg = AdamWConfig()
@@ -967,6 +1054,7 @@ def _full_train(state, key, dcfg, need=()):
     storage, opt_state, m = step(storage, opt_state, batches[0])
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    warm_loss = float(m["loss"])
     _reset_counts()
     times, losses = [], []
     for i in range(1, TRAIN_STEPS + 1):
@@ -980,16 +1068,7 @@ def _full_train(state, key, dcfg, need=()):
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_B * TRAIN_T
     step_s = sorted(times)[len(times) // 2]
-    # model FLOPs: 6 x matmul params x tokens (blocks + the tied head; the
-    # lookup has none) + causal attention, 3 x its forward; remat's
-    # recompute is not counted
-    lay = cfg.gqa_layout(1)
-    d, hd = cfg.d_model, cfg.head_dim
-    mm_params = cfg.n_layers * (2 * d * lay["hq"] * hd + 2 * d * lay["kvp"]
-                                * hd + 3 * d * cfg.d_ff) + cfg.vocab * d
-    attn = 3 * cfg.n_layers * 4.0 * TRAIN_B * lay["hq"] * hd \
-        * TRAIN_T * (TRAIN_T + 1) / 2
-    flops = 6.0 * mm_params * tokens + attn
+    flops = _model_flops(cfg, model, TRAIN_B, TRAIN_T)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
     say(f"train B={TRAIN_B} T={TRAIN_T}: warm-up step {warm * 1e3:.1f} ms; "
         f"steps {[round(t * 1e3, 2) for t in times]} ms, median "
@@ -997,24 +1076,200 @@ def _full_train(state, key, dcfg, need=()):
         f"{flops / 1e12:.2f} model TFLOP/step, MFU {100 * mfu:.2f}% of "
         f"989 TFLOP/s (bound {flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.1f}"
         f" ms), max_memory_allocated {peak / 2**30:.2f} GiB")
-    say(f"  losses {losses}; grad_norm {float(m['grad_norm']):.4f}; "
-        f"lr {float(m['lr']):.3e}")
+    say(f"  losses {losses} (warm-up step {warm_loss:.4f}; "
+        f"{'falling' if losses[-1] < warm_loss else 'NOT falling'}); "
+        f"grad_norm {float(m['grad_norm']):.4f}; lr {float(m['lr']):.3e}")
     say(f"  launches per step: {per_step}")
     state[f"{key}_launches"] = counts
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw", *need)
-    if min(counts[k] for k in need) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    unused = [k for k in NOT_DENSE if k not in need and counts[k]]
+    if min(counts[k] for k in need) <= 0 or unused:
+        raise AssertionError(f"a kernel of the path never launched, or one "
+                             f"off the path did: {counts}")
     if "ef" in opt_state:
         ef = max(a.abs().max().item() for a in _leaves(opt_state["ef"]))
         say(f"  error-feedback accumulator: max |ef| {ef:.3e}")
         if not ef > 0:
             raise AssertionError("the error-feedback accumulator is zero")
-    busy = _profile(f"{key} step", lambda: step(storage, opt_state,
-                                                batches[-1]), 1, top=24)
+    busy, dev_s = _profile(f"{key} step", lambda: step(
+        storage, opt_state, batches[-1]), 1, top=24)
+    if dev_s is not None:
+        # the profiler costs host time per op: set the device time against
+        # the unprofiled median step as well
+        say(f"  device kernels {dev_s * 1e3:.2f} ms against the unprofiled "
+            f"median step {step_s * 1e3:.2f} ms: {100 * dev_s / step_s:.1f}%"
+            " busy")
     state[key] = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
-                      mfu=mfu, max_memory_allocated=peak, busy=busy)
+                      mfu=mfu, max_memory_allocated=peak, busy=busy,
+                      busy_vs_median=None if dev_s is None
+                      else dev_s / step_s)
+
+
+def phase_full_zamba_train(state):
+    # zamba2-1.2b at the reference launcher's defaults: the prefetch stack,
+    # bf16 wire, remat fsdp_only, block buckets
+    from repro_torch.core.dist import DistConfig
+    _full_train(state, "train_zamba2", DistConfig(), need=("ssd",),
+                arch="zamba2_1_2b")
+
+
+def _ssd_inputs(g, b, t, h, p, grp, n, dtype, zamba=False):
+    """SSD inputs on the card.  `zamba`: the model's own ranges (A = -(1..H)
+    from A_log = log(1..H), dt = softplus(dt_pre + dt_bias) with dt_bias at
+    dt in [1e-3, 1e-1]); else the reference sweep's.  B and C are the two
+    halves of one packed projection, read through their strides."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(b, t, h, p).to(dtype)
+    if zamba:
+        A = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+        u = torch.rand(h, generator=g, device=dev) * (np.log(1e-1) - np.log(
+            1e-3)) + np.log(1e-3)
+        dt_bias = torch.log(torch.expm1(torch.exp(u)))
+        dt = torch.nn.functional.softplus(randn(b, t, h) + dt_bias)
+    else:
+        A = -torch.exp(randn(h) * 0.3)
+        dt = torch.nn.functional.softplus(randn(b, t, h))
+    bc = (randn(b, t, grp, 2 * n) * 0.4).to(dtype)
+    D = 1 + 0.1 * randn(h)
+    return x, dt, A, bc[..., :n], bc[..., n:], D
+
+
+def phase_ssd_kernels(state):
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    g = torch.Generator(device="cuda").manual_seed(4)
+    full = (TRAIN_B, TRAIN_T, 64, 64, 1, 64, 128)   # zamba2-1.2b's layers
+    say("ssd kernel vs plain (ms: kernel / plain / bound):")
+    cases = [  # (name, (B, T, H, P, G, N, chunk), dtype, zamba ranges)
+        ("full zamba2-1.2b B4 T2048 H64 P64 N64 chunk 128 bf16", full,
+         torch.bfloat16, True),
+        ("full zamba2-1.2b shape fp32", full, torch.float32, True),
+        ("sweep T96 H4 P16 G2 N8 chunk 32 fp32", (2, 96, 4, 16, 2, 8, 32),
+         torch.float32, False),
+        ("sweep T128 H2 P32 G1 N16 chunk 64 fp32",
+         (2, 128, 2, 32, 1, 16, 64), torch.float32, False),
+        ("sweep T64 H4 P16 G4 N8 chunk 64 fp32", (2, 64, 4, 16, 4, 8, 64),
+         torch.float32, False),
+        ("smoke T40 H8 P16 N8 chunk 16 (ragged) fp32",
+         (4, 40, 8, 16, 1, 8, 16), torch.float32, True),
+        ("smoke T40 H8 P16 N8 chunk 16 (ragged) bf16",
+         (4, 40, 8, 16, 1, 8, 16), torch.bfloat16, True),
+    ]
+    for i, (name, (b, t, h, p, grp, n, lc), dt_, zamba) in enumerate(cases):
+        ins = _ssd_inputs(g, b, t, h, p, grp, n, dt_, zamba)
+        tol = TOL32 if dt_ == torch.float32 else TOL
+        got = ssd_ops.ssd_cuda(*ins, chunk=lc)
+        want, _ = ssd_ref.ssd_chunked(*ins, chunk=lc)
+        x, dt, A, Bm, Cm, D = ins
+        if i == 1:
+            err = check_terms(name, got, want, ssd_ref.ssd_chunked(
+                x.abs(), dt, A, Bm.abs(), Cm.abs(), D.abs(), lc)[0], tol)
+        else:
+            err = check_close(name, got, want, tol)
+        if i == 1:
+            # the state not carried: each chunk from S = 0, the inter-chunk
+            # term dropped
+            planted = torch.cat([ssd_ref.ssd_chunked(
+                x[:, c:c + lc], dt[:, c:c + lc], A, Bm[:, c:c + lc],
+                Cm[:, c:c + lc], D, lc)[0] for c in range(0, t, lc)], dim=1)
+            check_rejects(f"{name} planted: state not carried", planted,
+                          want, tol)
+            del planted
+        del want, got
+        if i != 0:
+            continue
+        ms = time_ms(lambda: ssd_ops.ssd_cuda(*ins, chunk=lc))
+        plain = time_ms(lambda: ssd_ref.ssd_chunked(*ins, chunk=lc))
+        # x, dt, B, C, A, D read once, y written once
+        nbytes = sum(a.numel() * a.element_size() for a in (x, dt, A, D)) \
+            + 2 * Bm.numel() * Bm.element_size() \
+            + x.numel() * x.element_size()
+        flops = _ssd_flops(b, t, h, p, n, lc)
+        bound, by = _bound(nbytes, flops, dt_)
+        say(f"    {ms:.4f} / {plain:.4f} / {bound:.4f} ({by}; "
+            f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s)")
+        state["ssd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=bound, bound_by=by, library_ms=None)
+        torch.cuda.empty_cache()
+
+    say("ssd gradients: kernel forward + plain backward vs autograd through "
+        "the plain version (ms fwd+bwd: op / plain):")
+    b, t, h, p, grp, n, lc = full
+    ins = _ssd_inputs(g, b, t, h, p, grp, n, torch.bfloat16, True)
+    ct = torch.randn((b, t, h, p), generator=g, device="cuda").to(
+        torch.bfloat16)
+    got = _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc), ins, ct)
+    want = _grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=lc)[0], ins, ct)
+    err = max(check_close(f"ssd full bf16 {k}", a, b_, TOL) for k, a, b_ in
+              zip(("y", "dx", "ddt", "dA", "dB", "dC", "dD"), got, want))
+    del got, want
+    ms = time_ms(lambda: _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc), ins,
+                                ct))
+    plain = time_ms(lambda: _grads(
+        lambda *a: ssd_ref.ssd_chunked(*a, chunk=lc)[0], ins, ct))
+    say(f"    {ms:.4f} / {plain:.4f}")
+    state["ssd_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+
+
+def phase_zamba_smoke_train(state):
+    import shutil
+    import tempfile
+    from repro_torch.core.meta import named_leaves
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_step import init_train_state
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_zamba_"))
+    try:
+        def trainer(dev, sub, reorder):
+            return launch_train.build_trainer(launch_train.parse_args([
+                "--arch", "zamba2_1_2b", "--smoke", "--steps", "3", "--seq",
+                "40", "--batch", "4", "--dtype", "float32", "--device", dev,
+                "--ckpt-dir", str(root / sub)]
+                + ([] if reorder else ["--no-reorder"])))
+
+        # one CPU-made step-0 checkpoint starts every run
+        cpu = trainer("cpu", "seed", False)
+        storage, opt = init_train_state(cpu.par,
+                                        torch.Generator().manual_seed(0))
+        cpu.ckpt.save(0, cpu.par.unshard(storage), dict(
+            m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
+            step=opt["step"]), cpu.model, cpu.dcfg)
+        need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw", "ssd")
+        for reorder in (False, True):
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                sub = f"{dev}_{reorder}"
+                shutil.copytree(root / "seed", root / sub)
+                tr = trainer(dev, sub, reorder)
+                _reset_counts()
+                st, _, hist = tr.run()
+                runs[dev] = (st, hist, _train_counts())
+            label = "prefetch" if reorder else "vanilla"
+            counts = runs["cuda"][2]
+            say(f"  zamba2 smoke {label}: launches on the card {counts}")
+            if min(counts[k] for k in need) <= 0:
+                raise AssertionError(f"a kernel never launched: {counts}")
+            if max(v for k, v in runs["cpu"][2].items()
+                   if k not in COLLECTIVES) > 0:
+                raise AssertionError("the CPU run launched a kernel")
+            for hc, hg in zip(runs["cpu"][1], runs["cuda"][1]):
+                for k in ("loss", "grad_norm"):
+                    check_close(f"zamba2 smoke {label} step {hc['step']} {k} "
+                                "cuda vs cpu", torch.tensor(hg[k]),
+                                torch.tensor(hc[k]), TOL32)
+            errs = [check_close(f"zamba2 smoke {label} storage {n}", a.cpu(),
+                                b, TOL32)
+                    for (n, a), (_, b) in zip(named_leaves(runs["cuda"][0]),
+                                              named_leaves(runs["cpu"][0]))]
+            say(f"  zamba2 smoke {label} storage cuda vs cpu after 3 steps: "
+                f"{len(errs)} leaves, max abs err {max(errs):.3e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _numpy_params(model, dcfg, seed):
@@ -1192,8 +1447,9 @@ FAMILIES = {"quant codec (seed + quant + dequant kernels)":
 
 def _profile(label, fn, n, top=8):
     """Prints device kernel time against wall time over n calls, and the
-    `top` kernels that take most of it (torch.profiler).  Returns the
-    device busy share, or None when the profiler saw no kernels."""
+    `top` kernels that take most of it (torch.profiler).  Returns (the
+    device busy share of the profiled window, device seconds per call), or
+    (None, None) when the profiler saw no kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1210,7 +1466,7 @@ def _profile(label, fn, n, top=8):
     if not rows:
         say(f"{label}: device time not measured (the profiler saw no "
             f"kernels); wall {wall / n * 1e3:.3f} ms per call")
-        return None
+        return None, None
     dev_us = sum(e.self_device_time_total for e in rows)
     say(f"{label}: wall {wall / n * 1e3:.3f} ms, device kernels "
         f"{dev_us / n / 1e3:.3f} ms per call "
@@ -1225,7 +1481,7 @@ def _profile(label, fn, n, top=8):
             us = sum(e.self_device_time_total for e in fam)
             say(f"  {family}: {us / n / 1e3:.3f} ms, "
                 f"{sum(e.count for e in fam) // n} kernels per call")
-    return dev_us / 1e6 / wall
+    return dev_us / 1e6 / wall, dev_us / 1e6 / n
 
 
 def _leaves(tree):
@@ -1237,23 +1493,26 @@ def _leaves(tree):
 
 
 def kernels_line(state):
-    """One row per ported kernel.  `launches` counts the main path's run:
-    the full-width quantized training (fp8_ef, the prefetch stack), which
-    runs all seven; `launches_by_path` adds the serving run's and the bf16
-    training runs' (vanilla and prefetch) counts."""
+    """One row per ported kernel.  `launches` counts the run of the path
+    that brought the kernel in: the full-width quantized qwen3 training
+    (fp8_ef, the prefetch stack) for the first seven, which it runs all,
+    and the full-width zamba2 training for ssd_fwd; `launches_by_path` adds
+    the serving run's, the bf16 qwen3 training runs' (vanilla and
+    prefetch) and the zamba2 run's counts."""
     src = "src/repro_torch/csrc/"
-    main, train, prefetch, serve = (
+    main, train, prefetch, serve, zamba = (
         state["train_fp8_ef_launches"], state["train_launches"],
-        state["train_prefetch_launches"], state["launches"])
+        state["train_prefetch_launches"], state["launches"],
+        state["train_zamba2_launches"])
 
-    def row(name, key, source, replaces, serve_key=None):
+    def row(name, key, source, replaces, serve_key=None, home=main):
         by_path = dict(train=train[key], train_prefetch=prefetch[key],
-                       train_fp8_ef=main[key])
+                       train_fp8_ef=main[key], train_zamba2=zamba[key])
         if serve_key:
             by_path["serve"] = serve[serve_key]
         return dict(name=name, route="cuda", source=src + source,
                     replaces="src/repro/kernels/" + replaces,
-                    launches=main[key], **state[key],
+                    launches=home[key], **state[key],
                     launches_by_path=by_path)
 
     rows = [
@@ -1268,6 +1527,7 @@ def kernels_line(state):
         row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40"),
         row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
+        row("ssd_fwd", "ssd", "ssd.cu", "ssd/kernel.py:65", home=zamba),
     ]
     return json.dumps({"kernels": rows})
 
@@ -1292,12 +1552,17 @@ def main() -> int:
                         ("smoke training cuda vs cpu", phase_smoke_train),
                         ("smoke quantized training cuda vs cpu",
                          phase_smoke_quant_train),
+                        ("ssd kernel vs plain", phase_ssd_kernels),
+                        ("zamba2 smoke training cuda vs cpu",
+                         phase_zamba_smoke_train),
                         ("full-width serve", phase_full_width),
                         ("full-width training", phase_full_train),
                         ("full-width prefetch training",
                          phase_full_prefetch_train),
                         ("full-width quantized training",
-                         phase_full_quant_train)]:
+                         phase_full_quant_train),
+                        ("full-width zamba2 training",
+                         phase_full_zamba_train)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

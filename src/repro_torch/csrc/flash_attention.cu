@@ -224,6 +224,7 @@ template <typename T>
 cudaError_t launch_hd(const Params& p, int hd, cudaStream_t stream) {
   switch (hd) {
     case 16: return launch<T, 16>(p, stream);
+    case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;

@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import ref
 
 launches = 0
 
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 Q_CHUNK = 512
 _CODES = {torch.float32: build.F32, torch.bfloat16: build.BF16}
 

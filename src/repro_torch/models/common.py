@@ -1,4 +1,5 @@
-"""Architecture config schema (dense-family subset of `repro.models.common`).
+"""Architecture config schema (the dense and zamba subsets of
+`repro.models.common`).
 
 `ArchConfig` keeps the reference's field names, defaults and derived head
 layout (`gqa_layout`) so that parameter shapes line up exactly with the
@@ -56,7 +57,7 @@ class BlockSegments:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # only 'dense' is ported
+    family: str               # 'dense' | 'zamba' are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -76,6 +77,14 @@ class ArchConfig:
     post_norms: bool = False              # gemma2 sandwich norms
     gated_mlp: str = "swiglu"             # swiglu | geglu | gelu
     tie_embeddings: bool = False
+
+    # ssm / hybrid -----------------------------------------------------------
+    ssm_state: int = 0                    # mamba2 d_state
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
+    shared_attn_every: int = 0            # zamba2: shared block period
 
     # head counts pad to a multiple of this (>= any runtime tp that divides
     # it), keeping GLOBAL param shapes mesh-independent.
@@ -123,8 +132,16 @@ class ArchConfig:
         return attn + mlp + 2 * d
 
     def n_params(self) -> int:
+        """Parameter count.  For zamba it is the sum of the model's metas'
+        global sizes; the reference applies the dense formula to that
+        family too (`repro/models/common.py` `n_params`), which counts
+        attention and MLP weights that the Mamba layers do not have."""
+        if self.family == "zamba":
+            from repro_torch.models.zamba2 import Zamba2LM
+            return Zamba2LM(self).n_params()
         if self.family != "dense":
             raise NotImplementedError(
-                f"{self.family}: only the dense family is ported")
+                f"{self.family}: only the dense and zamba families are "
+                "ported")
         emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
         return emb + self.n_layers * self.params_dense_block()

@@ -14,9 +14,22 @@ ARCH_IDS = (
     "seamless_m4t_large_v2", "zamba2_1_2b", "internvl2_26b",
     "llama3_8b",
 )
-PORTED = ("llama3_8b", "qwen3_1_7b")
+PORTED = ("llama3_8b", "qwen3_1_7b", "zamba2_1_2b")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+
+
+def build_model(cfg):
+    """The model class of `cfg.family` (the reference's dispatch, over the
+    families ported so far)."""
+    if cfg.family == "dense":
+        from repro_torch.models.dense import DenseLM
+        return DenseLM(cfg)
+    if cfg.family == "zamba":
+        from repro_torch.models.zamba2 import Zamba2LM
+        return Zamba2LM(cfg)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not yet ported to repro_torch")
 
 
 def get_arch(arch_id: str, smoke: bool = False):
@@ -28,7 +41,6 @@ def get_arch(arch_id: str, smoke: bool = False):
         raise NotImplementedError(
             f"arch {arch_id!r} is not yet ported to repro_torch; "
             f"ported: {PORTED}")
-    from repro_torch.models.dense import DenseLM
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     cfg = mod.SMOKE if smoke else mod.CONFIG
-    return cfg, DenseLM(cfg)
+    return cfg, build_model(cfg)

@@ -8,10 +8,9 @@ only torch and the port, so it also runs where JAX is not installed:
 chip_smoke.py holds the kernels against their plain versions at the
 serving and training paths' full shapes; these are small, quick cases.
 The quant pair must equal its plain version bit for bit (wire bytes,
-scales, decoded values, the SR seed).  The gradients of the rmsnorm and
-flash `autograd.Function`s (kernel
-forward, plain-torch backward) are held against autograd through the
-plain versions.  Tolerances:
+scales, decoded values, the SR seed).  The gradients of the rmsnorm,
+flash and ssd `autograd.Function`s (kernel forward, plain-torch backward)
+are held against autograd through the plain versions.  Tolerances:
 TOL32 (rtol 2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16.
 """
 
@@ -25,6 +24,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops, \
     ref as flash_ref
 from repro_torch.kernels.quant import ops as quant_ops, ref as quant_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
+from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -70,7 +70,8 @@ def test_rmsnorm_kernel_rejects_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("S,H,Kh,hd", [(64, 2, 2, 16), (200, 4, 2, 64),
-                                       (130, 8, 2, 128), (1, 4, 1, 64)])
+                                       (130, 8, 2, 128), (1, 4, 1, 64),
+                                       (24, 4, 4, 32), (100, 4, 2, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=33, softcap=30.0)])
@@ -94,7 +95,7 @@ def test_flash_kernel_reads_strided_heads(dev):
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(dev):
-    q = _randn(dev, 1, 8, 2, 32)
+    q = _randn(dev, 1, 8, 2, 48)
     with pytest.raises(ValueError, match="hd"):
         flash_ops.flash_attention(q, q, q)
 
@@ -307,3 +308,85 @@ def test_quant_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         quant_ops.dequantize_cuda(q, s, 256, (256,), torch.float32,
                                   out=x.bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk scan
+# ---------------------------------------------------------------------------
+SSD_SHAPES = [  # B, T, H, P, G, N, chunk: test_ssd_sweep, smoke, full-ish
+    (2, 96, 4, 16, 2, 8, 32), (2, 128, 2, 32, 1, 16, 64),
+    (2, 64, 4, 16, 4, 8, 64), (2, 24, 8, 16, 1, 8, 16),
+    (1, 300, 4, 64, 1, 64, 128), (1, 12, 2, 32, 1, 16, 16),
+]
+
+
+def _ssd_inputs(dev, B, T, H, P, G, N, dtype, seed=0):
+    x = _randn(dev, B, T, H, P, seed=seed).to(dtype)
+    dt = torch.nn.functional.softplus(_randn(dev, B, T, H, seed=seed + 1))
+    A = -torch.exp(_randn(dev, H, seed=seed + 2) * 0.3)
+    # B and C as the two halves of one packed projection, as in zamba2
+    bc = (_randn(dev, B, T, G, 2 * N, seed=seed + 3) * 0.4).to(dtype)
+    D = 1 + 0.1 * _randn(dev, H, seed=seed + 4)
+    return x, dt, A, bc[..., :N], bc[..., N:], D
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(dev, B, T, H, P, G, N, chunk, dtype):
+    ins = _ssd_inputs(dev, B, T, H, P, G, N, dtype)
+    n = ssd_ops.launches
+    got = ssd_ops.ssd(*ins, chunk=chunk)
+    assert ssd_ops.launches == n + 1 and got.dtype == dtype
+    want, _ = ssd_ref.ssd_chunked(*ins, chunk=chunk)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(TOL32 if dtype == torch.float32 else TOL))
+    # without the D skip
+    torch.testing.assert_close(
+        ssd_ops.ssd(*ins[:5], None, chunk).float(),
+        ssd_ref.ssd_chunked(*ins[:5], None, chunk)[0].float(),
+        **(TOL32 if dtype == torch.float32 else TOL))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradient_matches_plain_autograd(dev, dtype):
+    ins = _ssd_inputs(dev, 2, 40, 4, 16, 1, 8, dtype)
+    ct = _randn(dev, 2, 40, 4, 16, dtype=dtype, seed=9)
+    n = ssd_ops.launches
+    got = _grads(lambda *a: ssd_ops.ssd(*a, chunk=16), ins, ct)
+    assert ssd_ops.launches == n + 1
+    want = _grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=16)[0], ins, ct)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a.float(), b.float(), **(TOL32 if dtype == torch.float32 else TOL))
+
+
+def test_ssd_kernel_carries_the_state_across_chunks(dev):
+    """Dropping the carried state (each chunk from S = 0) must fail the
+    check the kernel passes."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(dev, 1, 64, 2, 16, 1, 8, torch.float32)
+    got = ssd_ops.ssd(x, dt, A, Bm, Cm, D, 16)
+    want, _ = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, 16)
+    torch.testing.assert_close(got, want, **TOL32)
+    stateless = torch.cat([ssd_ref.ssd_chunked(
+        x[:, i:i + 16], dt[:, i:i + 16], A, Bm[:, i:i + 16], Cm[:, i:i + 16],
+        D, 16)[0] for i in range(0, 64, 16)], dim=1)
+    assert not torch.allclose(stateless, want, **TOL32)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(dev):
+    x, dt, A, Bm, Cm, D = _ssd_inputs(dev, 1, 32, 2, 16, 1, 8, torch.float32)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_cuda(x.half(), dt, A, Bm.half(), Cm.half(), D)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_cuda(x, dt, A, Bm.bfloat16(), Cm.bfloat16(), D)
+    with pytest.raises(ValueError, match="P 24"):
+        ssd_ops.ssd_cuda(x[..., :12].repeat(1, 1, 1, 2), dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_cuda(x, dt, A, Bm, Cm, D, chunk=0)
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd_ops.ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="line up"):
+        ssd_ops.ssd_cuda(x, dt[:, :-1], A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_ops.ssd_cuda(x, dt.cpu(), A, Bm, Cm, D)

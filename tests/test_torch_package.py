@@ -49,6 +49,8 @@ def test_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.kernels.flash_attention.ops' in mods, mods\n"
         "for m in ('kernels.cross_entropy.ops', 'kernels.adamw.ops',\n"
         "          'kernels.quant.ops', 'kernels.quant.ref',\n"
+        "          'kernels.ssd.ops', 'kernels.ssd.ref', 'models.zamba2',\n"
+        "          'models.xlstm', 'configs.zamba2_1_2b',\n"
         "          'core.collectives', 'core.stack', 'core.api',\n"
         "          'train.trainer', 'launch.train', 'checkpoint.checkpointer',\n"
         "          'data.pipeline', 'ft.failures', 'optim.adamw'):\n"
@@ -99,9 +101,18 @@ def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
+    """Each ported arch builds its family's model class; the other eight
+    raise "not yet ported"."""
+    from repro_torch.models.zamba2 import Zamba2LM
+    want = {"llama3_8b": ("dense", DenseLM), "qwen3_1_7b": ("dense", DenseLM),
+            "zamba2_1_2b": ("zamba", Zamba2LM)}
+    assert set(PORTED) == set(want)
     for arch in PORTED:
-        cfg, model = get_arch(arch, smoke=True)
-        assert isinstance(model, DenseLM) and cfg.family == "dense"
+        for smoke in (True, False):
+            cfg, model = get_arch(arch, smoke=smoke)
+            family, cls = want[arch]
+            assert cfg.family == family and type(model) is cls, arch
+    assert len(set(ARCH_IDS) - set(PORTED)) == 8
     for arch in set(ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_arch(arch)
