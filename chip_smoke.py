@@ -5,13 +5,21 @@
 
 Phases (every phase runs; any failure makes the script exit non-zero
 without printing the final line):
-  1. device: the nvidia-smi name and power limit; the kernel build, timed.
+  1. device: the nvidia-smi name and power limit; the kernel build, timed;
+     each kernel's registers, static shared memory and spills from the
+     ptxas log (the flash and rmsnorm kernels must not spill).
   2. kernels vs plain: each CUDA kernel against its plain PyTorch version
-     on the card at the serving and training paths' shapes, with its time,
+     on the card at the serving and training paths' shapes, with its time
+     (and for flash and rmsnorm its device time, less the host's cost),
      the plain version's time, a PyTorch yardstick's time (timed only; the
      port never calls it) and the least time the card could take (bound);
-     the rmsnorm and flash gradients (kernel forward, plain backward)
-     against autograd through the plain versions.
+     flash's bf16 cases on the tensor-core kernel, its fp32 cases on the
+     CUDA-core kernel, a bf16 stride TMA cannot read rejected; every bf16
+     flash output also held to FLASH_BF16_RMS_REL, which a P rounded to one
+     bf16 part and a dropped 128-key tile, planted in the plain version,
+     must fail; the rmsnorm
+     and flash gradients (kernel forward, plain backward) against autograd
+     through the plain versions.
   3. quant kernels vs plain: the wire codec's quant and dequant kernels,
      fp8 / int8 x RTN / SR x f32 / bf16 inputs at 129, 5000 and the
      largest bucket of the full-width path (plus the largest error-feedback
@@ -53,7 +61,9 @@ without printing the final line):
      storage at TOL32; ssd, flash, rmsnorm, xent and adamw launched.
   7. full-width serve: llama3-8b, bf16, seeded weights made on the card,
      batch 4, prompt 2000, gen 64 (T = 2064) through
-     `repro_torch.launch.serve`; launch counters; and a consistency check,
+     `repro_torch.launch.serve`; launch counters (every full-width phase
+     asserts that flash's bf16 route launched and its fp32 route did not);
+     and a consistency check,
      prefill over p+1 tokens against prefill over p tokens + one decode step.
   8. full-width training: qwen3-1.7b, bf16 compute, fp32 storage, B 4,
      T 2048, remat fsdp_only, block buckets, reorder off, through
@@ -66,10 +76,10 @@ without printing the final line):
  10. full-width quantized training (the main path of the third slice):
      the prefetch stack with comm_precision fp8_ef; the same readings plus
      the collectives per step and the error-feedback accumulator.
- 10b. full-width zamba2-1.2b training (the main path of this slice): bf16,
-     B 4, T 2048, the prefetch stack at a bf16 wire, remat fsdp_only, block
-     buckets; the same readings, MFU from the FLOPs the step applies (the
-     Mamba layers once, the shared block once per invocation, the head,
+ 10b. full-width zamba2-1.2b training (the main path of the fourth slice):
+     bf16, B 4, T 2048, the prefetch stack at a bf16 wire, remat fsdp_only,
+     block buckets; the same readings, MFU from the FLOPs the step applies
+     (the Mamba layers once, the shared block once per invocation, the head,
      attention and the SSD products), ssd launches per step.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
@@ -77,7 +87,9 @@ TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
 fp32.  Tolerances: TOL32 (rtol 2e-4, atol 2e-5) for fp32 and TOL (rtol 2e-2,
 atol 2e-2) for bf16, those of tests/test_kernels.py; the full-width bf16
 consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY) and an
-equal argmax; the fp32 ssd check at zamba2's layer shape applies TOL32's
+equal argmax; the bf16 flash outputs are also held to an RMS error of
+FLASH_BF16_RMS_REL of the plain output's RMS; the fp32 ssd check at
+zamba2's layer shape applies TOL32's
 rtol to the summed |terms| of each element (`check_terms`: 33.5M outputs
 of 128-term fp32 sums, some cancelling); the quant kernels are held to
 zero difference; quantized
@@ -108,6 +120,14 @@ TOL32 = dict(rtol=2e-4, atol=2e-5)
 # bf16 prefill is 3.9e-2 from the fp32 one on the same weights); the
 # limit sits above that with room for run-to-run order changes
 TOL_BF16_CONSISTENCY = dict(rtol=0.0, atol=6e-2)
+# bf16 flash attention, besides TOL: RMS of the error over RMS of the plain
+# output.  A kernel that differs from the plain version only in the order of
+# its fp32 sums rounds to the same bf16 almost everywhere: the tensor-core
+# kernel read at most 1.6e-4 over this script's and the card tests' shapes
+# (NVIDIA H100 80GB HBM3).  Rounding P to one bf16 part reads 1.7e-3 to
+# 2.5e-3 at the same shapes, a dropped 128-key tile far more; TOL passes
+# the first and, on long rows, can pass the second.
+FLASH_BF16_RMS_REL = 5e-4
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 rate and peak rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -141,6 +161,24 @@ def time_ms(fn, budget_s=0.3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n=20):
+    """Device kernel time per call of fn (torch.profiler): what time_ms
+    reads less the host's cost of issuing the call, where that cost is the
+    larger.  None where the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / n / 1e3 if us else None
 
 
 def max_err(got, want):
@@ -185,6 +223,67 @@ def check_rejects(what, planted, want, tol):
     say(f"  {what}: rejected (max abs err {max_err(planted, want):.3e})")
 
 
+def rms_rel(got, want):
+    """RMS of got - want over the RMS of want."""
+    e, w = got.float() - want.float(), want.float()
+    return (e.pow(2).mean().sqrt() / w.pow(2).mean().sqrt()).item()
+
+
+def check_flash_bf16(what, got, want):
+    """A bf16 flash output: TOL, and FLASH_BF16_RMS_REL."""
+    err = check_close(what, got, want, TOL)
+    rel = rms_rel(got, want)
+    say(f"    RMS error / RMS {rel:.3e} (limit {FLASH_BF16_RMS_REL}) "
+        f"{'ok' if rel <= FLASH_BF16_RMS_REL else 'FAIL'}")
+    if rel > FLASH_BF16_RMS_REL:
+        raise AssertionError(f"{what}: RMS error {rel:.3e} of the output's")
+    return err
+
+
+def flash_plants(q, k, v, causal=True, window=None, softcap=None):
+    """The plain attention with a planted fault: P rounded to one bf16 part
+    before P V, and (where T > 256) the keys of one 128-key tile in the
+    middle left out."""
+    B, S, H, hd = q.shape
+    T, Kh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, S, Kh, H // Kh, hd) / hd ** 0.5
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pq = torch.arange(S, device=q.device)[:, None]
+    pk = torch.arange(T, device=q.device)[None, :]
+    keep = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= pk <= pq
+    if window:
+        keep &= pq - pk < window
+    s_kept = s.masked_fill(~keep, -float("inf"))
+    p = torch.exp(s_kept - s_kept.amax(-1, True))
+    out = {"P in one bf16 part": p.to(torch.bfloat16).float()
+           / p.sum(-1, True)}
+    if T > 256:
+        t0 = 128 * (T // 256)
+        drop = keep.clone()
+        drop[:, t0:t0 + 128] = False
+        out[f"keys {t0}..{t0 + 127} dropped"] = torch.softmax(
+            s.masked_fill(~drop, -1e30), dim=-1)
+    return {n: torch.einsum("bkgst,btkh->bskgh", pp, v.float())
+            .reshape(B, S, H, hd).to(q.dtype) for n, pp in out.items()}
+
+
+def check_flash_plants(what, q, k, v, want, **kw):
+    """Each planted fault must fail check_flash_bf16's limits."""
+    for name, planted in flash_plants(q, k, v, **kw).items():
+        rel = rms_rel(planted, want)
+        if rel <= FLASH_BF16_RMS_REL and torch.allclose(
+                planted.float(), want.float(), **TOL):
+            raise AssertionError(f"{what}, {name}: the check cannot tell it "
+                                 "apart")
+        say(f"    planted {name}: rejected (RMS error / RMS {rel:.3e}, "
+            f"max abs err {max_err(planted, want):.3e}, "
+            f"{'within' if torch.allclose(planted.float(), want.float(), **TOL) else 'outside'} TOL)")
+
+
 def per_g(dx, g):
     """dlogits with each row divided by |its cotangent|: ±(softmax −
     onehot), so every softmax term meets the tolerance at its own size."""
@@ -205,9 +304,38 @@ def phase_device(state):
     from repro_torch.kernels import build
     lib = build.library()
     say(f"kernel build: {lib.seconds:.1f}s -> {lib.path.relative_to(ROOT)}")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say("  " + line.strip())
+    say("kernels (ptxas -v: registers a thread, static shared memory, "
+        "spill stores / loads in bytes):")
+    spilled = []
+    for name, regs, smem, spills in _kernel_resources(lib.log):
+        say(f"  {name}: {regs} registers, {smem} B static smem, spills "
+            f"{spills[0]} / {spills[1]}")
+        if any(spills) and ("flash" in name or "rmsnorm" in name):
+            spilled.append(name)
+    if spilled:
+        raise AssertionError(f"the flash or rmsnorm kernels spill: {spilled}")
+
+
+def _kernel_resources(log):
+    """(kernel, registers, static smem bytes, (spill stores, spill loads))
+    for every entry function in an nvcc -Xptxas -v log."""
+    import re
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            short = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?_\d+_", "", name)
+            out.append((short, int(m.group(1)), int(m.group(2) or 0), spills))
+            name, spills = None, (0, 0)
+    return out
 
 
 def phase_kernels(state):
@@ -252,8 +380,9 @@ def phase_kernels(state):
         t_ops, t_bytes = 4 * x.numel() / PEAK_FLOPS[torch.float32], \
             nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
+        on_card = device_ms(lambda: rms_ops.rmsnorm(x, w, 1e-5, uo))
         say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
-            f"({nbytes / ms / 1e6:.0f} GB/s)")
+            f"({nbytes / ms / 1e6:.0f} GB/s); device {_ms(on_card)}")
         if i == 0:
             state["rmsnorm"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
@@ -264,7 +393,8 @@ def phase_kernels(state):
     flash_cases = [  # (name, B, S, H, Kh, hd, dtype, kwargs, sdpa)
         (f"prefill B{B} T{T} H32 Kh8 hd128 causal bf16", B, T, 32, 8, 128,
          torch.bfloat16, dict(causal=True), True),
-        (f"B{B} T2048 H32 Kh8 hd128 causal bf16", B, 2048, 32, 8, 128,
+        (f"B{TRAIN_B} T{TRAIN_T} H32 Kh32 hd128 causal bf16 (zamba2-1.2b's "
+         "shared attention)", TRAIN_B, TRAIN_T, 32, 32, 128,
          torch.bfloat16, dict(causal=True), True),
         ("B2 T1000 H8 Kh2 hd128 window 256 softcap 50 bf16", 2, 1000, 8, 2,
          128, torch.bfloat16, dict(causal=True, window=256, softcap=50.0),
@@ -282,9 +412,14 @@ def phase_kernels(state):
         q = randn(b, s, h, hd, dtype=dt)
         k = randn(b, s, kh, hd, dtype=dt)
         v = randn(b, s, kh, hd, dtype=dt)
-        tol = TOL32 if dt == torch.float32 else TOL
-        err = check_close(name, flash_ops.flash_attention(q, k, v, **kw),
-                          flash_ref.attention(q, k, v, **kw), tol)
+        want = flash_ref.attention(q, k, v, **kw)
+        got = flash_ops.flash_attention(q, k, v, **kw)
+        if dt == torch.float32:
+            err = check_close(name, got, want, TOL32)
+        else:
+            err = check_flash_bf16(name, got, want)
+            check_flash_plants(name, q, k, v, want, **kw)
+        del got, want
         ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw))
         plain = time_ms(lambda: flash_ref.attention(q, k, v, **kw))
         lib = None
@@ -305,11 +440,17 @@ def phase_kernels(state):
         t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16], \
             nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
+        route = ("tensor cores, flash_attention_sm90.cu"
+                 if dt == torch.bfloat16 else "CUDA cores, flash_attention.cu")
         say(f"    {ms:.4f} / {plain:.4f} / "
             f"{'n/a' if lib is None else f'{lib:.4f}'} / {bound:.4f} "
-            f"({flops / ms / 1e9:.1f} TFLOP/s)")
-        if i == 0:
-            state["flash"] = dict(
+            f"({flops / ms / 1e9:.1f} TFLOP/s; {route}); device "
+            f"{_ms(device_ms(lambda: flash_ops.flash_attention(q, k, v, **kw)))}")
+        # the prefill case for the bf16 route, the first fp32 case for the
+        # fp32 route
+        key = "flash" if i == 0 else "flash_f32" if i == 3 else None
+        if key:
+            state[key] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=lib)
@@ -317,9 +458,23 @@ def phase_kernels(state):
     # strided inputs: q/k/v as head slices of one packed projection
     q, k, v = randn(2, 515, 32 + 2 * 8, 128, dtype=torch.bfloat16).split(
         [32, 8, 8], dim=2)
-    check_close("strided q/k/v slices of a packed (B,T,48,128) bf16",
-                flash_ops.flash_attention(q, k, v),
-                flash_ref.attention(q, k, v), TOL)
+    check_flash_bf16("strided q/k/v slices of a packed (B,T,48,128) bf16",
+                     flash_ops.flash_attention(q, k, v),
+                     flash_ref.attention(q, k, v))
+    # a stride TMA cannot read must raise, not fall back
+    wide = randn(2, 64, 8, 138, dtype=torch.bfloat16)[..., :128]
+    try:
+        flash_ops.flash_attention(wide, wide[:, :, :2], wide[:, :, :2])
+    except ValueError as e:
+        if "TMA" not in str(e):
+            raise
+        say("  bf16 q/k/v with a head stride of 138 elements: rejected")
+    else:
+        raise AssertionError("a bf16 input TMA cannot read was taken")
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def _bound(nbytes, flops, dtype=torch.float32):
@@ -492,8 +647,9 @@ def phase_train_kernels(state):
     name = f"flash B{TRAIN_B} T{TRAIN_T} H16 Kh8 hd128 causal bf16"
     got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
     want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
-    err = max(check_close(f"{name} {n}", a, b, TOL)
-              for n, a, b in zip(("o", "dq", "dk", "dv"), got, want))
+    err = max(check_flash_bf16(f"{name} o", got[0], want[0]),
+              *(check_close(f"{name} {n}", a, b, TOL)
+                for n, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:])))
     del got, want
     ms = time_ms(lambda: _grads(lambda *a: flash_ops.flash_attention(*a),
                                 (q, k, v), ct))
@@ -740,6 +896,7 @@ def _train_counts():
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
+                flash_f32=flash_ops.launches_f32,
                 xent_fwd=xent_ops.fwd_launches,
                 xent_bwd=xent_ops.bwd_launches, adamw=adamw_ops.launches,
                 quant_fwd=quant_ops.quant_launches,
@@ -757,7 +914,7 @@ def _reset_counts():
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     rms_ops.launches = flash_ops.launches = adamw_ops.launches = 0
-    ssd_ops.launches = 0
+    flash_ops.launches_f32 = ssd_ops.launches = 0
     xent_ops.fwd_launches = xent_ops.bwd_launches = 0
     quant_ops.quant_launches = quant_ops.dequant_launches = 0
     coll.gathers = coll.reduce_scatters = 0
@@ -767,6 +924,9 @@ COLLECTIVES = ("gathers", "reduce_scatters")
 QUANT = ("quant_fwd", "dequant_fwd")
 # kernels the dense paths do not run at a bf16 wire
 NOT_DENSE = QUANT + ("ssd",)
+# fp32 runs take flash's fp32 route, bf16 runs its bf16 route
+NOT_F32 = ("flash",)
+NOT_BF16 = ("flash_f32",)
 
 
 def phase_smoke_train(state):
@@ -801,9 +961,12 @@ def phase_smoke_train(state):
             storage, _, hist = tr.run()
             runs[dev] = (storage, hist, _train_counts())
         counts = runs["cuda"][2]
+        state["smoke_train_launches"] = counts
         say(f"  launches in the smoke run on the card: {counts}")
-        if min(v for k, v in counts.items() if k not in NOT_DENSE) <= 0:
-            raise AssertionError(f"a kernel never launched: {counts}")
+        if min(v for k, v in counts.items()
+               if k not in NOT_DENSE + NOT_F32) <= 0 or counts["flash"]:
+            raise AssertionError(f"a kernel never launched, or fp32 took "
+                                 f"flash's bf16 route: {counts}")
         if max(v for k, v in runs["cpu"][2].items()
                if k not in COLLECTIVES) > 0:
             raise AssertionError("the CPU run launched a kernel")
@@ -1084,7 +1247,7 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b"):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw", *need)
-    unused = [k for k in NOT_DENSE if k not in need and counts[k]]
+    unused = [k for k in NOT_DENSE + NOT_BF16 if k not in need and counts[k]]
     if min(counts[k] for k in need) <= 0 or unused:
         raise AssertionError(f"a kernel of the path never launched, or one "
                              f"off the path did: {counts}")
@@ -1239,7 +1402,8 @@ def phase_zamba_smoke_train(state):
         cpu.ckpt.save(0, cpu.par.unshard(storage), dict(
             m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
             step=opt["step"]), cpu.model, cpu.dcfg)
-        need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw", "ssd")
+        need = ("rmsnorm", "flash_f32", "xent_fwd", "xent_bwd", "adamw",
+                "ssd")
         for reorder in (False, True):
             runs = {}
             for dev in ("cpu", "cuda"):
@@ -1252,8 +1416,9 @@ def phase_zamba_smoke_train(state):
             label = "prefetch" if reorder else "vanilla"
             counts = runs["cuda"][2]
             say(f"  zamba2 smoke {label}: launches on the card {counts}")
-            if min(counts[k] for k in need) <= 0:
-                raise AssertionError(f"a kernel never launched: {counts}")
+            if min(counts[k] for k in need) <= 0 or counts["flash"]:
+                raise AssertionError(f"a kernel never launched, or fp32 "
+                                     f"took flash's bf16 route: {counts}")
             if max(v for k, v in runs["cpu"][2].items()
                    if k not in COLLECTIVES) > 0:
                 raise AssertionError("the CPU run launched a kernel")
@@ -1311,11 +1476,15 @@ def phase_smoke_parity(state):
             dec = SV.make_decode_step(model, dcfg,
                                       ShapeConfig("d", t_len, b, "decode"))
             rms_ops.launches = flash_ops.launches = 0
+            flash_ops.launches_f32 = 0
             logits, cache = pf(params, {"tokens": torch.from_numpy(tokens)
                                         .to(dev)})
-            if dev == "cuda" and not (rms_ops.launches and flash_ops.launches):
-                raise AssertionError(f"{arch}: the smoke prefill on the card "
-                                     "did not launch both kernels")
+            if dev == "cuda" and not (rms_ops.launches
+                                      and flash_ops.launches_f32
+                                      and not flash_ops.launches):
+                raise AssertionError(f"{arch}: the fp32 smoke prefill on the "
+                                     "card did not launch rmsnorm and flash's"
+                                     " fp32 route (and only that route)")
             runs[dev] = dict(params=params, dec=dec, cache=cache,
                              logits=[logits.cpu()])
         check_close(f"{arch} smoke prefill logits cuda vs cpu",
@@ -1357,9 +1526,10 @@ def phase_full_width(state):
     padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
     torch.cuda.reset_peak_memory_stats()
 
-    rms_ops.launches = flash_ops.launches = 0
+    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
     tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN)
-    counts = dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches)
+    counts = dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
+                  flash_f32=flash_ops.launches_f32)
 
     peak = torch.cuda.max_memory_allocated()
     say(f"serve B={B} prompt={PROMPT} gen={GEN} T={T}: "
@@ -1374,8 +1544,9 @@ def phase_full_width(state):
     if tokens.shape != (B, GEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab)).all()):
         raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or counts["flash_f32"]:
+        raise AssertionError(f"a kernel of the path never launched, or bf16 "
+                             f"took flash's fp32 route: {counts}")
 
     # where the time goes: device kernel time against wall time
     pos = torch.full((B,), PROMPT, dtype=torch.int64, device=dev)
@@ -1417,19 +1588,21 @@ def _consistency(params, prefill, decode, x, label):
     at T-1 followed by one decode step of x[:, -1] at position T-1."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
-    rms_ops.launches = flash_ops.launches = 0
+    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
     want, _ = prefill(params, {"tokens": x})
     per_call = dict(prefill=dict(rmsnorm=rms_ops.launches,
-                                 flash=flash_ops.launches))
+                                 flash=flash_ops.launches,
+                                 flash_f32=flash_ops.launches_f32))
     xp = x.clone()
     xp[:, -1] = 3
     _, cache = prefill(params, {"tokens": xp})
-    rms_ops.launches = flash_ops.launches = 0
+    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
     got, _ = decode(params, cache, x[:, -1],
                     torch.full((B,), T - 1, dtype=torch.int64,
                                device=x.device))
     per_call["decode"] = dict(rmsnorm=rms_ops.launches,
-                              flash=flash_ops.launches)
+                              flash=flash_ops.launches,
+                              flash_f32=flash_ops.launches_f32)
     top2 = want.topk(2, dim=-1).values
     say(f"  {label}: max|logit| {want.abs().max().item():.4f}, max abs err "
         f"{max_err(got, want):.4e}, mean abs err "
@@ -1498,7 +1671,10 @@ def kernels_line(state):
     (fp8_ef, the prefetch stack) for the first seven, which it runs all,
     and the full-width zamba2 training for ssd_fwd; `launches_by_path` adds
     the serving run's, the bf16 qwen3 training runs' (vanilla and
-    prefetch) and the zamba2 run's counts."""
+    prefetch) and the zamba2 run's counts.  flash_attention_f32 is flash's
+    fp32 route: no bf16 path runs it (its count is 0 on each, and each
+    path asserts so); `launches_by_path` adds the fp32 smoke training
+    run's count."""
     src = "src/repro_torch/csrc/"
     main, train, prefetch, serve, zamba = (
         state["train_fp8_ef_launches"], state["train_launches"],
@@ -1510,6 +1686,8 @@ def kernels_line(state):
                        train_fp8_ef=main[key], train_zamba2=zamba[key])
         if serve_key:
             by_path["serve"] = serve[serve_key]
+        if key == "flash_f32":
+            by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
         return dict(name=name, route="cuda", source=src + source,
                     replaces="src/repro/kernels/" + replaces,
                     launches=home[key], **state[key],
@@ -1518,8 +1696,11 @@ def kernels_line(state):
     rows = [
         row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
             "rmsnorm"),
-        row("flash_attention", "flash", "flash_attention.cu",
+        row("flash_attention", "flash", "flash_attention_sm90.cu",
             "flash_attention/kernel.py:77", "flash"),
+        # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
+        row("flash_attention_f32", "flash_f32", "flash_attention.cu",
+            "flash_attention/kernel.py:77", "flash_f32"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:61"),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",

@@ -1,9 +1,12 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a): the fp32 route.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// `flash_fwd` (pallas_call at :90): online-softmax attention with an fp32
-// running max, sum and accumulator; static causal / sliding-window / tanh
-// softcap masking; q_scale (default 1/sqrt(hd), set by the wrapper).
+// `flash_fwd` (pallas_call at :90) for fp32 inputs: online-softmax attention
+// with an fp32 running max, sum and accumulator; static causal /
+// sliding-window / tanh softcap masking; q_scale (default 1/sqrt(hd), set by
+// the wrapper).  bf16 inputs take the tensor-core kernel,
+// csrc/flash_attention_sm90.cu; this one stays on the CUDA cores because
+// TF32 tensor cores would not hold fp32 tolerances.
 //
 // Differences from the TPU kernel, on purpose:
 //  * Layout.  It reads the port's public layout q (B,S,H,hd), k/v
@@ -18,22 +21,16 @@
 //    KV tiles its query rows can see: causality ends the loop at the tile's
 //    last row, a sliding window starts it at the first row's window.
 //
-// Bound on the H100: at prefill, operations.  Causal attention at
-// B = 4, T = 2064, H = 32, Kh = 8, hd = 128 does ~830 FLOP per byte of
-// q/k/v/o in bf16, far above the card's ~295 FLOP/byte ridge, so the least
-// time is its FLOPs over the bf16 tensor-core peak.  This first kernel is simple and exact rather than fast: it multiplies
-// on the fp32 CUDA cores from fp32 tiles in shared memory (a 16x16 thread
-// grid, each thread a 4 x BN/16 patch of scores and a 4 x hd/16 patch of the
-// output), so it reaches at most the fp32 FMA rate.  A wgmma/TMA pipeline is
-// the later step.
+// Bound on the H100: operations (~830 FLOP per byte of q/k/v/o at prefill,
+// far above the card's ridge).  It multiplies on the fp32 CUDA cores from
+// fp32 tiles in shared memory (a 16x16 thread grid, each thread a 4 x BN/16
+// patch of scores and a 4 x hd/16 patch of the output), so it reaches at
+// most the fp32 FMA rate; it serves the fp32 checks, not the main path.
 #include <math_constants.h>
 
-#include "common.cuh"
+#include <cuda_runtime.h>
 
 namespace {
-
-using repro::from_f32;
-using repro::to_f32;
 
 constexpr int kBM = 64;                   // query rows per block
 constexpr int kThreads = 256;             // 16 x 16 thread grid
@@ -66,7 +63,7 @@ struct Params {
   float q_scale;
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   constexpr int BN = KvTile<HD>::kN;
   constexpr int CN = BN / 16;   // key columns per thread
@@ -89,14 +86,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.Kh);
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* k = static_cast<const T*>(p.k) + b * p.skb + kvh * p.skh;
-  const T* v = static_cast<const T*>(p.v) + b * p.svb + kvh * p.svh;
-  T* o = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + kvh * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + kvh * p.svh;
+  float* o = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
 
   for (int i = tid; i < kBM * HD; i += kThreads) {
     const int r = i / HD, d = i % HD, s = m0 + r;
-    Qs[r * QS + d] = s < p.S ? to_f32(q[s * p.sqs + d]) * p.q_scale : 0.f;
+    Qs[r * QS + d] = s < p.S ? q[s * p.sqs + d] * p.q_scale : 0.f;
   }
 
   int n_end = p.T;
@@ -118,8 +115,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
     for (int i = tid; i < BN * HD; i += kThreads) {
       const int c = i / HD, d = i % HD, t = n0 + c;
       const bool in = t < p.T;  // zero, never garbage: 0 * NaN would leak
-      Ks[c * KS + d] = in ? to_f32(k[t * p.skt + d]) : 0.f;
-      Vs[c * HD + d] = in ? to_f32(v[t * p.svt + d]) : 0.f;
+      Ks[c * KS + d] = in ? k[t * p.skt + d] : 0.f;
+      Vs[c * HD + d] = in ? v[t * p.svt + d] : 0.f;
     }
     __syncthreads();
 
@@ -204,36 +201,25 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
     const float inv = l_i[i] > 0.f ? 1.f / l_i[i] : 0.f;
 #pragma unroll
     for (int j = 0; j < DN; ++j)
-      o[s_ * p.sos + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+      o[s_ * p.sos + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((p.S + kBM - 1) / kBM, p.B * p.H);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_hd(const Params& p, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q: (B,S,H,hd), k/v: (B,T,Kh,hd), o: (B,S,H,hd), all in `dtype`, with
+// fp32 q: (B,S,H,hd), k/v: (B,T,Kh,hd), o: (B,S,H,hd), with
 // element strides given per (batch, position, head) and unit stride on hd.
 // Launches on `stream`, allocates nothing, returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported input).
@@ -242,7 +228,7 @@ extern "C" int flash_attention_fwd(
     int H, int Kh, int hd, long long sqb, long long sqs, long long sqh,
     long long skb, long long skt, long long skh, long long svb, long long svt,
     long long svh, long long sob, long long sos, long long soh, int causal,
-    int window, float softcap, float q_scale, int dtype, void* stream) {
+    int window, float softcap, float q_scale, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || Kh <= 0 || H % Kh != 0 ||
       B * H > 65535)
     return cudaErrorInvalidValue;
@@ -250,7 +236,11 @@ extern "C" int flash_attention_fwd(
                  sqb, sqs, sqh, skb, skt, skh, svb,    svt,    svh,
                  sob, sos, soh, causal, window, softcap, q_scale};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32) return launch_hd<float>(p, hd, s);
-  if (dtype == repro::kBF16) return launch_hd<__nv_bfloat16>(p, hd, s);
-  return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch<16>(p, s);
+    case 32: return launch<32>(p, s);
+    case 64: return launch<64>(p, s);
+    case 128: return launch<128>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

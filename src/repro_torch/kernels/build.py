@@ -38,7 +38,8 @@ class Library:
     cdll: ctypes.CDLL
     path: Path
     seconds: float        # build wall time (0.0 when an up-to-date build was found)
-    log: str              # nvcc/ptxas output (registers, shared memory, spills)
+    log: str              # nvcc/ptxas output (registers, shared memory,
+                          # spills), kept beside the library for later loads
 
 
 def _nvcc() -> str:
@@ -70,8 +71,10 @@ def build() -> tuple[Path, float, str]:
     for f in sorted(CSRC.iterdir()):
         digest.update(f.name.encode() + f.read_bytes())
     out = BUILD_DIR / f"librepro_torch_kernels-{digest.hexdigest()[:12]}.so"
+    saved = out.with_suffix(".log")
     if out.exists():
-        return out, 0.0, "up-to-date build found; nothing compiled\n"
+        old = saved.read_text() if saved.exists() else ""
+        return out, 0.0, "up-to-date build found; nothing compiled\n" + old
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -82,6 +85,7 @@ def build() -> tuple[Path, float, str]:
     tmp = out.with_suffix(f".{tag}.tmp")
     log += _run_all([[nvcc, "-shared", *ARCH, "-o", str(tmp),
                       *map(str, objs)]])
+    saved.write_text(log)
     os.replace(tmp, out)
     for o in objs:
         o.unlink()

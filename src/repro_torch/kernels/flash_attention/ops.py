@@ -1,5 +1,8 @@
-"""Flash-attention op: a CUDA tensor goes to the hand-written kernel
-(`csrc/flash_attention.cu`), a CPU tensor to the plain version (`ref.py`).
+"""Flash-attention op: a CUDA tensor goes to a hand-written kernel, a CPU
+tensor to the plain version (`ref.py`).  On the card the kernel goes by
+dtype: bf16 to the tensor-core kernel (`csrc/flash_attention_sm90.cu`,
+wgmma and TMA), fp32 to the CUDA-core kernel (`csrc/flash_attention.cu`),
+since TF32 tensor cores would not hold fp32 tolerances.
 
 Layout q (B,S,H,hd), k/v (B,T,Kh,hd); GQA maps q head h to kv head
 h // (H // Kh) inside the kernel, and keys are masked on the true length T,
@@ -11,7 +14,8 @@ a time and differentiates that, so the (S, T) score matrix is never live
 whole, as the reference's `attention_chunked` remat does (no backward
 kernel exists in the reference either).  There is no fallback: a CUDA
 input the kernel does not take, a failed build or a failed launch raises.
-`launches` counts forward kernel launches.
+`launches` counts the bf16 kernel's launches, `launches_f32` the fp32
+kernel's.
 """
 
 from __future__ import annotations
@@ -26,10 +30,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 launches = 0
+launches_f32 = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 Q_CHUNK = 512
-_CODES = {torch.float32: build.F32, torch.bfloat16: build.BF16}
 
 
 def flash_attention(q, k, v, causal=True, window=None, softcap=None,
@@ -70,20 +74,29 @@ class _Flash(torch.autograd.Function):
 
 
 @functools.cache
-def _kernel():
-    fn = build.library().cdll.flash_attention_fwd
+def _kernel(name):
+    fn = getattr(build.library().cdll, name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12
-                   + [i, i, ctypes.c_float, ctypes.c_float, i, p])
+                   + [i, i, ctypes.c_float, ctypes.c_float, p])
     fn.restype = i
     return fn
 
 
+def _tma_strides(t):
+    """t's strides over (batch, position, head) for a TMA map: a dim of
+    size 1 gets a stride of hd (never read, but the map needs a multiple of
+    16 bytes)."""
+    return [st if n > 1 else t.shape[-1]
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
 def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale):
-    global launches
+    global launches, launches_f32
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash kernel: q, k, v must be on one CUDA device")
-    if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(f"flash kernel: dtypes {q.dtype}/{k.dtype}/{v.dtype};"
                         " all must be float32 or all bfloat16")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -102,14 +115,29 @@ def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale):
         raise ValueError(f"flash kernel: window {window} must be >= 1")
     if softcap is not None and softcap < 0:
         raise ValueError(f"flash kernel: softcap {softcap} must be > 0")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        strides = [st for t in (q, k, v) for st in _tma_strides(t)]
+        if (any(t.data_ptr() % 16 for t in (q, k, v))
+                or any(st % 8 for st in strides)):
+            raise ValueError(
+                "flash kernel: bf16 q/k/v are read by TMA, which needs "
+                "16-byte aligned base pointers and strides that are multiples "
+                f"of 8 elements; got strides {[t.stride() for t in (q, k, v)]}"
+                f" and offsets {[t.storage_offset() for t in (q, k, v)]}")
+    else:
+        strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     scale = q_scale if q_scale is not None else 1.0 / math.sqrt(hd)
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    rc = _kernel()(
+    name = "flash_attention_fwd_sm90" if bf16 else "flash_attention_fwd"
+    rc = _kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, S, T, H, Kh, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        B, S, T, H, Kh, hd, *strides, *o.stride()[:3],
         int(causal), int(window or 0), float(softcap or 0.0), float(scale),
-        _CODES[q.dtype], build.stream_ptr(q.device))
-    build.check(rc, "flash_attention_fwd")
-    launches += 1
+        build.stream_ptr(q.device))
+    build.check(rc, name)
+    if bf16:
+        launches += 1
+    else:
+        launches_f32 += 1
     return o

@@ -10,6 +10,7 @@ length.  Tolerances as in tests/test_kernels.py: TOL32 for fp32, TOL for
 bf16.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,4 +104,51 @@ def test_flash_gqa_head_mapping_matches_reference_wrapper():
                               torch.from_numpy(v), causal=True)
     want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), True, None, None, None, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+
+
+# The tile edges of the card's kernels (128-row query tiles, 128-key tiles):
+# the plain version is the oracle the bf16 kernel is held against on the card,
+# so it is held here against the reference at the same edges.  The reference
+# runs jitted: one compile a shape instead of one per op.
+_attention_ref = jax.jit(attention_ref, static_argnames=(
+    "causal", "window", "softcap", "q_scale"))
+
+
+@pytest.mark.parametrize("T", [127, 128, 129, 255, 257, 2064])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tile_edges_match_attention_ref(T, causal):
+    B, H, Kh, hd = 1, 2, 1, 16
+    q, k, v = _normal(0, B, T, H, hd), _normal(1, B, T, Kh, hd), \
+        _normal(2, B, T, Kh, hd)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    want = _attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+
+
+@pytest.mark.parametrize("window", [127, 128, 129])
+def test_flash_window_edges_softcap_match_attention_ref(window):
+    B, T, H, Kh, hd = 1, 300, 2, 1, 32
+    q, k, v = _normal(0, B, T, H, hd), _normal(1, B, T, Kh, hd), \
+        _normal(2, B, T, Kh, hd)
+    kw = dict(causal=True, window=window, softcap=30.0)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), **kw)
+    want = _attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_flash_head_dims_and_groups_match_attention_ref(hd, group):
+    B, T, H = 1, 129, 4
+    Kh = H // group
+    q, k, v = _normal(0, B, T, H, hd), _normal(1, B, T, Kh, hd), \
+        _normal(2, B, T, Kh, hd)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True)
+    want = _attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)

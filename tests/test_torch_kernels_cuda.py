@@ -6,12 +6,16 @@ only torch and the port, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 chip_smoke.py holds the kernels against their plain versions at the
-serving and training paths' full shapes; these are small, quick cases.
+serving and training paths' full shapes; these are small, quick cases, and
+the edges of the kernels' tiles.  Flash attention goes by dtype: bf16 to the
+tensor-core kernel (`launches`), fp32 to the CUDA-core one
+(`launches_f32`); every flash case checks which one launched.
 The quant pair must equal its plain version bit for bit (wire bytes,
 scales, decoded values, the SR seed).  The gradients of the rmsnorm,
 flash and ssd `autograd.Function`s (kernel forward, plain-torch backward)
 are held against autograd through the plain versions.  Tolerances:
-TOL32 (rtol 2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16.
+TOL32 (rtol 2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16, and for bf16
+flash outputs also an RMS error of FLASH_BF16_RMS_REL of the output's.
 """
 
 import pytest
@@ -30,6 +34,9 @@ pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL32 = dict(rtol=2e-4, atol=2e-5)
+# bf16 flash outputs, besides TOL: RMS error over the plain output's RMS
+# (chip_smoke.py's FLASH_BF16_RMS_REL, where the choice is explained)
+FLASH_BF16_RMS_REL = 5e-4
 
 
 @pytest.fixture
@@ -44,8 +51,16 @@ def _randn(dev, *shape, dtype=torch.float32, seed=0):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+# Rows of whole 16-byte vectors up to 2048 of them are held in registers:
+# the model widths 128, 2048, 4096 and 7168 (20001, 5001 and 1001 rows: more
+# than one pass of the grid-stride loop), and other widths, some of which
+# leave lanes idle (40, 384 in bf16); 100 (bf16) and 16384 (fp32) take the
+# generic kernel
 @pytest.mark.parametrize("rows,d", [(8, 128), (9, 384), (33, 4096),
-                                    (5, 7168), (7, 100)])
+                                    (5, 7168), (7, 100), (20001, 128),
+                                    (257, 2048), (5001, 4096), (1001, 7168),
+                                    (6, 40), (300, 1536), (17, 5120),
+                                    (3, 16384)])
 @pytest.mark.parametrize("xdt,wdt", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32)])
@@ -79,19 +94,73 @@ def test_flash_kernel_matches_plain(dev, S, H, Kh, hd, dtype, kw):
     q = _randn(dev, 2, S, H, hd, dtype=dtype)
     k = _randn(dev, 2, S, Kh, hd, dtype=dtype, seed=1)
     v = _randn(dev, 2, S, Kh, hd, dtype=dtype, seed=2)
-    n = flash_ops.launches
+    _check_flash(q, k, v, kw)
+
+
+def _check_flash(q, k, v, kw):
+    """The kernel against the plain version, and the route by dtype: bf16
+    launches the tensor-core kernel, fp32 the CUDA-core one."""
+    n, n32 = flash_ops.launches, flash_ops.launches_f32
     got = flash_ops.flash_attention(q, k, v, **kw)
-    assert flash_ops.launches == n + 1
+    bf16 = q.dtype == torch.bfloat16
+    assert (flash_ops.launches, flash_ops.launches_f32) == \
+        ((n + 1, n32) if bf16 else (n, n32 + 1))
     want = flash_ref.attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(),
-                               **(TOL32 if dtype == torch.float32 else TOL))
+                               **(TOL if bf16 else TOL32))
+    if bf16:
+        err = (got.float() - want.float()).pow(2).mean().sqrt()
+        assert err <= FLASH_BF16_RMS_REL * want.float().pow(2).mean().sqrt()
 
 
-def test_flash_kernel_reads_strided_heads(dev):
-    qkv = _randn(dev, 2, 77, 12, 64, dtype=torch.bfloat16)
-    q, k, v = qkv.split([8, 2, 2], dim=2)
-    torch.testing.assert_close(flash_ops.flash_attention(q, k, v).float(),
-                               flash_ref.attention(q, k, v).float(), **TOL)
+@pytest.mark.parametrize("T", [127, 128, 129, 255, 257, 2064])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernel_tile_edges(dev, T, causal):
+    """Query and key tiles are 128 rows: ragged last tiles, the causal
+    diagonal tile and keys past T."""
+    q = _randn(dev, 1, T, 4, 128, dtype=torch.bfloat16)
+    k = _randn(dev, 1, T, 2, 128, dtype=torch.bfloat16, seed=1)
+    v = _randn(dev, 1, T, 2, 128, dtype=torch.bfloat16, seed=2)
+    _check_flash(q, k, v, dict(causal=causal))
+
+
+@pytest.mark.parametrize("window", [127, 128, 129])
+def test_flash_bf16_kernel_window_edges_softcap(dev, window):
+    q = _randn(dev, 2, 600, 4, 64, dtype=torch.bfloat16)
+    k = _randn(dev, 2, 600, 2, 64, dtype=torch.bfloat16, seed=1)
+    v = _randn(dev, 2, 600, 2, 64, dtype=torch.bfloat16, seed=2)
+    _check_flash(q, k, v, dict(causal=True, window=window, softcap=30.0))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_flash_bf16_kernel_head_dims_and_groups(dev, hd, group):
+    q = _randn(dev, 2, 300, 8, hd, dtype=torch.bfloat16)
+    k = _randn(dev, 2, 300, 8 // group, hd, dtype=torch.bfloat16, seed=1)
+    v = _randn(dev, 2, 300, 8 // group, hd, dtype=torch.bfloat16, seed=2)
+    _check_flash(q, k, v, dict(causal=True))
+
+
+@pytest.mark.parametrize("S,heads,hd", [(77, (8, 2, 2), 64),
+                                         (515, (32, 8, 8), 128)])
+def test_flash_kernel_reads_strided_heads(dev, S, heads, hd):
+    """q, k and v as head slices of one packed projection."""
+    qkv = _randn(dev, 2, S, sum(heads), hd, dtype=torch.bfloat16)
+    q, k, v = qkv.split(list(heads), dim=2)
+    _check_flash(q, k, v, dict(causal=True))
+
+
+def test_flash_bf16_kernel_rejects_misaligned_strides(dev):
+    """TMA reads 16-byte aligned bases and strides of 8-element multiples."""
+    wide = _randn(dev, 1, 64, 2, 70, dtype=torch.bfloat16)
+    q = wide[..., :64]                       # head stride 70 elements
+    k = _randn(dev, 1, 64, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_ops.flash_attention(q, k, k)
+    flat = _randn(dev, 1 + 64 * 2 * 64, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 64, 2, 64)    # base 2 bytes off
+    with pytest.raises(ValueError, match="TMA"):
+        flash_ops.flash_attention(k, shifted, k)
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(dev):
@@ -129,9 +198,9 @@ def test_flash_gradient_matches_plain_autograd(dev, S, T_chunk, dtype,
     k = _randn(dev, 2, S, 2, 64, dtype=dtype, seed=1)
     v = _randn(dev, 2, S, 2, 64, dtype=dtype, seed=2)
     ct = _randn(dev, 2, S, 4, 64, dtype=dtype, seed=3)
-    n = flash_ops.launches
+    n = flash_ops.launches + flash_ops.launches_f32
     got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
-    assert flash_ops.launches == n + 1
+    assert flash_ops.launches + flash_ops.launches_f32 == n + 1
     want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
     for a, b in zip(got, want):
         torch.testing.assert_close(

@@ -6,6 +6,7 @@ Tolerances as in tests/test_kernels.py: TOL32 (rtol 2e-4, atol 2e-5) for
 fp32, TOL (2e-2) for bf16, where the two frameworks round at other places.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,3 +54,28 @@ def test_rmsnorm_keeps_leading_dims_and_weight_dtype():
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **TOL)
+
+
+# The widths the card kernel holds a row in registers for, at an odd row
+# count: the plain version (the card's oracle) against the reference (jitted:
+# one compile a shape).
+_rmsnorm_ref = jax.jit(jref.rmsnorm, static_argnums=(2, 3))
+
+
+@pytest.mark.parametrize("d", [128, 2048, 4096, 7168])
+@pytest.mark.parametrize("dtypes,unit_offset", [
+    (("float32", "float32"), False), (("bfloat16", "bfloat16"), False),
+    (("bfloat16", "float32"), True)])
+def test_rmsnorm_model_widths_match_reference(d, dtypes, unit_offset):
+    rng = np.random.default_rng(d)
+    x = (rng.standard_normal((7, d)) * 2).astype(np.float32)
+    w = rng.standard_normal(d).astype(np.float32)
+    (jx, tx), (jw, tw) = DTYPES[dtypes[0]], DTYPES[dtypes[1]]
+    got = ops.rmsnorm(torch.from_numpy(x).to(tx), torch.from_numpy(w).to(tw),
+                      1e-5, unit_offset)
+    want = _rmsnorm_ref(jnp.asarray(x, jx), jnp.asarray(w, jw), 1e-5,
+                        unit_offset)
+    assert got.dtype == tx
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **(TOL32 if dtypes[0] == "float32" else TOL))
