@@ -47,18 +47,27 @@ without printing the final line):
      seed depends on every bit of the gradient); a non-zero error-feedback
      accumulator; a bit-exact fp8_ef restart, EF included; both quant
      kernels launched.
- 6a. ssd kernel vs plain: the Mamba-2 SSD chunk scan at zamba2-1.2b's
+ 6a. ssd kernels vs plain: the Mamba-2 SSD chunk scan at zamba2-1.2b's
      layer shape (B 4, T 2048, H 64, P 64, N 64, chunk 128; bf16 and fp32,
      the model's own dt and A ranges, B and C as strided halves of one
      packed projection), the reference sweep's shapes and the smoke shape
-     with a ragged last chunk; a planted result with the state not carried
-     across chunks must be told apart; kernel / plain ms and the byte
-     bound; the gradients (kernel forward, plain backward) against autograd
-     through the plain version at the full shape.
+     with a ragged last chunk; bf16 on the chunk-parallel tensor-core
+     forward, fp32 on the CUDA-core one (`launches_f32`); every bf16 output
+     also held to SSD_BF16_RMS_REL, which two planted results (the state
+     not carried across chunks, M in one bf16 part) must fail; kernel /
+     plain ms and the bound; the backward kernels (kernel forward + kernel
+     backward) against autograd through the plain version at the full
+     shape in bf16 and fp32, with the backward's own ms beside its bound
+     and the plain version's; bf16 dx, ddt, dB and dC also held to
+     SSD_BF16_GRAD_RMS_REL of the plain reverse-pass backward, which that
+     backward with M and dM o L in one bf16 part must fail; dA and dD
+     planted from half the chunks' partials and as 0 must fail their
+     checks.
  6b. zamba2 smoke training, card vs CPU: the launcher's trainer, zamba2
      SMOKE (shared block hd 32, T 40: a ragged SSD chunk), fp32, 3 steps
      from one CPU-made checkpoint, vanilla and prefetch: loss, grad norm,
-     storage at TOL32; ssd, flash, rmsnorm, xent and adamw launched.
+     storage at TOL32; ssd (fp32 route) and its backward, flash,
+     rmsnorm, xent and adamw launched.
   7. full-width serve: llama3-8b, bf16, seeded weights made on the card,
      batch 4, prompt 2000, gen 64 (T = 2064) through
      `repro_torch.launch.serve`; launch counters (every full-width phase
@@ -80,7 +89,8 @@ without printing the final line):
      bf16, B 4, T 2048, the prefetch stack at a bf16 wire, remat fsdp_only,
      block buckets; the same readings, MFU from the FLOPs the step applies
      (the Mamba layers once, the shared block once per invocation, the head,
-     attention and the SSD products), ssd launches per step.
+     attention and the SSD products), ssd forward and backward launches
+     per step and none on the fp32 route.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -88,11 +98,13 @@ fp32.  Tolerances: TOL32 (rtol 2e-4, atol 2e-5) for fp32 and TOL (rtol 2e-2,
 atol 2e-2) for bf16, those of tests/test_kernels.py; the full-width bf16
 consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY) and an
 equal argmax; the bf16 flash outputs are also held to an RMS error of
-FLASH_BF16_RMS_REL of the plain output's RMS; the fp32 ssd check at
-zamba2's layer shape applies TOL32's
-rtol to the summed |terms| of each element (`check_terms`: 33.5M outputs
-of 128-term fp32 sums, some cancelling); the quant kernels are held to
-zero difference; quantized
+FLASH_BF16_RMS_REL of the plain output's RMS, the bf16 ssd outputs to
+SSD_BF16_RMS_REL and its bf16 gradients to SSD_BF16_GRAD_RMS_REL; the fp32
+ssd check at zamba2's layer shape applies TOL32's rtol to the summed |terms|
+of each element (`check_terms`: 33.5M outputs of 128-term fp32 sums, some
+cancelling), as do its fp32 gradients but dA and dD, per-head sums over B*T
+held to TOL32 of their array's largest |value| (`check_scaled`); the quant
+kernels are held to zero difference; quantized
 training runs that dither differently on the two devices are held to the
 bounds of tests/dist_harness.py's quant case (QUANT_LOSS_RTOL, drift).
 """
@@ -128,6 +140,24 @@ TOL_BF16_CONSISTENCY = dict(rtol=0.0, atol=6e-2)
 # 2.5e-3 at the same shapes, a dropped 128-key tile far more; TOL passes
 # the first and, on long rows, can pass the second.
 FLASH_BF16_RMS_REL = 5e-4
+# bf16 SSD outputs, besides TOL: RMS of the error over RMS of the plain
+# output, as for flash.  The kernels keep every fp32 operand in two bf16
+# parts, so their y rounds to the plain version's bf16 almost everywhere:
+# they read 0 to 8.3e-5 over this script's shapes.  M = (C B^T) o L o dt
+# in one bf16 part reads 4.6e-4 to 2.5e-3 at the same shapes (lowest where
+# dt is small and the D skip dominates y), the state not carried 1.4e-2;
+# TOL passes both (NVIDIA H100 80GB HBM3).
+SSD_BF16_RMS_REL = 2e-4
+# bf16 SSD gradients dx, ddt, dB and dC at zamba2-1.2b's layer shape,
+# besides TOL against autograd: RMS of the error over RMS of the plain
+# reverse-pass backward's (`ref.ssd_chunked_bwd`, fp32 inside, one rounding
+# to bf16).  Autograd through the plain version is no yardstick for this:
+# it rounds dx twice in bf16 (its x dt and D x paths are cast before they
+# are summed), 2.8e-3 from the reverse-pass backward.  The kernels read
+# 4.4e-6 (ddt) to 1.1e-4 (dB); the reverse-pass backward with M and dM o L
+# in one bf16 part 6.0e-4 (dx) to 2.6e-3 (dC), and TOL passes its dx
+# (NVIDIA H100 80GB HBM3).
+SSD_BF16_GRAD_RMS_REL = 3e-4
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 rate and peak rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -215,6 +245,20 @@ def check_terms(what, got, want, terms, tol):
     return err.max().item()
 
 
+def scaled(want):
+    """The largest |value| of `want`, at least 1: the scale of a per-head
+    sum over B*T (the SSD's dA and dD), as tests/test_torch_ssd.py's
+    `_close` takes it."""
+    return max(1.0, want.float().abs().max().item())
+
+
+def check_scaled(what, got, want, tol):
+    """`tol` on got and want divided by `scaled(want)`."""
+    s = scaled(want)
+    return s * check_close(f"{what} / max|want|", got.float() / s,
+                           want.float() / s, tol)
+
+
 def check_rejects(what, planted, want, tol):
     """A planted wrong result must fail the check that `want`'s kernel
     passed: the check then depends on the term the plant leaves out."""
@@ -229,15 +273,28 @@ def rms_rel(got, want):
     return (e.pow(2).mean().sqrt() / w.pow(2).mean().sqrt()).item()
 
 
-def check_flash_bf16(what, got, want):
-    """A bf16 flash output: TOL, and FLASH_BF16_RMS_REL."""
+def check_rms(what, got, want, limit):
+    """A bf16 output: TOL, and an RMS error of `limit` of the plain
+    output's (FLASH_BF16_RMS_REL, SSD_BF16_RMS_REL)."""
     err = check_close(what, got, want, TOL)
     rel = rms_rel(got, want)
-    say(f"    RMS error / RMS {rel:.3e} (limit {FLASH_BF16_RMS_REL}) "
-        f"{'ok' if rel <= FLASH_BF16_RMS_REL else 'FAIL'}")
-    if rel > FLASH_BF16_RMS_REL:
+    say(f"    RMS error / RMS {rel:.3e} (limit {limit}) "
+        f"{'ok' if rel <= limit else 'FAIL'}")
+    if rel > limit:
         raise AssertionError(f"{what}: RMS error {rel:.3e} of the output's")
     return err
+
+
+def check_plant_rejected(what, planted, want, limit):
+    """A planted bf16 result must fail TOL or the RMS limit."""
+    rel = rms_rel(planted, want)
+    within = torch.allclose(planted.float(), want.float(), **TOL)
+    if within and rel <= limit:
+        raise AssertionError(f"{what}: the check cannot tell it apart "
+                             f"(RMS error / RMS {rel:.3e})")
+    say(f"    planted {what}: rejected (RMS error / RMS {rel:.3e}, max abs "
+        f"err {max_err(planted, want):.3e}, "
+        f"{'within' if within else 'outside'} TOL)")
 
 
 def flash_plants(q, k, v, causal=True, window=None, softcap=None):
@@ -272,16 +329,31 @@ def flash_plants(q, k, v, causal=True, window=None, softcap=None):
 
 
 def check_flash_plants(what, q, k, v, want, **kw):
-    """Each planted fault must fail check_flash_bf16's limits."""
+    """Each planted fault must fail TOL or FLASH_BF16_RMS_REL."""
     for name, planted in flash_plants(q, k, v, **kw).items():
-        rel = rms_rel(planted, want)
-        if rel <= FLASH_BF16_RMS_REL and torch.allclose(
-                planted.float(), want.float(), **TOL):
-            raise AssertionError(f"{what}, {name}: the check cannot tell it "
-                                 "apart")
-        say(f"    planted {name}: rejected (RMS error / RMS {rel:.3e}, "
-            f"max abs err {max_err(planted, want):.3e}, "
-            f"{'within' if torch.allclose(planted.float(), want.float(), **TOL) else 'outside'} TOL)")
+        check_plant_rejected(f"{what}, {name}", planted, want,
+                             FLASH_BF16_RMS_REL)
+
+
+def ssd_one_part_m(x, dt, A, Bm, Cm, D, chunk):
+    """The plain SSD with a planted fault: the intra-chunk matrix M = (C
+    B^T) o L o dt_s rounded to one bf16 part before its product with x (the
+    kernels split it into bf16 hi + lo)."""
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    T = x.shape[1]
+    xc, dtc, Bh, Ch, cum = ssd_ref._chunks(x, dt, A, Bm, Cm, chunk)
+    Lc = xc.shape[2]
+    states, _ = ssd_ref.ssd_chunk_states(x, dt, A, Bm, Cm, chunk)
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tri[:, :, None],
+                              cum[:, :, :, None] - cum[:, :, None],
+                              float("-inf")))
+    M = torch.einsum("bcthn,bcshn->bctsh", Ch, Bh) * L * dtc[:, :, None]
+    y = torch.einsum("bctsh,bcshp->bcthp", M.bfloat16().float(), xc)
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "bcthn,bhcpn->bcthp", Ch, states)
+    y = y.reshape(x.shape[0], -1, *x.shape[2:])[:, :T]
+    return (y + x.float() * D[None, None, :, None]).to(x.dtype)
 
 
 def per_g(dx, g):
@@ -417,7 +489,7 @@ def phase_kernels(state):
         if dt == torch.float32:
             err = check_close(name, got, want, TOL32)
         else:
-            err = check_flash_bf16(name, got, want)
+            err = check_rms(name, got, want, FLASH_BF16_RMS_REL)
             check_flash_plants(name, q, k, v, want, **kw)
         del got, want
         ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw))
@@ -458,9 +530,9 @@ def phase_kernels(state):
     # strided inputs: q/k/v as head slices of one packed projection
     q, k, v = randn(2, 515, 32 + 2 * 8, 128, dtype=torch.bfloat16).split(
         [32, 8, 8], dim=2)
-    check_flash_bf16("strided q/k/v slices of a packed (B,T,48,128) bf16",
-                     flash_ops.flash_attention(q, k, v),
-                     flash_ref.attention(q, k, v))
+    check_rms("strided q/k/v slices of a packed (B,T,48,128) bf16",
+              flash_ops.flash_attention(q, k, v),
+              flash_ref.attention(q, k, v), FLASH_BF16_RMS_REL)
     # a stride TMA cannot read must raise, not fall back
     wide = randn(2, 64, 8, 138, dtype=torch.bfloat16)[..., :128]
     try:
@@ -647,7 +719,7 @@ def phase_train_kernels(state):
     name = f"flash B{TRAIN_B} T{TRAIN_T} H16 Kh8 hd128 causal bf16"
     got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
     want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
-    err = max(check_flash_bf16(f"{name} o", got[0], want[0]),
+    err = max(check_rms(f"{name} o", got[0], want[0], FLASH_BF16_RMS_REL),
               *(check_close(f"{name} {n}", a, b, TOL)
                 for n, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:])))
     del got, want
@@ -901,7 +973,8 @@ def _train_counts():
                 xent_bwd=xent_ops.bwd_launches, adamw=adamw_ops.launches,
                 quant_fwd=quant_ops.quant_launches,
                 dequant_fwd=quant_ops.dequant_launches,
-                ssd=ssd_ops.launches,
+                ssd=ssd_ops.launches, ssd_f32=ssd_ops.launches_f32,
+                ssd_bwd=ssd_ops.bwd_launches,
                 gathers=coll.gathers, reduce_scatters=coll.reduce_scatters)
 
 
@@ -915,6 +988,7 @@ def _reset_counts():
     from repro_torch.kernels.ssd import ops as ssd_ops
     rms_ops.launches = flash_ops.launches = adamw_ops.launches = 0
     flash_ops.launches_f32 = ssd_ops.launches = 0
+    ssd_ops.launches_f32 = ssd_ops.bwd_launches = 0
     xent_ops.fwd_launches = xent_ops.bwd_launches = 0
     quant_ops.quant_launches = quant_ops.dequant_launches = 0
     coll.gathers = coll.reduce_scatters = 0
@@ -923,10 +997,11 @@ def _reset_counts():
 COLLECTIVES = ("gathers", "reduce_scatters")
 QUANT = ("quant_fwd", "dequant_fwd")
 # kernels the dense paths do not run at a bf16 wire
-NOT_DENSE = QUANT + ("ssd",)
-# fp32 runs take flash's fp32 route, bf16 runs its bf16 route
+NOT_DENSE = QUANT + ("ssd", "ssd_f32", "ssd_bwd")
+# fp32 runs take flash's fp32 route, bf16 runs its bf16 route (the ssd's
+# fp32 forwards count in both ssd and ssd_f32)
 NOT_F32 = ("flash",)
-NOT_BF16 = ("flash_f32",)
+NOT_BF16 = ("flash_f32", "ssd_f32")
 
 
 def phase_smoke_train(state):
@@ -1274,8 +1349,8 @@ def phase_full_zamba_train(state):
     # zamba2-1.2b at the reference launcher's defaults: the prefetch stack,
     # bf16 wire, remat fsdp_only, block buckets
     from repro_torch.core.dist import DistConfig
-    _full_train(state, "train_zamba2", DistConfig(), need=("ssd",),
-                arch="zamba2_1_2b")
+    _full_train(state, "train_zamba2", DistConfig(),
+                need=("ssd", "ssd_bwd"), arch="zamba2_1_2b")
 
 
 def _ssd_inputs(g, b, t, h, p, grp, n, dtype, zamba=False):
@@ -1303,22 +1378,45 @@ def _ssd_inputs(g, b, t, h, p, grp, n, dtype, zamba=False):
     return x, dt, A, bc[..., :n], bc[..., n:], D
 
 
+def _ssd_bwd_bound(b, t, h, p, grp, n, lc, dtype):
+    """(bytes, FLOPs) of one SSD backward: x, dt, A, B, C, D and dy read
+    once, dx, ddt, dA, dB, dC and dD written once; the products of the
+    lower triangles (C B^T and dy x^T, 2N and 2P a pair; M^T dy, 2P; dCB
+    B and dCB^T C, 2N each) and, per row, the four (P, N) products with
+    the states (dS_out's own part, dy S_in, B dS_out^T, x dS_out)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    n_c = -(-t // lc)
+    pairs = lc * (lc + 1) / 2
+    nbytes = (3 * b * t * h * p * e            # x, dy; dx
+              + 2 * b * t * h * 4              # dt; ddt (fp32)
+              + 4 * b * t * grp * n * e        # B, C; dB, dC
+              + 4 * h * 4)                     # A, D; dA, dD
+    flops = b * h * n_c * ((6 * n + 4 * p) * pairs + 4 * 2 * lc * p * n)
+    return nbytes, flops
+
+
 def phase_ssd_kernels(state):
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
     g = torch.Generator(device="cuda").manual_seed(4)
     full = (TRAIN_B, TRAIN_T, 64, 64, 1, 64, 128)   # zamba2-1.2b's layers
-    say("ssd kernel vs plain (ms: kernel / plain / bound):")
+    say("ssd forward kernels vs plain (ms: kernel / plain / bound):")
     cases = [  # (name, (B, T, H, P, G, N, chunk), dtype, zamba ranges)
         ("full zamba2-1.2b B4 T2048 H64 P64 N64 chunk 128 bf16", full,
          torch.bfloat16, True),
         ("full zamba2-1.2b shape fp32", full, torch.float32, True),
         ("sweep T96 H4 P16 G2 N8 chunk 32 fp32", (2, 96, 4, 16, 2, 8, 32),
          torch.float32, False),
+        ("sweep T96 H4 P16 G2 N8 chunk 32 bf16", (2, 96, 4, 16, 2, 8, 32),
+         torch.bfloat16, False),
         ("sweep T128 H2 P32 G1 N16 chunk 64 fp32",
          (2, 128, 2, 32, 1, 16, 64), torch.float32, False),
         ("sweep T64 H4 P16 G4 N8 chunk 64 fp32", (2, 64, 4, 16, 4, 8, 64),
          torch.float32, False),
+        ("T300 H4 P64 N64 chunk 128 (ragged) bf16",
+         (1, 300, 4, 64, 1, 64, 128), torch.bfloat16, False),
+        ("T12 H2 P32 N16 chunk 16 (12-row chunk) bf16",
+         (1, 12, 2, 32, 1, 16, 16), torch.bfloat16, False),
         ("smoke T40 H8 P16 N8 chunk 16 (ragged) fp32",
          (4, 40, 8, 16, 1, 8, 16), torch.float32, True),
         ("smoke T40 H8 P16 N8 chunk 16 (ragged) bf16",
@@ -1326,26 +1424,41 @@ def phase_ssd_kernels(state):
     ]
     for i, (name, (b, t, h, p, grp, n, lc), dt_, zamba) in enumerate(cases):
         ins = _ssd_inputs(g, b, t, h, p, grp, n, dt_, zamba)
-        tol = TOL32 if dt_ == torch.float32 else TOL
+        bf16 = dt_ == torch.bfloat16
+        tol = TOL if bf16 else TOL32
+        n0, n32 = ssd_ops.launches, ssd_ops.launches_f32
         got = ssd_ops.ssd_cuda(*ins, chunk=lc)
+        if (ssd_ops.launches, ssd_ops.launches_f32) != \
+                (n0 + 1, n32 if bf16 else n32 + 1):
+            raise AssertionError(f"{name}: took the wrong route")
         want, _ = ssd_ref.ssd_chunked(*ins, chunk=lc)
         x, dt, A, Bm, Cm, D = ins
         if i == 1:
             err = check_terms(name, got, want, ssd_ref.ssd_chunked(
                 x.abs(), dt, A, Bm.abs(), Cm.abs(), D.abs(), lc)[0], tol)
+        elif bf16:
+            err = check_rms(name, got, want, SSD_BF16_RMS_REL)
         else:
             err = check_close(name, got, want, tol)
-        if i == 1:
+        if i in (0, 1):
             # the state not carried: each chunk from S = 0, the inter-chunk
             # term dropped
             planted = torch.cat([ssd_ref.ssd_chunked(
                 x[:, c:c + lc], dt[:, c:c + lc], A, Bm[:, c:c + lc],
                 Cm[:, c:c + lc], D, lc)[0] for c in range(0, t, lc)], dim=1)
-            check_rejects(f"{name} planted: state not carried", planted,
-                          want, tol)
+            if bf16:
+                check_plant_rejected("state not carried", planted, want,
+                                     SSD_BF16_RMS_REL)
+            else:
+                check_rejects(f"{name} planted: state not carried", planted,
+                              want, tol)
             del planted
+        if bf16:
+            check_plant_rejected("M in one bf16 part",
+                                 ssd_one_part_m(*ins, lc), want,
+                                 SSD_BF16_RMS_REL)
         del want, got
-        if i != 0:
+        if i > 1:
             continue
         ms = time_ms(lambda: ssd_ops.ssd_cuda(*ins, chunk=lc))
         plain = time_ms(lambda: ssd_ref.ssd_chunked(*ins, chunk=lc))
@@ -1355,29 +1468,103 @@ def phase_ssd_kernels(state):
             + x.numel() * x.element_size()
         flops = _ssd_flops(b, t, h, p, n, lc)
         bound, by = _bound(nbytes, flops, dt_)
+        dev_ms = device_ms(lambda: ssd_ops.ssd_cuda(*ins, chunk=lc))
         say(f"    {ms:.4f} / {plain:.4f} / {bound:.4f} ({by}; "
-            f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s)")
-        state["ssd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=bound, bound_by=by, library_ms=None)
+            f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s);"
+            f" device {_ms(dev_ms)} ms")
+        state["ssd" if bf16 else "ssd_f32"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=None)
         torch.cuda.empty_cache()
 
-    say("ssd gradients: kernel forward + plain backward vs autograd through "
-        "the plain version (ms fwd+bwd: op / plain):")
+    say("ssd gradients: kernel forward + kernel backward vs autograd "
+        "through the plain version (ms fwd+bwd: kernels / plain):")
+    names = ("y", "dx", "ddt", "dA", "dB", "dC", "dD")
     b, t, h, p, grp, n, lc = full
-    ins = _ssd_inputs(g, b, t, h, p, grp, n, torch.bfloat16, True)
-    ct = torch.randn((b, t, h, p), generator=g, device="cuda").to(
-        torch.bfloat16)
-    got = _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc), ins, ct)
-    want = _grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=lc)[0], ins, ct)
-    err = max(check_close(f"ssd full bf16 {k}", a, b_, TOL) for k, a, b_ in
-              zip(("y", "dx", "ddt", "dA", "dB", "dC", "dD"), got, want))
-    del got, want
-    ms = time_ms(lambda: _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc), ins,
-                                ct))
-    plain = time_ms(lambda: _grads(
-        lambda *a: ssd_ref.ssd_chunked(*a, chunk=lc)[0], ins, ct))
-    say(f"    {ms:.4f} / {plain:.4f}")
-    state["ssd_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    for dt_ in (torch.bfloat16, torch.float32):
+        bf16 = dt_ == torch.bfloat16
+        tol = TOL if bf16 else TOL32
+        ins = _ssd_inputs(g, b, t, h, p, grp, n, dt_, True)
+        ct = torch.randn((b, t, h, p), generator=g, device="cuda").to(dt_)
+        n0, nb = ssd_ops.launches, ssd_ops.bwd_launches
+        got = _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc), ins, ct)
+        if (ssd_ops.launches, ssd_ops.bwd_launches) != (n0 + 1, nb + 1):
+            raise AssertionError("ssd: the backward kernels did not launch")
+        want = _grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=lc)[0], ins,
+                      ct)
+        x, dt, A, Bm, Cm, D = ins
+        label = "bf16" if bf16 else "fp32"
+        errs = {}
+        if bf16:
+            for k, a, b_ in zip(names, got, want):
+                what = f"ssd full bf16 {k}"
+                errs[k] = check_rms(what, a, b_, SSD_BF16_RMS_REL) \
+                    if k == "y" else check_close(what, a, b_, tol)
+            # dx, ddt, dB, dC against the plain reverse-pass backward, and
+            # that backward with M and dM o L in one bf16 part (the kernels
+            # split them into hi + lo), which must fail the limit
+            plain = ssd_ref.ssd_chunked_bwd(*ins, ct, lc)
+            say(f"    autograd's dx vs the plain reverse-pass backward: RMS "
+                f"error / RMS {rms_rel(want[1], plain[0]):.3e}")
+            states, _ = ssd_ref.ssd_chunk_states(x, dt, A, Bm, Cm, lc)
+            one_part = ssd_ref._chunk_grads(
+                *ins, ct, states, ssd_ref.ssd_chunk_dstates(ct, dt, A, Cm, lc),
+                lc, one_part=True)
+            for i, k in ((0, "dx"), (1, "ddt"), (3, "dB"), (4, "dC")):
+                check_rms(f"ssd full bf16 {k} vs the plain reverse-pass "
+                          "backward", got[i + 1], plain[i],
+                          SSD_BF16_GRAD_RMS_REL)
+                check_plant_rejected(f"{k}, M and dM o L in one bf16 part",
+                                     one_part[i].to(plain[i].dtype), plain[i],
+                                     SSD_BF16_GRAD_RMS_REL)
+            del plain, states, one_part
+        else:
+            terms = (ssd_ref.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(),
+                                         D.abs(), lc)[0],
+                     *ssd_ref.ssd_grad_terms(*ins, ct, lc))
+            for k, a, b_, tm in zip(names, got, want, terms):
+                what = f"ssd full fp32 {k}"
+                errs[k] = check_scaled(what, a, b_, tol) \
+                    if k in ("dA", "dD") else check_terms(what, a, b_, tm, tol)
+            del terms
+        # dA and dD: one per head, summed over B*T; a group sum that took
+        # the first half of the (batch, chunk) partials (the first B/2
+        # sequences' dA), and dD = 0, must fail their checks
+        half = ssd_ref.ssd_chunked_bwd(
+            *(a[:b // 2] if a.dim() > 1 else a for a in ins), ct[:b // 2],
+            lc)[2]
+        for k, planted, w in (("dA from half the chunks' partials", half,
+                               want[3]),
+                              ("dD = 0", torch.zeros_like(want[6]), want[6])):
+            s = 1.0 if bf16 else scaled(w)
+            check_rejects(f"ssd full {label} planted {k}"
+                          f"{'' if bf16 else ' (/ max|want|)'}", planted / s,
+                          w / s, tol)
+        del got, want, half
+        if not bf16:
+            continue
+        # the backward's own time, given the forward's states
+        _, states = ssd_ops._forward(*ins, lc)
+        bwd = lambda: ssd_ops.ssd_bwd_cuda(*ins, ct, lc, states=states)
+        ms_bwd = time_ms(bwd)
+        dev_bwd = device_ms(bwd)
+        plain_bwd = time_ms(lambda: ssd_ref.ssd_chunked_bwd(*ins, ct, lc))
+        nbytes, flops = _ssd_bwd_bound(b, t, h, p, grp, n, lc, dt_)
+        bound, by = _bound(nbytes, flops, dt_)
+        ms = time_ms(lambda: _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc),
+                                    ins, ct))
+        plain = time_ms(lambda: _grads(
+            lambda *a: ssd_ref.ssd_chunked(*a, chunk=lc)[0], ins, ct))
+        say(f"    backward alone: {ms_bwd:.4f} ms (device {_ms(dev_bwd)}), "
+            f"plain reverse-pass backward {plain_bwd:.4f}, bound "
+            f"{bound:.4f} ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP); fwd+bwd {ms:.4f} / plain {plain:.4f}")
+        state["ssd_bwd"] = dict(
+            max_abs_err=max(errs[k] for k in names[1:]), ms=ms_bwd,
+            plain_ms=plain_bwd, bound_ms=bound, bound_by=by, library_ms=None,
+            fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain)
+        del states
+        torch.cuda.empty_cache()
 
 
 def phase_zamba_smoke_train(state):
@@ -1403,7 +1590,7 @@ def phase_zamba_smoke_train(state):
             m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
             step=opt["step"]), cpu.model, cpu.dcfg)
         need = ("rmsnorm", "flash_f32", "xent_fwd", "xent_bwd", "adamw",
-                "ssd")
+                "ssd", "ssd_f32", "ssd_bwd")
         for reorder in (False, True):
             runs = {}
             for dev in ("cpu", "cuda"):
@@ -1415,10 +1602,12 @@ def phase_zamba_smoke_train(state):
                 runs[dev] = (st, hist, _train_counts())
             label = "prefetch" if reorder else "vanilla"
             counts = runs["cuda"][2]
+            state["zamba_smoke_launches"] = counts
             say(f"  zamba2 smoke {label}: launches on the card {counts}")
-            if min(counts[k] for k in need) <= 0 or counts["flash"]:
+            if (min(counts[k] for k in need) <= 0 or counts["flash"]
+                    or counts["ssd_f32"] != counts["ssd"]):
                 raise AssertionError(f"a kernel never launched, or fp32 "
-                                     f"took flash's bf16 route: {counts}")
+                                     f"took a bf16 route: {counts}")
             if max(v for k, v in runs["cpu"][2].items()
                    if k not in COLLECTIVES) > 0:
                 raise AssertionError("the CPU run launched a kernel")
@@ -1669,12 +1858,13 @@ def kernels_line(state):
     """One row per ported kernel.  `launches` counts the run of the path
     that brought the kernel in: the full-width quantized qwen3 training
     (fp8_ef, the prefetch stack) for the first seven, which it runs all,
-    and the full-width zamba2 training for ssd_fwd; `launches_by_path` adds
-    the serving run's, the bf16 qwen3 training runs' (vanilla and
-    prefetch) and the zamba2 run's counts.  flash_attention_f32 is flash's
-    fp32 route: no bf16 path runs it (its count is 0 on each, and each
-    path asserts so); `launches_by_path` adds the fp32 smoke training
-    run's count."""
+    and the full-width zamba2 training for the ssd rows; `launches_by_path`
+    adds the serving run's, the bf16 qwen3 training runs' (vanilla and
+    prefetch) and the zamba2 run's counts.  flash_attention_f32 and
+    ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
+    0 on each, and each path asserts so); `launches_by_path` adds the fp32
+    smoke training runs' counts.  A count is one call of the kernel's
+    wrapper: the ssd forward is two launches a call, its backward three."""
     src = "src/repro_torch/csrc/"
     main, train, prefetch, serve, zamba = (
         state["train_fp8_ef_launches"], state["train_launches"],
@@ -1688,6 +1878,8 @@ def kernels_line(state):
             by_path["serve"] = serve[serve_key]
         if key == "flash_f32":
             by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
+        if key.startswith("ssd"):
+            by_path["zamba2_smoke_f32"] = state["zamba_smoke_launches"][key]
         return dict(name=name, route="cuda", source=src + source,
                     replaces="src/repro/kernels/" + replaces,
                     launches=home[key], **state[key],
@@ -1708,7 +1900,11 @@ def kernels_line(state):
         row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40"),
         row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
-        row("ssd_fwd", "ssd", "ssd.cu", "ssd/kernel.py:65", home=zamba),
+        row("ssd_fwd", "ssd", "ssd_sm90.cu", "ssd/kernel.py:65", home=zamba),
+        row("ssd_bwd", "ssd_bwd", "ssd_sm90.cu", "ssd/ops.py:57", home=zamba),
+        # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
+        row("ssd_fwd_f32", "ssd_f32", "ssd.cu", "ssd/kernel.py:65",
+            home=zamba),
     ]
     return json.dumps({"kernels": rows})
 

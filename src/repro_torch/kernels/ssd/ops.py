@@ -1,18 +1,31 @@
-"""Mamba-2 SSD op: a CUDA tensor goes to the hand-written chunk-scan
-kernel (`csrc/ssd.cu`), a CPU tensor to the plain version (`ref.py`).
+"""Mamba-2 SSD op: a CUDA tensor goes to the hand-written kernels, a CPU
+tensor to the plain version (`ref.py`).
 
-The kernel reads the model's layout directly: x (B,T,H,P), dt (B,T,H),
-Bm/Cm (B,T,G,N) through their strides (so the B and C halves of one packed
-projection need no copy), head h reads group h // (H // G) by index (no
-repeat of B and C over the heads), and the ragged last chunk is masked on
-the true T (no padding copy).  It returns y only, with the D skip fused:
-the stateless training entry of the reference's `ops.ssd`.
+The forward goes by dtype.  bf16 takes the chunk-parallel tensor-core
+forward (`csrc/ssd_sm90.cu`: each chunk's own state, a short pass that
+carries the states, then every chunk's output), which also gives the state
+entering each chunk.  fp32 takes the CUDA-core kernel (`csrc/ssd.cu`, one
+block per sequence walking its chunks), whose fp32 FMAs hold fp32
+tolerances.  Both read the model's layout directly: x (B,T,H,P), dt
+(B,T,H), Bm/Cm (B,T,G,N) through their strides (so the B and C halves of
+one packed projection need no copy), head h reads group h // (H // G) by
+index (no repeat of B and C over the heads), and the ragged last chunk is
+masked on the true T (no padding copy).  They return y only, with the D
+skip fused: the stateless training entry of the reference's `ops.ssd`.
 
-`ssd` is a `torch.autograd.Function`.  Its backward recomputes the plain
-chunk scan in torch and differentiates it, as the reference's custom VJP
-does with `ref.ssd_chunked` (`repro/kernels/ssd/ops.py` `_vjp_bwd`).
-There is no fallback: a CUDA input that the kernel does not take, a failed
-build or a failed launch raises.  `launches` counts kernel launches.
+`ssd` is a `torch.autograd.Function`.  On the card its backward is the
+hand-written backward of `csrc/ssd_sm90.cu` (a reverse pass over the
+chunks for the state's gradient, then every chunk in parallel, then the
+sums over heads, batches and chunks), given the forward's saved states on
+the bf16 route and recomputing them on the fp32 one.  On the CPU it
+recomputes the plain chunk scan and differentiates it, as the reference's
+custom VJP does with `ref.ssd_chunked` (`repro/kernels/ssd/ops.py`
+`_vjp_bwd`).  There is no fallback: a CUDA input that the kernels do not
+take, a failed build or a failed launch raises.  `launches` counts forward
+calls through a kernel (either route), `launches_f32` those on the fp32
+route, `bwd_launches` backward calls; each call is a fixed number of kernel
+launches (two for the bf16 forward, one for the fp32 forward, three for the
+backward, four with the states recomputed).
 """
 
 from __future__ import annotations
@@ -26,6 +39,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
 launches = 0
+launches_f32 = 0
+bwd_launches = 0
 
 CHUNK = 128
 HEAD_DIMS = (16, 32, 64)      # P: one kernel instantiation each
@@ -42,23 +57,47 @@ def ssd(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
 class _Ssd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
-        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
         ctx.chunk = chunk
         if x.device.type == "cpu":
+            ctx.save_for_backward(x, dt, A, Bm, Cm, D)
             return ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk)[0]
-        return ssd_cuda(x, dt, A, Bm, Cm, D, chunk)
+        y, states = _forward(x, dt, A, Bm, Cm, D, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, states)
+        return y
 
     @staticmethod
     def backward(ctx, ct):
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(need)
-                   for t, need in zip(ctx.saved_tensors,
-                                      ctx.needs_input_grad)]
-            y = ref.ssd_chunked(*ins, chunk=ctx.chunk)[0]
-            want = [t for t in ins if t is not None and t.requires_grad]
-            got = iter(torch.autograd.grad(y, want, ct))
-        return (*(next(got) if t is not None and t.requires_grad else None
-                  for t in ins), None)
+        saved = ctx.saved_tensors     # unpacked once (checkpoint allows one)
+        x, dt, A, Bm, Cm, D = saved[:6]
+        if x.device.type == "cpu":
+            with torch.enable_grad():
+                ins = [None if t is None else t.detach().requires_grad_(need)
+                       for t, need in zip((x, dt, A, Bm, Cm, D),
+                                          ctx.needs_input_grad)]
+                y = ref.ssd_chunked(*ins, chunk=ctx.chunk)[0]
+                want = [t for t in ins if t is not None and t.requires_grad]
+                got = iter(torch.autograd.grad(y, want, ct))
+            return (*(next(got) if t is not None and t.requires_grad
+                      else None for t in ins), None)
+        grads = ssd_bwd_cuda(x, dt, A, Bm, Cm, D, ct, ctx.chunk,
+                             states=saved[6])
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+class _Args(ctypes.Structure):
+    """`SsdArgs` of csrc/ssd_sm90.cu, field for field."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "x", "dt", "A", "Bm", "Cm", "D", "dy", "y", "states", "dstates",
+            "dx", "ddt", "dBh", "dCh", "dB", "dC", "dA_part", "dD_part",
+            "dA", "dD")]
+        + [(n, ctypes.c_longlong) for n in (
+            "sxb", "sxt", "sxh", "sdb", "sdt", "sdh", "sbb", "sbt", "sbg",
+            "scb", "sct", "scg")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "T", "H", "P", "G", "N", "Lc", "nC", "has_d", "recompute",
+            "x_dtype", "dt_dtype", "a_dtype", "d_dtype")])
 
 
 @functools.cache
@@ -70,9 +109,16 @@ def _kernel():
     return fn
 
 
-def ssd_cuda(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
-    """The kernel's launch: y (B,T,H,P) in x's dtype, contiguous."""
-    global launches
+@functools.cache
+def _chunked(name):
+    fn = getattr(build.library().cdll, name)
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, dt, A, Bm, Cm, D, chunk):
+    """Raises on what the kernels do not take.  -> (B, T, H, P, G, N, Lc)."""
     ts = [x, dt, A, Bm, Cm] + ([] if D is None else [D])
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError("ssd kernel: every input must be on one CUDA device")
@@ -105,9 +151,48 @@ def ssd_cuda(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
             A.is_contiguous() and (D is None or D.is_contiguous())):
         raise ValueError("ssd kernel: x, Bm, Cm need a unit stride on their "
                          "last dim, A and D must be contiguous")
+    return Bsz, T, H, P, G, N, Lc
+
+
+def _args(x, dt, A, Bm, Cm, D, Lc, recompute=0, **bufs):
+    Bsz, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    ptrs = {k: 0 if v is None else v.data_ptr()
+            for k, v in dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D,
+                             **bufs).items()}
+    return _Args(
+        **ptrs, sxb=x.stride(0), sxt=x.stride(1), sxh=x.stride(2),
+        sdb=dt.stride(0), sdt=dt.stride(1), sdh=dt.stride(2),
+        sbb=Bm.stride(0), sbt=Bm.stride(1), sbg=Bm.stride(2),
+        scb=Cm.stride(0), sct=Cm.stride(1), scg=Cm.stride(2),
+        B=Bsz, T=T, H=H, P=P, G=G, N=N, Lc=Lc, nC=-(-T // Lc),
+        has_d=int(D is not None), recompute=recompute,
+        x_dtype=_CODES[x.dtype], dt_dtype=_CODES[dt.dtype],
+        a_dtype=_CODES[A.dtype],
+        d_dtype=_CODES[D.dtype] if D is not None else build.F32)
+
+
+def _call(name, args, device):
+    build.check(_chunked(name)(ctypes.byref(args), build.stream_ptr(device)),
+                name)
+
+
+def _forward(x, dt, A, Bm, Cm, D, chunk):
+    """-> (y (B,T,H,P) in x's dtype, contiguous; the state entering each
+    chunk (B,H,nC,P,N) fp32 on the bf16 route, None on the fp32 one)."""
+    global launches, launches_f32
+    Bsz, T, H, P, G, N, Lc = _check(x, dt, A, Bm, Cm, D, chunk)
     y = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y
+        return y, None
+    if x.dtype == torch.bfloat16:
+        nC = -(-T // Lc)
+        states = torch.empty((Bsz, H, nC, P, N), dtype=torch.float32,
+                             device=x.device)
+        _call("ssd_chunked_fwd", _args(x, dt, A, Bm, Cm, D, Lc, y=y,
+                                       states=states), x.device)
+        launches += 1
+        return y, states
     rc = _kernel()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), 0 if D is None else D.data_ptr(), y.data_ptr(),
@@ -118,4 +203,53 @@ def ssd_cuda(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
         build.stream_ptr(x.device))
     build.check(rc, "ssd_fwd")
     launches += 1
-    return y
+    launches_f32 += 1
+    return y, None
+
+
+def ssd_cuda(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
+    """The forward kernels' launch: y (B,T,H,P) in x's dtype, contiguous."""
+    return _forward(x, dt, A, Bm, Cm, D, chunk)[0]
+
+
+def ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk: int = CHUNK, states=None):
+    """The backward kernels' launch: (dx, ddt, dA, dB, dC, dD) of `ssd` at
+    output gradient dy, in the inputs' dtypes (dD None without D).
+    `states`: the forward's state entering each chunk (B,H,nC,P,N) fp32,
+    else phases 1-2 are run again first."""
+    global bwd_launches
+    Bsz, T, H, P, G, N, Lc = _check(x, dt, A, Bm, Cm, D, chunk)
+    if tuple(dy.shape) != (Bsz, T, H, P) or dy.device != x.device:
+        raise ValueError(f"ssd backward: dy {tuple(dy.shape)} on "
+                         f"{dy.device} for x {tuple(x.shape)}")
+    nC = -(-T // Lc)
+    if states is not None and (tuple(states.shape) != (Bsz, H, nC, P, N)
+                               or states.dtype != torch.float32
+                               or not states.is_contiguous()):
+        raise ValueError(f"ssd backward: states {tuple(states.shape)} "
+                         f"{states.dtype}, want ({Bsz}, {H}, {nC}, {P}, {N})"
+                         " float32 contiguous")
+    if x.numel() == 0:
+        raise ValueError("ssd backward: empty input")
+    dev, f32 = x.device, torch.float32
+
+    def empty(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    recompute = states is None
+    bufs = dict(
+        dy=dy.to(x.dtype).contiguous(),
+        states=empty(Bsz, H, nC, P, N) if recompute else states,
+        dstates=empty(Bsz, H, nC, P, N),
+        dx=empty(Bsz, T, H, P, dtype=x.dtype), ddt=empty(Bsz, T, H),
+        dBh=empty(Bsz, T, H, N), dCh=empty(Bsz, T, H, N),
+        dB=empty(Bsz, T, G, N, dtype=x.dtype),
+        dC=empty(Bsz, T, G, N, dtype=x.dtype), dA_part=empty(H, Bsz * nC),
+        dD_part=empty(H, Bsz * nC), dA=empty(H),
+        dD=None if D is None else empty(H))
+    args = _args(x, dt, A, Bm, Cm, D, Lc, recompute=int(recompute), **bufs)
+    _call("ssd_chunked_bwd", args, dev)
+    bwd_launches += 1
+    return (bufs["dx"], bufs["ddt"].to(dt.dtype), bufs["dA"].to(A.dtype),
+            bufs["dB"], bufs["dC"],
+            None if D is None else bufs["dD"].to(D.dtype))

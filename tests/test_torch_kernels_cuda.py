@@ -11,11 +11,17 @@ the edges of the kernels' tiles.  Flash attention goes by dtype: bf16 to the
 tensor-core kernel (`launches`), fp32 to the CUDA-core one
 (`launches_f32`); every flash case checks which one launched.
 The quant pair must equal its plain version bit for bit (wire bytes,
-scales, decoded values, the SR seed).  The gradients of the rmsnorm,
-flash and ssd `autograd.Function`s (kernel forward, plain-torch backward)
-are held against autograd through the plain versions.  Tolerances:
-TOL32 (rtol 2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16, and for bf16
-flash outputs also an RMS error of FLASH_BF16_RMS_REL of the output's.
+scales, decoded values, the SR seed).  The gradients of the rmsnorm and
+flash `autograd.Function`s (kernel forward, plain-torch backward) are held
+against autograd through the plain versions.  The SSD goes by dtype too:
+bf16 to the chunk-parallel tensor-core forward (`launches`), fp32 to the
+CUDA-core one (`launches` and `launches_f32`); its backward kernels
+(`bwd_launches`) are held against the plain reverse-pass backward and
+against autograd through the plain chunk loop.  Tolerances: TOL32 (rtol
+2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16, and for bf16 flash and SSD
+outputs also an RMS error of FLASH_BF16_RMS_REL / SSD_BF16_RMS_REL of the
+output's; the fp32 SSD backward's gradients take TOL32's rtol of the
+summed |terms| of each element (`ref.ssd_grad_terms`).
 """
 
 import pytest
@@ -37,6 +43,8 @@ TOL32 = dict(rtol=2e-4, atol=2e-5)
 # bf16 flash outputs, besides TOL: RMS error over the plain output's RMS
 # (chip_smoke.py's FLASH_BF16_RMS_REL, where the choice is explained)
 FLASH_BF16_RMS_REL = 5e-4
+# bf16 SSD outputs, besides TOL (chip_smoke.py's SSD_BF16_RMS_REL)
+SSD_BF16_RMS_REL = 2e-4
 
 
 @pytest.fixture
@@ -386,6 +394,8 @@ SSD_SHAPES = [  # B, T, H, P, G, N, chunk: test_ssd_sweep, smoke, full-ish
     (2, 96, 4, 16, 2, 8, 32), (2, 128, 2, 32, 1, 16, 64),
     (2, 64, 4, 16, 4, 8, 64), (2, 24, 8, 16, 1, 8, 16),
     (1, 300, 4, 64, 1, 64, 128), (1, 12, 2, 32, 1, 16, 16),
+    # N whose rows are no whole 16-byte vectors (element loads) or odd
+    (2, 40, 4, 32, 2, 12, 16), (1, 40, 2, 16, 1, 5, 16),
 ]
 
 
@@ -399,34 +409,129 @@ def _ssd_inputs(dev, B, T, H, P, G, N, dtype, seed=0):
     return x, dt, A, bc[..., :N], bc[..., N:], D
 
 
+def _rms_rel(got, want):
+    e, w = got.float() - want.float(), want.float()
+    return (e.pow(2).mean().sqrt() / w.pow(2).mean().sqrt()).item()
+
+
 @pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(dev, B, T, H, P, G, N, chunk, dtype):
+    """The forward by route: bf16 on the chunk-parallel kernels, fp32 on
+    the CUDA-core one (`launches_f32`); chunks of 12 and 16 rows (T 12 at
+    chunk 16, T 24 at chunk 16), ragged last chunks (T 300 at 128)."""
     ins = _ssd_inputs(dev, B, T, H, P, G, N, dtype)
-    n = ssd_ops.launches
+    bf16 = dtype == torch.bfloat16
+    n, n32 = ssd_ops.launches, ssd_ops.launches_f32
     got = ssd_ops.ssd(*ins, chunk=chunk)
-    assert ssd_ops.launches == n + 1 and got.dtype == dtype
+    assert (ssd_ops.launches, ssd_ops.launches_f32) == \
+        (n + 1, n32 if bf16 else n32 + 1) and got.dtype == dtype
     want, _ = ssd_ref.ssd_chunked(*ins, chunk=chunk)
     torch.testing.assert_close(got.float(), want.float(),
-                               **(TOL32 if dtype == torch.float32 else TOL))
+                               **(TOL if bf16 else TOL32))
+    if bf16:
+        assert _rms_rel(got, want) <= SSD_BF16_RMS_REL
     # without the D skip
     torch.testing.assert_close(
         ssd_ops.ssd(*ins[:5], None, chunk).float(),
         ssd_ref.ssd_chunked(*ins[:5], None, chunk)[0].float(),
-        **(TOL32 if dtype == torch.float32 else TOL))
+        **(TOL if bf16 else TOL32))
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
+def test_ssd_bf16_forward_keeps_the_states_for_the_backward(
+        dev, B, T, H, P, G, N, chunk):
+    """The state entering each chunk, as the bf16 forward saves it, against
+    the plain `ssd_chunk_states`."""
+    ins = _ssd_inputs(dev, B, T, H, P, G, N, torch.bfloat16)
+    _, states = ssd_ops._forward(*ins, chunk)
+    want, _ = ssd_ref.ssd_chunk_states(*ins[:5], chunk=chunk)
+    assert states.shape == want.shape
+    torch.testing.assert_close(states, want, **TOL32)
+
+
+def _ssd_ct(dev, B, T, H, P, dtype):
+    return _randn(dev, B, T, H, P, dtype=dtype, seed=9)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_gradient_matches_plain_autograd(dev, dtype):
     ins = _ssd_inputs(dev, 2, 40, 4, 16, 1, 8, dtype)
-    ct = _randn(dev, 2, 40, 4, 16, dtype=dtype, seed=9)
-    n = ssd_ops.launches
+    ct = _ssd_ct(dev, 2, 40, 4, 16, dtype)
+    n, nb = ssd_ops.launches, ssd_ops.bwd_launches
     got = _grads(lambda *a: ssd_ops.ssd(*a, chunk=16), ins, ct)
-    assert ssd_ops.launches == n + 1
+    assert (ssd_ops.launches, ssd_ops.bwd_launches) == (n + 1, nb + 1)
     want = _grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=16)[0], ins, ct)
     for a, b in zip(got, want):
         torch.testing.assert_close(
             a.float(), b.float(), **(TOL32 if dtype == torch.float32 else TOL))
+
+
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def _close_grads(got, want, tol, terms=None):
+    """Elementwise `tol`, dA and dD (sums over B*T*P terms that cancel)
+    relative to their array's largest |value| as tests/test_torch_ssd.py
+    does; or, given `terms` (`ref.ssd_grad_terms`), tol's rtol applied to
+    the summed |terms| of each element: fp32 sums taken in two orders
+    differ by the rounding of their terms, not of their result."""
+    for i, (name, a, b) in enumerate(zip(GRAD_NAMES, got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = (a.float() - b.float()).abs()
+        if terms is not None:
+            lim = tol["atol"] + tol["rtol"] * terms[i]
+            assert (err <= lim).all(), (
+                f"{name}: max err / limit {(err / lim).max().item():.3f}")
+            continue
+        scale = max(1.0, b.float().abs().max().item()) \
+            if name in ("dA", "dD") else 1.0
+        torch.testing.assert_close(a.float() / scale, b.float() / scale,
+                                   msg=lambda m: f"{name}: {m}", **tol)
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_matches_plain(dev, B, T, H, P, G, N, chunk,
+                                           dtype):
+    """The backward kernels, given the forward's states (bf16) or
+    recomputing them (fp32), against the plain reverse-pass backward and
+    against autograd through the plain chunk loop."""
+    ins = _ssd_inputs(dev, B, T, H, P, G, N, dtype)
+    ct = _ssd_ct(dev, B, T, H, P, dtype)
+    fp32 = dtype == torch.float32
+    tol = TOL32 if fp32 else TOL
+    terms = ssd_ref.ssd_grad_terms(*ins, ct, chunk) if fp32 else None
+    _, states = ssd_ops._forward(*ins, chunk)
+    nb = ssd_ops.bwd_launches
+    got = ssd_ops.ssd_bwd_cuda(*ins, ct, chunk, states=states)
+    assert ssd_ops.bwd_launches == nb + 1
+    _close_grads(got, ssd_ref.ssd_chunked_bwd(*ins, ct, chunk), tol, terms)
+    _close_grads(got, _grads(lambda *a: ssd_ref.ssd_chunked(
+        *a, chunk=chunk)[0], ins, ct)[1:], tol, terms)
+    # without D: no dD
+    got = ssd_ops.ssd_bwd_cuda(*ins[:5], None, ct, chunk)
+    assert got[5] is None
+    _close_grads(got[:5], ssd_ref.ssd_chunked_bwd(*ins[:5], None, ct,
+                                                  chunk)[:5], tol,
+                 None if terms is None else ssd_ref.ssd_grad_terms(
+                     *ins[:5], None, ct, chunk)[:5])
+
+
+def test_ssd_backward_needs_its_reverse_state_pass(dev):
+    """A backward with the reverse state pass dropped (dS_out = 0, the
+    plain chunk grads given zeros) must fail the check the kernel passes."""
+    ins = _ssd_inputs(dev, 1, 64, 2, 16, 1, 8, torch.float32)
+    ct = _ssd_ct(dev, 1, 64, 2, 16, torch.float32)
+    want = ssd_ref.ssd_chunked_bwd(*ins, ct, 16)
+    terms = ssd_ref.ssd_grad_terms(*ins, ct, 16)
+    _close_grads(ssd_ops.ssd_bwd_cuda(*ins, ct, 16), want, TOL32, terms)
+    states, _ = ssd_ref.ssd_chunk_states(*ins[:5], chunk=16)
+    dstates = ssd_ref.ssd_chunk_dstates(ct, ins[1], ins[2], ins[4], 16)
+    dropped = ssd_ref.ssd_chunk_grads(*ins, ct, states,
+                                      torch.zeros_like(dstates), 16)
+    with pytest.raises(AssertionError):
+        _close_grads(dropped, want, TOL32, terms)
 
 
 def test_ssd_kernel_carries_the_state_across_chunks(dev):
@@ -459,3 +564,8 @@ def test_ssd_kernel_rejects_what_it_does_not_take(dev):
         ssd_ops.ssd_cuda(x, dt[:, :-1], A, Bm, Cm, D)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_ops.ssd_cuda(x, dt.cpu(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_ops.ssd_bwd_cuda(x, dt, A, Bm, Cm, D, x[:, :-1])
+    with pytest.raises(ValueError, match="states"):
+        ssd_ops.ssd_bwd_cuda(x, dt, A, Bm, Cm, D, x, 16,
+                             states=torch.zeros(1, 2, 1, 16, 8, device=dev))

@@ -17,7 +17,15 @@
     upper triangle, the reference's dt and A gradients are NaN and the
     port's are finite and equal the reference's at a chunk short enough
     not to overflow;
-  * a CPU call never reaches the kernel build.
+  * a CPU call never reaches the kernel build;
+  * the chunk-parallel plain versions that the CUDA kernels compute:
+    `ssd_chunk_states` (the state entering each chunk and the final state)
+    against JAX's `ref.ssd_chunked` at TOL_REF, and `ssd_chunked_bwd` (the
+    explicit reverse-pass backward) against `jax.vjp` of JAX's
+    `ref.ssd_chunked` at TOL32 (dA and dD scaled as above) and against
+    autograd through the port's `ref.ssd_chunked`, finite where the
+    reference's gradient overflows; dropping its reverse state pass must
+    fail that check.
 
 Inputs are made with numpy from a seed.
 """
@@ -166,3 +174,99 @@ def test_cpu_ssd_never_touches_the_kernel_build(monkeypatch):
     assert ops.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         ops.ssd_cuda(*ins)
+
+
+GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+@pytest.mark.parametrize("T,H,P,G,N,chunk", SHAPES)
+def test_chunk_states_match_reference(T, H, P, G, N, chunk):
+    """The final state against JAX's; the state entering chunk c against
+    JAX's final state of the first c chunks."""
+    x, dt, A, Bm, Cm, _ = _inputs(T, H, P, G, N, seed=8)
+    states, final = ref.ssd_chunk_states(*_torch((x, dt, A, Bm, Cm)),
+                                         chunk=chunk)
+    nC = -(-T // chunk)
+    assert states.shape == (2, H, nC, P, N) and final.dtype == torch.float32
+    _, want = jref.ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)),
+                               chunk=chunk)
+    np.testing.assert_allclose(final.numpy(), np.asarray(want), **TOL_REF)
+    assert not states[:, :, 0].any()
+    c = nC - 1
+    if c == 0:
+        return
+    _, want = jref.ssd_chunked(*(jnp.asarray(a[:, :c * chunk])
+                                 for a in (x, dt)), jnp.asarray(A),
+                               *(jnp.asarray(a[:, :c * chunk])
+                                 for a in (Bm, Cm)), chunk=chunk)
+    np.testing.assert_allclose(states[:, :, c].numpy(), np.asarray(want),
+                               **TOL_REF)
+
+
+def _explicit_grads(arrays, ct, chunk):
+    out = ref.ssd_chunked_bwd(*_torch(arrays), torch.from_numpy(ct),
+                              chunk=chunk)
+    return [g.numpy() for g in out]
+
+
+@pytest.mark.parametrize("T,H,P,G,N,chunk", SHAPES)
+def test_explicit_backward_matches_reference_vjp(T, H, P, G, N, chunk):
+    arrays = _inputs(T, H, P, G, N, seed=1)
+    ct = np.random.default_rng(2).standard_normal(arrays[0].shape).astype(
+        np.float32)
+    got = _explicit_grads(arrays, ct, chunk)
+    for name, a, b in zip(GRADS, got, _jax_vjp(arrays, ct, chunk)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _close(name, a, b, **TOL32)
+    ins = _torch(arrays, grad=True)
+    want = torch.autograd.grad(ref.ssd_chunked(*ins, chunk=chunk)[0], ins,
+                               torch.from_numpy(ct))
+    for name, a, b in zip(GRADS, got, want):
+        _close(name, a, b.numpy(), **TOL32)
+
+
+def test_explicit_backward_stays_finite_where_the_reference_overflows():
+    """As the autograd.Function's case above: finite at chunk 128, equal to
+    JAX's gradient at chunk 8."""
+    arrays = list(_inputs(128, 2, 16, 1, 8, seed=5, B=1))
+    arrays[2] = np.array([-4.0, -0.5], np.float32)          # A
+    ct = np.random.default_rng(6).standard_normal(arrays[0].shape).astype(
+        np.float32)
+    got = _explicit_grads(arrays, ct, 128)
+    for name, a, b in zip(GRADS, got, _jax_vjp(arrays, ct, 8)):
+        assert np.isfinite(a).all(), name
+        _close(name, a, b, scale_all=True, **TOL32)
+
+
+def test_explicit_backward_needs_its_reverse_state_pass():
+    """The chunk grads with the state gradient leaving every chunk dropped
+    (dS_out = 0) must fail the check the full backward passes."""
+    arrays = _inputs(96, 4, 16, 2, 8, seed=1)
+    ct = np.random.default_rng(2).standard_normal(arrays[0].shape).astype(
+        np.float32)
+    ins = _torch(arrays)
+    states, _ = ref.ssd_chunk_states(*ins[:5], chunk=32)
+    dstates = ref.ssd_chunk_dstates(torch.from_numpy(ct), ins[1], ins[2],
+                                    ins[4], chunk=32)
+    assert dstates[:, :, :-1].abs().max() > 0 and not dstates[:, :, -1].any()
+    dropped = ref.ssd_chunk_grads(*ins, torch.from_numpy(ct), states,
+                                  torch.zeros_like(dstates), chunk=32)
+    want = _jax_vjp(arrays, ct, 32)
+    for name in ("dx", "ddt", "dB"):
+        i = GRADS.index(name)
+        with pytest.raises(AssertionError):
+            _close(name, dropped[i].numpy(), want[i], **TOL32)
+
+
+def test_grad_terms_bound_every_gradient():
+    arrays = _inputs(96, 4, 16, 2, 8, seed=3)
+    ct = np.random.default_rng(4).standard_normal(arrays[0].shape).astype(
+        np.float32)
+    ins = _torch(arrays)
+    grads = ref.ssd_chunked_bwd(*ins, torch.from_numpy(ct), chunk=32)
+    terms = ref.ssd_grad_terms(*ins, torch.from_numpy(ct), chunk=32)
+    for name, g, t in zip(GRADS, grads, terms):
+        assert t.shape == g.shape and t.dtype == torch.float32, name
+        assert torch.isfinite(t).all() and (t >= 0).all(), name
+        assert (g.abs() <= t * (1 + 1e-5) + 1e-6).all(), name
+        assert (t > 2 * g.abs()).any(), name      # some sums cancel
