@@ -12,22 +12,28 @@ without printing the final line):
      on the card at the serving and training paths' shapes, with its time
      (and for flash and rmsnorm its device time, less the host's cost),
      the plain version's time, a PyTorch yardstick's time (timed only; the
-     port never calls it) and the least time the card could take (bound);
-     flash's bf16 cases on the tensor-core kernel, its fp32 cases on the
-     CUDA-core kernel, a bf16 stride TMA cannot read rejected; every bf16
-     flash output also held to FLASH_BF16_RMS_REL, which a P rounded to one
-     bf16 part and a dropped 128-key tile, planted in the plain version,
-     must fail; the rmsnorm
+     port never calls it) and the least time the card could take (bound:
+     elementwise work at PEAK_FLOPS, matrix products at PRODUCT_FLOPS);
+     flash's bf16 cases on the wgmma kernel, its fp32 cases on the TF32
+     mma.sync kernel (three TF32 products a product), whose one-product
+     variant must miss TOL32, and every flash case's wall time beside its
+     and SDPA's device time; a bf16 stride TMA cannot read rejected; every
+     bf16 flash output also held to FLASH_BF16_RMS_REL, which a P rounded
+     to one bf16 part and a dropped 128-key tile, planted in the plain
+     version, must fail; the rmsnorm
      and flash gradients (kernel forward, plain backward) against autograd
      through the plain versions.
   3. quant kernels vs plain: the wire codec's quant and dequant kernels,
-     fp8 / int8 x RTN / SR x f32 / bf16 inputs at 129, 5000 and the
-     largest bucket of the full-width path (plus the largest error-feedback
-     leaf, fp8 RTN), on buffers with all-zero chunks, ties and values at
-     exactly +-QMAX*scale: wire bytes, scales, decoded values and the SR
-     seed must equal the plain version EXACTLY; two planted wrong results
-     (RTN in place of SR, one per-tensor scale in place of per-chunk) must
-     be told apart; times and byte bounds.
+     fp8 / int8 x RTN / SR x f32 / bf16 inputs at 129, 5000, the largest
+     bucket of the full-width path, one pass of the SR seed kernel's grid
+     -128, -1, 0, +1 and +128 elements, and a view one element off
+     alignment (plus the largest error-feedback leaf, fp8 RTN), on buffers
+     with all-zero chunks, ties and values at exactly +-QMAX*scale: wire
+     bytes, scales, decoded values and the seed the SR launch used must
+     equal the plain version EXACTLY; two planted wrong results (RTN in
+     place of SR, one per-tensor scale in place of per-chunk) must be told
+     apart; wall and device times of four variants, SR's share above RTN,
+     and byte bounds.
  3b. quantized reduce-scatter, card vs CPU: the largest full-width bucket's
      gradients through `finalize_grad_bucket` (fp8_ef, int8_ef, fp8 with
      grad_compression) and the error-feedback hop: bit for bit.
@@ -84,7 +90,8 @@ without printing the final line):
      schedule), bf16 wire: the reorder on / off comparison in one call.
  10. full-width quantized training (the main path of the third slice):
      the prefetch stack with comm_precision fp8_ef; the same readings plus
-     the collectives per step and the error-feedback accumulator.
+     the collectives per step, the error-feedback accumulator and the
+     codec's device time by kernel and variant.
  10b. full-width zamba2-1.2b training (the main path of the fourth slice):
      bf16, B 4, T 2048, the prefetch stack at a bf16 wire, remat fsdp_only,
      block buckets; the same readings, MFU from the FLOPs the step applies
@@ -158,9 +165,15 @@ SSD_BF16_RMS_REL = 2e-4
 # in one bf16 part 6.0e-4 (dx) to 2.6e-3 (dC), and TOL passes its dx
 # (NVIDIA H100 80GB HBM3).
 SSD_BF16_GRAD_RMS_REL = 3e-4
-# NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 rate and peak rates
+# NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 rate and peak rates;
+# PEAK_FLOPS for elementwise work (fp32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# matrix products: bf16 on the tensor cores; an fp32-accurate product at
+# its cheapest is three TF32 products (hi*hi + hi*lo + lo*hi of operands
+# split into TF32 hi + lo; one TF32 product misses fp32 tolerances), so
+# 495 / 3 = 165 TFLOP/s
+PRODUCT_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 B, PROMPT, GEN = 4, 2000, 64
 T = PROMPT + GEN
 # full-width training cell: qwen3-1.7b at the reference launcher's default
@@ -461,7 +474,9 @@ def phase_kernels(state):
                 bound_by="operations" if t_ops > t_bytes else "bytes",
                 library_ms=lib)
 
-    say("flash kernel vs plain (ms: kernel / plain / SDPA / bound):")
+    say("flash kernel vs plain (ms: kernel / plain / SDPA / bound; the "
+        "kernel's and SDPA's device time, and wall - device, the host's "
+        "share):")
     flash_cases = [  # (name, B, S, H, Kh, hd, dtype, kwargs, sdpa)
         (f"prefill B{B} T{T} H32 Kh8 hd128 causal bf16", B, T, 32, 8, 128,
          torch.bfloat16, dict(causal=True), True),
@@ -488,17 +503,28 @@ def phase_kernels(state):
         got = flash_ops.flash_attention(q, k, v, **kw)
         if dt == torch.float32:
             err = check_close(name, got, want, TOL32)
+            if i == 3:
+                # the planted fault: one TF32 product (hi*hi) in place of
+                # three must miss TOL32
+                check_rejects(f"{name} planted: one TF32 product",
+                              flash_ops.flash_attention_cuda(
+                                  q, k, v, kw["causal"], None, None, None,
+                                  tf32_products=1), want, TOL32)
         else:
             err = check_rms(name, got, want, FLASH_BF16_RMS_REL)
             check_flash_plants(name, q, k, v, want, **kw)
         del got, want
-        ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw))
+        fwd = lambda: flash_ops.flash_attention(q, k, v, **kw)
+        ms = time_ms(fwd)
+        on_card = device_ms(fwd)
         plain = time_ms(lambda: flash_ref.attention(q, k, v, **kw))
-        lib = None
+        lib = lib_dev = None
         if sdpa:
             qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True))
+            sdpa_fn = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+            lib = time_ms(sdpa_fn)
+            lib_dev = device_ms(sdpa_fn)
         # work this input needs: unmasked (q, k) pairs, 4*hd flops each
         qi = torch.arange(s, device=dev)[:, None]
         ki = torch.arange(s, device=dev)[None, :]
@@ -509,23 +535,21 @@ def phase_kernels(state):
             keep &= qi - ki < kw["window"]
         flops = 4.0 * hd * b * h * keep.sum().item()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16], \
-            nbytes / HBM_BYTES_PER_S
-        bound = max(t_ops, t_bytes) * 1e3
-        route = ("tensor cores, flash_attention_sm90.cu"
-                 if dt == torch.bfloat16 else "CUDA cores, flash_attention.cu")
-        say(f"    {ms:.4f} / {plain:.4f} / "
-            f"{'n/a' if lib is None else f'{lib:.4f}'} / {bound:.4f} "
-            f"({flops / ms / 1e9:.1f} TFLOP/s; {route}); device "
-            f"{_ms(device_ms(lambda: flash_ops.flash_attention(q, k, v, **kw)))}")
+        bound, by = _bound(nbytes, flops, dt, products=True)
+        route = ("wgmma, flash_attention_sm90.cu" if dt == torch.bfloat16
+                 else "TF32 mma.sync x3, flash_attention.cu")
+        say(f"    {ms:.4f} / {plain:.4f} / {_ms(lib)} / {bound:.4f} ({by}; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; {route}); device {_ms(on_card)}"
+            f", SDPA device {_ms(lib_dev)}; wall - device "
+            f"{_ms(None if on_card is None else ms - on_card)}")
         # the prefill case for the bf16 route, the first fp32 case for the
         # fp32 route
         key = "flash" if i == 0 else "flash_f32" if i == 3 else None
         if key:
             state[key] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=lib)
+                bound_by=by, library_ms=lib, device_ms=on_card,
+                library_device_ms=lib_dev)
 
     # strided inputs: q/k/v as head slices of one packed projection
     q, k, v = randn(2, 515, 32 + 2 * 8, 128, dtype=torch.bfloat16).split(
@@ -549,9 +573,11 @@ def _ms(x):
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def _bound(nbytes, flops, dtype=torch.float32):
-    """(least ms, what bounds it) for `nbytes` moved and `flops` done."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+def _bound(nbytes, flops, dtype=torch.float32, products=False):
+    """(least ms, what bounds it) for `nbytes` moved and `flops` done:
+    elementwise FLOPs at PEAK_FLOPS, matrix products at PRODUCT_FLOPS."""
+    rate = (PRODUCT_FLOPS if products else PEAK_FLOPS)[dtype]
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops > t_bytes else "bytes"
 
@@ -734,7 +760,7 @@ def phase_train_kernels(state):
         (qt, kt, vt), ctt))
     # causal pairs x 4 hd FLOPs forward, 2.5x that backward
     flops = 3.5 * 4.0 * 128 * TRAIN_B * 16 * TRAIN_T * (TRAIN_T + 1) / 2
-    bound, _ = _bound(0, flops, torch.bfloat16)
+    bound, _ = _bound(0, flops, torch.bfloat16, products=True)
     say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f}")
     state["flash_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                library_ms=lib, bound_ms=bound)
@@ -806,42 +832,65 @@ def _quant_sizes():
     return bucket, leaf
 
 
+def _codec_case(what, x, codec, sr):
+    """The quant and dequant kernels against the plain version, bit for bit:
+    wire bytes, scales, decoded values and, under SR, the seed the launch
+    used against `ref.buffer_seed`.  Returns the largest |kernel - plain|
+    of quant (wire values, scales) and of dequant."""
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+    n = x.numel()
+    seed = torch.empty(1, dtype=torch.int32, device="cuda") if sr else None
+    q, sc = qops.quantize_cuda(x, codec, sr, seed_out=seed)
+    wq, ws = qref.quantize(x, codec, sr)
+    check_exact(f"{what} wire bytes", q.view(torch.uint8),
+                wq.view(torch.uint8))
+    check_exact(f"{what} scales", _bits(sc), _bits(ws))
+    if sr:
+        check_exact(f"{what} SR seed", torch.tensor(
+            int(seed.item()) & qref.M32), torch.tensor(
+            int(qref.buffer_seed(qref.chunk(x)[0]))))
+    out = qops.dequantize_cuda(q, sc, n, x.shape, x.dtype)
+    want = qref.dequantize(wq, ws, n, x.shape, x.dtype)
+    check_exact(f"{what} decoded", _bits(out), _bits(want))
+    return max(max_err(q, wq), max_err(sc, ws)), max_err(out, want)
+
+
 def phase_quant_kernels(state):
     from repro_torch.kernels.quant import ops as qops
     from repro_torch.kernels.quant import ref as qref
     bucket, leaf = _quant_sizes()
+    edge = {dt: qops.sr_seed_pass(dt) for dt in (torch.float32,
+                                                  torch.bfloat16)}
     say(f"quant / dequant kernels vs plain, exact (largest bucket {bucket}, "
-        f"largest error-feedback leaf {leaf} elements):")
+        f"largest error-feedback leaf {leaf} elements; one pass of the SR "
+        f"seed kernel's grid covers {edge[torch.float32]} f32 / "
+        f"{edge[torch.bfloat16]} bf16 elements):")
     # the largest |kernel - plain| over every case: wire values and scales
     # for quant, decoded values for dequant (the exact checks raise on
     # any bit of difference)
     cases, err_q, err_d = 0, 0.0, 0.0
-    for n in (129, 5000, bucket):
-        for dt in (torch.float32, torch.bfloat16):
-            x = _codec_input(n, dt, seed=n)
-            want_seed = int(qref.buffer_seed(qref.chunk(x)[0]))
-            check_exact(f"n={n} {dt} SR seed", torch.tensor(
-                int(qops.seed_cuda(x)) & qref.M32 | 1), torch.tensor(
-                want_seed))
+    for dt in (torch.float32, torch.bfloat16):
+        c = edge[dt]
+        inputs = [(f"n={n}", _codec_input(n, dt, seed=n % 9973))
+                  for n in (129, 5000, bucket, c - 128, c - 1, c, c + 1,
+                            c + 128)]
+        # one element past a 16-byte boundary: the element loads
+        inputs.append(("n=5000 at a 1-element offset",
+                       _codec_input(5001, dt, seed=5)[1:]))
+        for label, x in inputs:
             for codec in qref.CODECS:
                 for sr in (False, True):
-                    what = f"n={n} {str(dt)[6:]} {codec} " + \
-                        ("SR" if sr else "RTN")
-                    q, sc = qops.quantize_cuda(x, codec, sr)
-                    wq, ws = qref.quantize(x, codec, sr)
-                    check_exact(f"{what} wire bytes", q.view(torch.uint8),
-                                wq.view(torch.uint8))
-                    check_exact(f"{what} scales", _bits(sc), _bits(ws))
-                    out = qops.dequantize_cuda(q, sc, n, x.shape, dt)
-                    want = qref.dequantize(wq, ws, n, x.shape, dt)
-                    check_exact(f"{what} decoded", _bits(out), _bits(want))
-                    err_q = max(err_q, max_err(q, wq), max_err(sc, ws))
-                    err_d = max(err_d, max_err(out, want))
+                    eq, ed = _codec_case(f"{label} {str(dt)[6:]} {codec} "
+                                         f"{'SR' if sr else 'RTN'}", x,
+                                         codec, sr)
+                    err_q, err_d = max(err_q, eq), max(err_d, ed)
                     cases += 1
-                    del q, sc, wq, ws, out, want
-            del x
-    say(f"  {cases} cases: wire bytes, scales, decoded values and SR "
-        "seeds equal the plain version bit for bit")
+        del inputs, x
+    say(f"  {cases} cases (n = 129, 5000, the largest bucket, one pass of "
+        "the seed grid -128, -1, 0, +1, +128, and a misaligned view; f32 / "
+        "bf16 x fp8 / int8 x RTN / SR): wire bytes, scales, decoded values "
+        "and SR seeds equal the plain version bit for bit")
     x = _codec_input(leaf, torch.float32, seed=1)
     q, sc = qops.quantize_cuda(x, "fp8", False)
     wq, ws = qref.quantize(x, "fp8", False)
@@ -870,38 +919,57 @@ def phase_quant_kernels(state):
                         _bits(per_tensor), _bits(qref.roundtrip(x, "fp8")))
     del got, want, x2, one_scale, per_tensor
 
-    say("timing at the largest bucket (ms: kernel / plain / bound):")
+    say("timing at the largest bucket (ms: kernel wall, device / plain / "
+        "bound; SR: the RTN launch's device time on the same x, and the "
+        "share of SR's device time above it, the seed pass and the "
+        "dither):")
+    variants = {}
     for dt, codec, sr in ((torch.float32, "fp8", True),
                           (torch.bfloat16, "fp8", False),
                           (torch.float32, "int8", True),
                           (torch.float32, "fp8", False)):
         x = _codec_input(bucket, dt, seed=3)
         q, sc = qops.quantize_cuda(x, codec, sr)
-        ms_q = time_ms(lambda: qops.quantize_cuda(x, codec, sr))
+        quant = lambda: qops.quantize_cuda(x, codec, sr)
+        ms_q, dev_q = time_ms(quant), device_ms(quant)
         plain_q = time_ms(lambda: qref.quantize(x, codec, sr))
-        ms_d = time_ms(lambda: qops.dequantize_cuda(q, sc, bucket, x.shape,
-                                                    dt))
+        deq = lambda: qops.dequantize_cuda(q, sc, bucket, x.shape, dt)
+        ms_d, dev_d = time_ms(deq), device_ms(deq)
         plain_d = time_ms(lambda: qref.dequantize(q, sc, bucket, x.shape,
                                                   dt))
         # quant reads x once, writes one byte an element and a f32 scale a
         # chunk; dequant the reverse; ~8 fp32 operations an element
         wire = bucket + 4 * sc.numel()
-        bound_q, by_q = _bound(bucket * x.element_size() + wire, 8.0 * bucket)
-        bound_d, by_d = _bound(wire + bucket * x.element_size(), 2.0 * bucket)
-        say(f"  {str(dt)[6:]} {codec} {'SR' if sr else 'RTN'}: quant "
-            f"{ms_q:.4f} / {plain_q:.4f} / {bound_q:.4f} "
-            f"({(bucket * x.element_size() + wire) / ms_q / 1e6:.0f} GB/s); "
-            f"dequant {ms_d:.4f} / {plain_d:.4f} / {bound_d:.4f} "
-            f"({(bucket * x.element_size() + wire) / ms_d / 1e6:.0f} GB/s)")
+        nbytes = bucket * x.element_size() + wire
+        bound_q, by_q = _bound(nbytes, 8.0 * bucket)
+        bound_d, by_d = _bound(nbytes, 2.0 * bucket)
+        label = f"{str(dt)[6:]} {codec} {'SR' if sr else 'RTN'}"
+        seed_note = ""
+        rtn_dev = None
+        if sr:
+            rtn_dev = device_ms(lambda: qops.quantize_cuda(x, codec, False))
+            if dev_q and rtn_dev:
+                seed_note = (f"; RTN device {rtn_dev:.4f}, SR above it "
+                             f"{100 * (dev_q - rtn_dev) / dev_q:.1f}%")
+        say(f"  {label}: quant {ms_q:.4f}, device {_ms(dev_q)} / "
+            f"{plain_q:.4f} / {bound_q:.4f} ({nbytes / ms_q / 1e6:.0f} GB/s"
+            f"{seed_note}); dequant {ms_d:.4f}, device {_ms(dev_d)} / "
+            f"{plain_d:.4f} / {bound_d:.4f} ({nbytes / ms_d / 1e6:.0f} GB/s)")
+        variants[label] = dict(ms=ms_q, device_ms=dev_q, bound_ms=bound_q,
+                               rtn_device_ms=rtn_dev, dequant_ms=ms_d,
+                               dequant_device_ms=dev_d)
         if dt == torch.float32 and codec == "fp8" and sr:
             state["quant_fwd"] = dict(max_abs_err=err_q, ms=ms_q,
                                       plain_ms=plain_q, bound_ms=bound_q,
-                                      bound_by=by_q, library_ms=None)
+                                      bound_by=by_q, library_ms=None,
+                                      device_ms=dev_q)
             state["dequant_fwd"] = dict(max_abs_err=err_d, ms=ms_d,
                                         plain_ms=plain_d, bound_ms=bound_d,
-                                        bound_by=by_d, library_ms=None)
+                                        bound_by=by_d, library_ms=None,
+                                        device_ms=dev_d)
         del x, q, sc
         torch.cuda.empty_cache()
+    state["quant_fwd"]["variants"] = variants
 
 
 def phase_quant_grad_bucket(state):
@@ -1467,7 +1535,7 @@ def phase_ssd_kernels(state):
             + 2 * Bm.numel() * Bm.element_size() \
             + x.numel() * x.element_size()
         flops = _ssd_flops(b, t, h, p, n, lc)
-        bound, by = _bound(nbytes, flops, dt_)
+        bound, by = _bound(nbytes, flops, dt_, products=True)
         dev_ms = device_ms(lambda: ssd_ops.ssd_cuda(*ins, chunk=lc))
         say(f"    {ms:.4f} / {plain:.4f} / {bound:.4f} ({by}; "
             f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s);"
@@ -1550,7 +1618,7 @@ def phase_ssd_kernels(state):
         dev_bwd = device_ms(bwd)
         plain_bwd = time_ms(lambda: ssd_ref.ssd_chunked_bwd(*ins, ct, lc))
         nbytes, flops = _ssd_bwd_bound(b, t, h, p, grp, n, lc, dt_)
-        bound, by = _bound(nbytes, flops, dt_)
+        bound, by = _bound(nbytes, flops, dt_, products=True)
         ms = time_ms(lambda: _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc),
                                     ins, ct))
         plain = time_ms(lambda: _grads(
@@ -1805,6 +1873,10 @@ def _consistency(params, prefill, decode, x, label):
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
             "NCCL collectives": ("nccl",)}
+# the codec's kernels by variant: quant_kernel<T, codec, SR?> (SR: the
+# gradients, after seed_kernel<T>; RTN: the gathered weights and the
+# error-feedback hop), dequant_kernel<out T>; codec 0 = fp8, 1 = int8
+CODEC_VARIANT = r"((?:seed|quant|dequant)_kernel<[^>]*>)"
 
 
 def _profile(label, fn, n, top=8):
@@ -1837,12 +1909,19 @@ def _profile(label, fn, n, top=8):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         say(f"    {e.self_device_time_total / n / 1e3:9.3f} ms "
             f"{e.count // n:5d}x  {e.key[:90]}")
+    import re
     for family, keys in FAMILIES.items():
         fam = [e for e in rows if any(k in e.key for k in keys)]
         if fam:
             us = sum(e.self_device_time_total for e in fam)
             say(f"  {family}: {us / n / 1e3:.3f} ms, "
                 f"{sum(e.count for e in fam) // n} kernels per call")
+    for e in sorted(rows, key=lambda e: e.key):
+        m = re.search(CODEC_VARIANT, e.key)
+        if m:
+            say(f"    {m.group(1)}: {e.self_device_time_total / n / 1e3:.3f}"
+                f" ms in {e.count // n} launches, "
+                f"{e.self_device_time_total / e.count / 1e3:.4f} ms each")
     return dev_us / 1e6 / wall, dev_us / 1e6 / n
 
 
@@ -1864,14 +1943,16 @@ def kernels_line(state):
     ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
     smoke training runs' counts.  A count is one call of the kernel's
-    wrapper: the ssd forward is two launches a call, its backward three."""
+    wrapper: the ssd forward is two launches a call, its backward three, an
+    SR quant call two (the seed pass and the quant kernel)."""
     src = "src/repro_torch/csrc/"
     main, train, prefetch, serve, zamba = (
         state["train_fp8_ef_launches"], state["train_launches"],
         state["train_prefetch_launches"], state["launches"],
         state["train_zamba2_launches"])
 
-    def row(name, key, source, replaces, serve_key=None, home=main):
+    def row(name, key, source, replaces, serve_key=None, home=main,
+            **extra):
         by_path = dict(train=train[key], train_prefetch=prefetch[key],
                        train_fp8_ef=main[key], train_zamba2=zamba[key])
         if serve_key:
@@ -1883,7 +1964,7 @@ def kernels_line(state):
         return dict(name=name, route="cuda", source=src + source,
                     replaces="src/repro/kernels/" + replaces,
                     launches=home[key], **state[key],
-                    launches_by_path=by_path)
+                    launches_by_path=by_path, **extra)
 
     rows = [
         row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
@@ -1892,13 +1973,16 @@ def kernels_line(state):
             "flash_attention/kernel.py:77", "flash"),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_f32", "flash_f32", "flash_attention.cu",
-            "flash_attention/kernel.py:77", "flash_f32"),
+            "flash_attention/kernel.py:77", "flash_f32",
+            kernel="flash_fwd_tf32_kernel: mma.sync m16n8k8 TF32, "
+                   "hi*hi + hi*lo + lo*hi"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:61"),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:96"),
         row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40"),
-        row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46"),
+        row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46",
+            kernel="quant_kernel (RTN); seed_kernel + quant_kernel (SR)"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
         row("ssd_fwd", "ssd", "ssd_sm90.cu", "ssd/kernel.py:65", home=zamba),
         row("ssd_bwd", "ssd_bwd", "ssd_sm90.cu", "ssd/ops.py:57", home=zamba),

@@ -1,12 +1,37 @@
-// Flash-attention forward for Hopper (sm_90a): the fp32 route.
+// Flash-attention forward for Hopper (sm_90a): the fp32 route, on tensor
+// cores in TF32 with fp32 accuracy (3xTF32).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // `flash_fwd` (pallas_call at :90) for fp32 inputs: online-softmax attention
 // with an fp32 running max, sum and accumulator; static causal /
 // sliding-window / tanh softcap masking; q_scale (default 1/sqrt(hd), set by
-// the wrapper).  bf16 inputs take the tensor-core kernel,
-// csrc/flash_attention_sm90.cu; this one stays on the CUDA cores because
-// TF32 tensor cores would not hold fp32 tolerances.
+// the wrapper).  bf16 inputs take csrc/flash_attention_sm90.cu.
+//
+// Precision.  One TF32 product keeps 11 bits of each operand and misses
+// fp32 tolerances.  Every fp32 operand x is split as hi = tf32(x) (cvt.rna)
+// and lo = tf32(x - hi), and each product is taken as hi*hi + hi*lo + lo*hi
+// (the lo*lo term is below fp32 rounding): about 21 significant bits, so
+// S = Q K^T and O = P V hold fp32 tolerances.  The tensor cores' fp32 sums
+// truncate, so O is not summed in them over the whole row: each 16 keys'
+// product is, and O adds it with round to nearest.  `products` = 1 keeps
+// only hi*hi; it exists as a planted fault that the checks must reject.
+//
+// Layout: 4 warps a block, 16 query rows a warp (64 a block), mma.sync
+// m16n8k8 with fp32 accumulators.
+//  * Q's fragments are scaled and split once, before the KV loop, and stay
+//    in registers (at hd 128 they would take 128 registers a thread, and the
+//    kernel would spill: there the scaled Q tile waits in shared memory and
+//    is split at each use).
+//  * K and V tiles of BN keys come into shared memory with cp.async, two
+//    stages, so tile j+1 lands while tile j is multiplied: 16-byte copies
+//    where every row is 16-byte aligned, 4-byte copies otherwise, zero fill
+//    past T.  Rows are padded by 4 floats, so the fragment reads below hit
+//    32 distinct banks.
+//  * P stays in registers.  The accumulator of S holds key columns (2t,
+//    2t+1) of each 8-key tile, where the A operand of P V wants (t, t+4);
+//    the order of keys inside a tile does not matter to P V, so V's rows
+//    are read in the matching order (logical key t -> row 2t, t+4 -> 2t+1)
+//    and nothing goes through shared memory.
 //
 // Differences from the TPU kernel, on purpose:
 //  * Layout.  It reads the port's public layout q (B,S,H,hd), k/v
@@ -22,33 +47,36 @@
 //    last row, a sliding window starts it at the first row's window.
 //
 // Bound on the H100: operations (~830 FLOP per byte of q/k/v/o at prefill,
-// far above the card's ridge).  It multiplies on the fp32 CUDA cores from
-// fp32 tiles in shared memory (a 16x16 thread grid, each thread a 4 x BN/16
-// patch of scores and a 4 x hd/16 patch of the output), so it reaches at
-// most the fp32 FMA rate; it serves the fp32 checks, not the main path.
+// far above the card's ridge): each fp32-accurate product is three TF32
+// products, so the least time is the FLOPs over 495 / 3 = 165 TFLOP/s.
 #include <math_constants.h>
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBM = 64;                   // query rows per block
-constexpr int kThreads = 256;             // 16 x 16 thread grid
-constexpr int kRM = kBM / 16;             // query rows per thread
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = 16 * kWarps;  // query rows a block
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Keys per KV tile: 32 at hd=128 keeps shared memory near 76 KB, so two
-// blocks fit on one SM.
 template <int HD>
-struct KvTile {
-  static constexpr int kN = HD >= 128 ? 32 : 64;
+struct Cfg {
+  // Keys a KV tile: 32 keeps a thread's S, O, Q and P fragments within 255
+  // registers without spills at hd 64 and 128, and at hd 16 and 32 it
+  // measured faster than 64 (less of the causal diagonal tile is masked).
+  static constexpr int kBN = 32;
+  static constexpr int kLd = HD + 4;          // padded smem row, floats
+  static constexpr int kTile = kBN * kLd;     // floats a K or V tile
+  // Q's split fragments of a warp's 16 rows take HD registers a thread: they
+  // stay in registers up to hd 64; at hd 128 the scaled Q tile waits in
+  // shared memory and is split at each use.
+  static constexpr bool kQInSmem = HD > 64;
+  static constexpr int kQFloats = kQInSmem ? kBM * kLd : 0;
+  static constexpr size_t kSmem = sizeof(float) * (4 * kTile + kQFloats);
 };
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  constexpr int BN = KvTile<HD>::kN;
-  return sizeof(float) *
-         (kBM * (HD + 1) + BN * (HD + 1) + BN * HD + kBM * (BN + 16));
-}
 
 struct Params {
   const void* q;
@@ -61,25 +89,157 @@ struct Params {
   int window;      // <= 0: none; else keep q_pos - k_pos < window
   float softcap;   // <= 0: none
   float q_scale;
+  int vec;         // k and v rows are 16-byte aligned
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
-  constexpr int BN = KvTile<HD>::kN;
-  constexpr int CN = BN / 16;   // key columns per thread
-  constexpr int DN = HD / 16;   // output dims per thread
-  constexpr int QS = HD + 1;    // padded row strides: conflict-free columns
-  constexpr int KS = HD + 1;
-  constexpr int PS = BN + 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // kBM x QS, pre-scaled
-  float* Ks = Qs + kBM * QS;    // BN x KS
-  float* Vs = Ks + BN * KS;     // BN x HD
-  float* Ps = Vs + BN * HD;     // kBM x PS, probabilities of this tile
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;      // lanes of one half-warp share a row set
-  const int ty = tid >> 4;
+// x = hi + lo, each a TF32 value
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in `P` TF32 products: the small terms first, then hi * hi
+template <int P>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  if constexpr (P == 3) {
+    mma_tf32(d, al, bh0, bh1);
+    mma_tf32(d, ah, bl0, bl1);
+  }
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// keys [n0, n0 + BN) of one head of k (or v) into smem [BN][kLd], zero
+// past T
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long st, int n0, int T,
+                                          bool vec) {
+  using C = Cfg<HD>;
+  static_assert(C::kBN * HD % (4 * kThreads) == 0, "whole vectors a thread");
+  if (vec) {
+    constexpr int kVw = HD / 4;
+#pragma unroll
+    for (int c = 0; c < C::kBN * kVw / kThreads; ++c) {
+      const int i = threadIdx.x + c * kThreads;
+      const int r = i / kVw, d = (i % kVw) * 4, t = n0 + r;
+      cp_async16(dst + r * C::kLd + d, src + (t < T ? t * st + d : 0),
+                 t < T ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = 0; c < C::kBN * HD / kThreads; ++c) {
+      const int i = threadIdx.x + c * kThreads;
+      const int r = i / HD, d = i % HD, t = n0 + r;
+      cp_async4(dst + r * C::kLd + d, src + (t < T ? t * st + d : 0),
+                t < T ? 4 : 0);
+    }
+  }
+}
+
+// Q's A fragments of one warp's 16 rows: (row g, col t), (g+8, t),
+// (g, t+4), (g+8, t+4) of each 8-column step, scaled by q_scale; split once
+// and held (hd <= 64), or read from the block's Q tile in shared memory and
+// split at each use (hd 128)
+template <int HD>
+struct QFrags {
+  using C = Cfg<HD>;
+  static constexpr int kS = HD / 8;
+  uint32_t a[C::kQInSmem ? 1 : kS][4][2];
+  const float* qs;  // in shared memory: this lane's (g, t) of its warp
+
+  // every thread of the block calls it; Qs: the Q tile's shared memory
+  __device__ __forceinline__ void load(const float* q, long long sqs, int m0,
+                                       int S, float scale, float* Qs) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    if constexpr (C::kQInSmem) {
+      for (int i = threadIdx.x; i < kBM * HD; i += kThreads) {
+        const int r = i / HD, d = i % HD, row = m0 + r;
+        Qs[r * C::kLd + d] = row < S ? q[row * sqs + d] * scale : 0.f;
+      }
+      qs = Qs + (warp * 16 + g) * C::kLd + t;
+    } else {
+      const int r0 = m0 + warp * 16 + g;
+#pragma unroll
+      for (int kk = 0; kk < kS; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + (i & 1) * 8, c = kk * 8 + t + (i >> 1) * 4;
+          split(r < S ? q[r * sqs + c] * scale : 0.f, a[kk][i][0],
+                a[kk][i][1]);
+        }
+    }
+  }
+
+  __device__ __forceinline__ void get(int kk, uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (C::kQInSmem) {
+        split(qs[(i & 1) * 8 * C::kLd + kk * 8 + (i >> 1) * 4], hi[i], lo[i]);
+      } else {
+        hi[i] = a[kk][i][0];
+        lo[i] = a[kk][i][1];
+      }
+    }
+  }
+};
+
+template <int HD, int P>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_tf32_kernel(Params p) {
+  using C = Cfg<HD>;
+  constexpr int BN = C::kBN;
+  constexpr int NT = BN / 8;   // 8-key column tiles of S
+  constexpr int DT = HD / 8;   // 8-dim column tiles of O
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   // Reverse order: under causality the last query tiles do the most work,
   // so they start first.
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kBM;
@@ -90,157 +250,216 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   const float* k = static_cast<const float*>(p.k) + b * p.skb + kvh * p.skh;
   const float* v = static_cast<const float*>(p.v) + b * p.svb + kvh * p.svh;
   float* o = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
-
-  for (int i = tid; i < kBM * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, s = m0 + r;
-    Qs[r * QS + d] = s < p.S ? q[s * p.sqs + d] * p.q_scale : 0.f;
-  }
+  const int r0 = m0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const int r1 = r0 + 8;
 
   int n_end = p.T;
   if (p.causal) n_end = min(n_end, m0 + kBM);
   int n_begin = 0;
   if (p.window > 0) n_begin = max(0, m0 - p.window + 1) / BN * BN;
+  const int tiles = n_end > n_begin ? (n_end - n_begin + BN - 1) / BN : 0;
 
-  float m_i[kRM], l_i[kRM], acc[kRM][DN];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    m_i[i] = -CUDART_INF_F;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+  if (tiles > 0) {
+    load_tile<HD>(smem, k, p.skt, n_begin, p.T, p.vec);
+    load_tile<HD>(smem + C::kTile, v, p.svt, n_begin, p.T, p.vec);
+    cp_async_commit();
   }
 
-  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
-    __syncthreads();  // the previous tile's K/V/P are consumed
-    for (int i = tid; i < BN * HD; i += kThreads) {
-      const int c = i / HD, d = i % HD, t = n0 + c;
-      const bool in = t < p.T;  // zero, never garbage: 0 * NaN would leak
-      Ks[c * KS + d] = in ? k[t * p.skt + d] : 0.f;
-      Vs[c * HD + d] = in ? v[t * p.svt + d] : 0.f;
+  QFrags<HD> qf;  // the first tile's __syncthreads also publishes Q's tile
+  qf.load(q, p.sqs, m0, p.S, p.q_scale, smem + 4 * C::kTile);
+
+  float m_i[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int n0 = n_begin + it * BN;
+    if (it + 1 < tiles) {  // the next tile into the other stage
+      float* nxt = smem + ((it + 1) & 1) * 2 * C::kTile;
+      load_tile<HD>(nxt, k, p.skt, n0 + BN, p.T, p.vec);
+      load_tile<HD>(nxt + C::kTile, v, p.svt, n0 + BN, p.T, p.vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* Ks = smem + (it & 1) * 2 * C::kTile;
+    const float* Vs = Ks + C::kTile;
 
-    float s[kRM][CN];
+    // S = (Q * scale) K^T: 16 rows x BN keys a warp
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < kRM; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[kRM], kv[CN];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) qv[i] = Qs[(ty + 16 * i) * QS + d];
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      qf.get(kk, ah, al);
 #pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = Ks[(tx + 16 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < kRM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < NT; ++j) {
+        const float* kr = Ks + (j * 8 + g) * C::kLd + kk * 8 + t;
+        mma3<P>(s[j], ah, al, kr[0], kr[4]);
+      }
     }
 
+    // softcap, masks, online softmax.  s[j] holds rows (r0, r0, r1, r1) x
+    // keys (2t, 2t+1, 2t, 2t+1) of tile j
+    const bool edge = n0 + BN > p.T || (p.causal && n0 + BN - 1 > m0) ||
+                      (p.window > 0 && m0 + kBM - 1 - n0 >= p.window);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int qpos = m0 + ty + 16 * i;
-      float mx = -CUDART_INF_F;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int kpos = n0 + tx + 16 * j;
-        float x = s[i][j];
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e];
         if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        const bool keep = kpos < p.T && (!p.causal || kpos <= qpos) &&
-                          (p.window <= 0 || qpos - kpos < p.window);
-        s[i][j] = keep ? x : -CUDART_INF_F;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      float corr = 1.f, rs = 0.f;
-      if (m_new == -CUDART_INF_F) {  // every key so far masked for this row
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-      } else {
-        corr = expf(m_i[i] - m_new);  // 0 on the first visible tile
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          s[i][j] = expf(s[i][j] - m_new);
-          rs += s[i][j];
+        if (edge) {
+          const int row = e < 2 ? r0 : r1;
+          const int col = n0 + j * 8 + 2 * t + (e & 1);
+          const bool keep = col < p.T && (!p.causal || col <= row) &&
+                            (p.window <= 0 || row - col < p.window);
+          if (!keep) x = -CUDART_INF_F;
         }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_i[r], mx[r]);
+      // every key so far masked for this row: p = 0, nothing to rescale
+      corr[r] = m_new == -CUDART_INF_F ? 1.f
+                                       : exp2f((m_i[r] - m_new) * kLog2e);
+      m_i[r] = m_new;
+      mx[r] = m_new == -CUDART_INF_F ? 0.f : m_new * kLog2e;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -mx[e >> 1]));  // -inf -> 0
+        rs[e >> 1] += s[j][e];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * corr + rs;
-      m_i[i] = m_new;
+    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * corr[r] + rs[r];
 #pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) Ps[(ty + 16 * i) * PS + tx + 16 * j] = s[i][j];
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float vv[DN];
+    // O += P V.  P's A fragment of key tile j: logical key t is key 2t,
+    // t + 4 is key 2t + 1, so V's rows are read in that order.  The tensor
+    // cores' fp32 sums truncate: O summed in them over every key drifts
+    // (4.2e-5 at llama3-8b's 32 fp32 layers, T 2064, against TOL32's 2e-5
+    // near zero), so each 16 keys' product is summed in its own accumulator
+    // and added to O with round to nearest.
 #pragma unroll
-      for (int j = 0; j < DN; ++j) vv[j] = Vs[c * HD + tx + 16 * j];
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t ph[2][4], pl[2][4];
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        const float pv = Ps[(ty + 16 * i) * PS + c];
+      for (int u = 0; u < 2; ++u) {
+        split(s[j + u][0], ph[u][0], pl[u][0]);
+        split(s[j + u][2], ph[u][1], pl[u][1]);
+        split(s[j + u][1], ph[u][2], pl[u][2]);
+        split(s[j + u][3], ph[u][3], pl[u][3]);
+      }
+      const float* vr = Vs + (j * 8 + 2 * t) * C::kLd + g;
 #pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(pv, vv[j], acc[i][j]);
+      for (int d = 0; d < DT; ++d) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          mma3<P>(part, ph[u], pl[u], vr[u * 8 * C::kLd + d * 8],
+                  vr[(u * 8 + 1) * C::kLd + d * 8]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[d][e] += part[e];
       }
     }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int s_ = m0 + ty + 16 * i;
-    if (s_ >= p.S) continue;
-    const float inv = l_i[i] > 0.f ? 1.f / l_i[i] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+  }
 #pragma unroll
-    for (int j = 0; j < DN; ++j)
-      o[s_ * p.sos + tx + 16 * j] = acc[i][j] * inv;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    if (row >= p.S) continue;
+    const float inv = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
+    float* orow = o + row * p.sos + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<float2*>(orow + d * 8) =
+          make_float2(acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
   }
 }
 
-template <int HD>
+template <int HD, int P>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = Cfg<HD>::kSmem;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tf32_kernel<HD, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((p.S + kBM - 1) / kBM, p.B * p.H);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_tf32_kernel<HD, P><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_hd(const Params& p, int hd, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<16, P>(p, s);
+    case 32: return launch<32, P>(p, s);
+    case 64: return launch<64, P>(p, s);
+    case 128: return launch<128, P>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// fp32 q: (B,S,H,hd), k/v: (B,T,Kh,hd), o: (B,S,H,hd), with
-// element strides given per (batch, position, head) and unit stride on hd.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported input).
+// fp32 q: (B,S,H,hd), k/v: (B,T,Kh,hd), o: (B,S,H,hd), with element
+// strides given per (batch, position, head), unit stride on hd, and o 8-byte
+// aligned with even strides.  products: 3 (hi*hi + hi*lo + lo*hi), or 1
+// (hi*hi only, a planted fault for the checks).  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError() (cudaErrorInvalidValue for
+// an unsupported input).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S, int T,
     int H, int Kh, int hd, long long sqb, long long sqs, long long sqh,
     long long skb, long long skt, long long skh, long long svb, long long svt,
     long long svh, long long sob, long long sos, long long soh, int causal,
-    int window, float softcap, float q_scale, void* stream) {
+    int window, float softcap, float q_scale, int products, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || Kh <= 0 || H % Kh != 0 ||
-      B * H > 65535)
+      B * H > 65535 || (products != 1 && products != 3) || sob % 2 ||
+      sos % 2 || soh % 2 || reinterpret_cast<uintptr_t>(o) % 8)
     return cudaErrorInvalidValue;
+  const bool vec = aligned16(k) && aligned16(v) && skb % 4 == 0 &&
+                   skt % 4 == 0 && skh % 4 == 0 && svb % 4 == 0 &&
+                   svt % 4 == 0 && svh % 4 == 0;
   const Params p{q,   k,   v,   o,   B,   S,   T,      H,      Kh,
                  sqb, sqs, sqh, skb, skt, skh, svb,    svt,    svh,
-                 sob, sos, soh, causal, window, softcap, q_scale};
+                 sob, sos, soh, causal, window, softcap, q_scale,
+                 static_cast<int>(vec)};
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch<16>(p, s);
-    case 32: return launch<32>(p, s);
-    case 64: return launch<64>(p, s);
-    case 128: return launch<128>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return products == 3 ? launch_hd<3>(p, hd, s) : launch_hd<1>(p, hd, s);
 }

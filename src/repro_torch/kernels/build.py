@@ -108,6 +108,11 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({name})")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on `device`, for a launcher."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on `device` (a CUDA tensor's device),
+    as the address a launcher takes.  Read on every call, as PyTorch keeps
+    it: a `torch.cuda.Stream` object costs more host time than the small
+    kernels it launches."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -1,17 +1,19 @@
 """Flash-attention op: a CUDA tensor goes to a hand-written kernel, a CPU
 tensor to the plain version (`ref.py`).  On the card the kernel goes by
-dtype: bf16 to the tensor-core kernel (`csrc/flash_attention_sm90.cu`,
-wgmma and TMA), fp32 to the CUDA-core kernel (`csrc/flash_attention.cu`),
-since TF32 tensor cores would not hold fp32 tolerances.
+dtype: bf16 to `csrc/flash_attention_sm90.cu` (wgmma and TMA), fp32 to
+`csrc/flash_attention.cu` (TF32 mma.sync).  One TF32 product would not hold
+fp32 tolerances; the fp32 kernel splits every operand into TF32 hi + lo and
+takes three products (hi*hi + hi*lo + lo*hi), about 21 significant bits.
 
 Layout q (B,S,H,hd), k/v (B,T,Kh,hd); GQA maps q head h to kv head
 h // (H // Kh) inside the kernel, and keys are masked on the true length T,
 so no repeat, transpose or padding copy is made.
 
-`flash_attention` is a `torch.autograd.Function`.  Its backward is plain
-torch: it recomputes the plain version one query chunk of `Q_CHUNK` rows at
-a time and differentiates that, so the (S, T) score matrix is never live
-whole, as the reference's `attention_chunked` remat does (no backward
+`flash_attention` goes through a `torch.autograd.Function` where a
+gradient is needed, and straight to the forward elsewhere.  Its backward is
+plain torch: it recomputes the plain version one query chunk of `Q_CHUNK`
+rows at a time and differentiates that, so the (S, T) score matrix is never
+live whole, as the reference's `attention_chunked` remat does (no backward
 kernel exists in the reference either).  There is no fallback: a CUDA
 input the kernel does not take, a failed build or a failed launch raises.
 `launches` counts the bf16 kernel's launches, `launches_f32` the fp32
@@ -38,8 +40,20 @@ Q_CHUNK = 512
 
 def flash_attention(q, k, v, causal=True, window=None, softcap=None,
                     q_scale=None):
-    """q: (B,S,H,hd); k/v: (B,T,Kh,hd), H % Kh == 0. Returns (B,S,H,hd)."""
-    return _Flash.apply(q, k, v, causal, window, softcap, q_scale)
+    """q: (B,S,H,hd); k/v: (B,T,Kh,hd), H % Kh == 0. Returns (B,S,H,hd).
+    Where no gradient is needed the forward runs without the autograd
+    Function, whose host cost is that of a small kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, window, softcap, q_scale)
+    return _forward(q, k, v, causal, window, softcap, q_scale)
+
+
+def _forward(q, k, v, causal, window, softcap, q_scale):
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, q_scale=q_scale)
+    return flash_attention_cuda(q, k, v, causal, window, softcap, q_scale)
 
 
 class _Flash(torch.autograd.Function):
@@ -48,10 +62,7 @@ class _Flash(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
                       q_scale=q_scale)
-        if q.device.type == "cpu":
-            return ref.attention(q, k, v, **ctx.kw)
-        return flash_attention_cuda(q, k, v, causal, window, softcap,
-                                    q_scale)
+        return _forward(q, k, v, causal, window, softcap, q_scale)
 
     @staticmethod
     def backward(ctx, do):
@@ -78,7 +89,8 @@ def _kernel(name):
     fn = getattr(build.library().cdll, name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12
-                   + [i, i, ctypes.c_float, ctypes.c_float, p])
+                   + [i, i, ctypes.c_float, ctypes.c_float]
+                   + ([] if name.endswith("sm90") else [i]) + [p])
     fn.restype = i
     return fn
 
@@ -91,7 +103,11 @@ def _tma_strides(t):
             for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
-def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale):
+def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale,
+                         tf32_products=3):
+    """The kernels' launch.  `tf32_products` (fp32 only): 3 for the kernel
+    (hi*hi + hi*lo + lo*hi), 1 for hi*hi alone, a planted fault that the
+    checks must reject."""
     global launches, launches_f32
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash kernel: q, k, v must be on one CUDA device")
@@ -128,13 +144,14 @@ def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale):
     else:
         strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     scale = q_scale if q_scale is not None else 1.0 / math.sqrt(hd)
-    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    # empty_like: a third of torch.empty's host cost
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
     name = "flash_attention_fwd_sm90" if bf16 else "flash_attention_fwd"
     rc = _kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, S, T, H, Kh, hd, *strides, *o.stride()[:3],
         int(causal), int(window or 0), float(softcap or 0.0), float(scale),
-        build.stream_ptr(q.device))
+        *(() if bf16 else (tf32_products,)), build.stream_ptr(q.device))
     build.check(rc, name)
     if bf16:
         launches += 1

@@ -1,7 +1,7 @@
 """Quantize / dequantize ops of the wire codec (port of
 `repro.kernels.quant.ops`): a CUDA tensor goes to the hand-written kernels
-(`csrc/quant.cu`: `quant_seed` + `quant_fwd`, `dequant_fwd`), a CPU tensor
-to the plain version (`ref.py`).  The two are equal bit for bit.
+(`csrc/quant.cu`: `quant_fwd`, `dequant_fwd`), a CPU tensor to the plain
+version (`ref.py`).  The two are equal bit for bit.
 
 `roundtrip` is the entry the collectives and the error-feedback hop use:
 encode the flat buffer to the wire codec and decode it back, which equals
@@ -10,11 +10,16 @@ and with a reduce that sums each contribution quantized once).  The op is
 not differentiable: it runs only inside the collectives' hand-written
 forward and backward and the optimizer.
 
+RTN is one launch.  SR is two and needs no host step: a seed pass writes
+per-block partial sums of the buffer's f32 bits, and the quant kernel forms
+the seed (their wraparound u32 sum, | 1) itself; it can write the seed it
+used to a device scalar, which the checks hold against `ref.buffer_seed`.
+
 There is no fallback: a CUDA input the kernels do not take, a failed build
 or a failed launch raises.  `quant_launches` / `dequant_launches` count
-kernel launches (the SR seed pass belongs to its quant launch).  The
-KV-cache codec of the reference (`encode_kv` / `decode_kv`) belongs to the
-serving slice that quantizes the cache and is not here yet.
+calls that launch (an SR call's two launches count once).  The KV-cache
+codec of the reference (`encode_kv` / `decode_kv`) belongs to the serving
+slice that quantizes the cache and is not here yet.
 """
 
 from __future__ import annotations
@@ -59,10 +64,10 @@ def _fns():
     lib = build.library().cdll
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
         ctypes.c_float
-    lib.quant_seed.argtypes = [p, i, ll, p, i, p]
-    lib.quant_fwd.argtypes = [p, i, ll, i, i, p, f, f, p, p, i, p]
+    lib.quant_sr_plan.argtypes = [i, i, p, p]
+    lib.quant_fwd.argtypes = [p, i, ll, i, i, f, f, p, p, p, i, p, i, p]
     lib.dequant_fwd.argtypes = [p, p, i, ll, p, i, i, p]
-    for fn in (lib.quant_seed, lib.quant_fwd, lib.dequant_fwd):
+    for fn in (lib.quant_sr_plan, lib.quant_fwd, lib.dequant_fwd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -72,9 +77,26 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _dev_sms(dev: torch.device) -> int:
-    return _sms(dev.index if dev.index is not None
-                else torch.cuda.current_device())
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.cache
+def _sr_plan(index: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(most blocks, elements one pass of its grid covers) of the SR seed
+    pass on device `index`: fixed by the device's SM count."""
+    blocks, elems = ctypes.c_int(), ctypes.c_longlong()
+    build.check(_fns().quant_sr_plan(
+        _DTYPES[dtype], _sms(index), ctypes.byref(blocks),
+        ctypes.byref(elems)), "quant_sr_plan")
+    return blocks.value, elems.value
+
+
+def sr_seed_pass(dtype: torch.dtype,
+                 device: torch.device | str = "cuda") -> int:
+    """Elements of x that one pass of the SR seed kernel's grid covers (its
+    loop's edge)."""
+    return _sr_plan(_index(torch.device(device)), dtype)[1]
 
 
 def _check_input(x: torch.Tensor, what: str) -> None:
@@ -89,40 +111,40 @@ def _check_input(x: torch.Tensor, what: str) -> None:
                          f"{MAX_ELEMS}")
 
 
-def seed_cuda(x: torch.Tensor) -> torch.Tensor:
-    """The wraparound u32 sum of x's f32 bits (before the | 1), an int32
-    device scalar holding the u32 bits.  A helper pass of `quantize_cuda`;
-    exposed for the checks against `ref.buffer_seed`."""
-    _check_input(x, "quant seed")
-    seed = torch.empty((), dtype=torch.int32, device=x.device)
-    if x.numel():
-        build.check(_fns().quant_seed(
-            x.data_ptr(), _DTYPES[x.dtype], x.numel(), seed.data_ptr(),
-            _dev_sms(x.device), build.stream_ptr(x.device)), "quant_seed")
-    else:
-        seed.zero_()
-    return seed
-
-
-def quantize_cuda(x: torch.Tensor, codec: str, stochastic: bool):
-    """The quant kernel: (q (m, QCHUNK), scales (m, 1) f32) of x."""
+def quantize_cuda(x: torch.Tensor, codec: str, stochastic: bool,
+                  seed_out: torch.Tensor | None = None):
+    """The quant kernel: (q (m, QCHUNK), scales (m, 1) f32) of x.  Under SR,
+    `seed_out` (one int32 on x's device), when given, receives the u32 bits
+    of the seed the launch used (| 1)."""
     global quant_launches
     _check_input(x, "quant kernel")
     if codec not in _CODECS:
         raise ValueError(f"unknown codec {codec!r}; one of {ref.CODECS}")
+    if seed_out is not None and (
+            not stochastic or seed_out.device != x.device
+            or seed_out.dtype != torch.int32 or seed_out.numel() != 1):
+        raise ValueError("quant kernel: seed_out is one int32 on x's device,"
+                         " for SR")
     n = x.numel()
     m = math.ceil(n / QCHUNK)
     q = torch.empty((m, QCHUNK), dtype=ref.WIRE_DTYPE[codec],
                     device=x.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if n == 0:
+        if seed_out is not None:
+            seed_out.fill_(1)
         return q, s
-    seed = seed_cuda(x) if stochastic else None
+    index = _index(x.device)
+    partials, blocks = None, 0
+    if stochastic:
+        blocks = _sr_plan(index, x.dtype)[0]
+        partials = torch.empty(blocks, dtype=torch.int32, device=x.device)
     qmax = ref.QMAX[codec]
     build.check(_fns().quant_fwd(
         x.data_ptr(), _DTYPES[x.dtype], n, _CODECS[codec], int(stochastic),
-        None if seed is None else seed.data_ptr(), qmax, 1.0 / qmax,
-        q.data_ptr(), s.data_ptr(), _dev_sms(x.device),
+        qmax, 1.0 / qmax, q.data_ptr(), s.data_ptr(),
+        None if partials is None else partials.data_ptr(), blocks,
+        None if seed_out is None else seed_out.data_ptr(), _sms(index),
         build.stream_ptr(x.device)), "quant_fwd")
     quant_launches += 1
     return q, s
@@ -158,7 +180,7 @@ def dequantize_cuda(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
     if n:
         build.check(_fns().dequant_fwd(
             q.data_ptr(), scales.data_ptr(), _CODECS[codec], n,
-            out.data_ptr(), _DTYPES[dtype], _dev_sms(q.device),
+            out.data_ptr(), _DTYPES[dtype], _sms(_index(q.device)),
             build.stream_ptr(q.device)), "dequant_fwd")
         dequant_launches += 1
     return out.reshape(shape)

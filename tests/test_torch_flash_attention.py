@@ -20,6 +20,7 @@ from repro.kernels.flash_attention import kernel as K, ops as jops
 from repro.models.layers import attention_ref
 
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import attention as ref_attention
 
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL32 = dict(rtol=2e-4, atol=2e-5)
@@ -152,3 +153,82 @@ def test_flash_head_dims_and_groups_match_attention_ref(hd, group):
     want = _attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+
+
+# The card's fp32 kernel multiplies on TF32 tensor cores with every operand
+# split as x = hi + lo (hi = tf32(x), lo = tf32(x - hi)) and each product
+# taken as hi*hi + hi*lo + lo*hi, for S = Q K^T and for O = P V.  This is a
+# plain-torch emulation of that arithmetic (the online softmax's tiling is
+# fp32 and left out), held against the plain version at the card tests' fp32
+# shapes; with one product (hi*hi) it must miss TOL32 at chip_smoke.py's
+# main fp32 shape, so TOL32 is what tells the split's products apart.
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, 10 of the f32 mantissa bits kept (a bit mask on the pattern
+    after adding half of the dropped bits' weight)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(eq, a, b, products):
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if products == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + out
+    return out
+
+
+def _attention_tf32(q, k, v, products, causal=True, window=None,
+                    softcap=None):
+    B, S, H, hd = q.shape
+    T, Kh = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Kh, H // Kh, hd) * (1.0 / hd ** 0.5)
+    s = _mm_tf32("bskgh,btkh->bkgst", qg, k, products)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pq = torch.arange(S)[:, None]
+    pk = torch.arange(T)[None, :]
+    keep = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        keep &= pk <= pq
+    if window is not None:
+        keep &= pq - pk < window
+    p = torch.softmax(s.masked_fill(~keep, -1e30), dim=-1)
+    return _mm_tf32("bkgst,btkh->bskgh", p, v, products).reshape(B, S, H, hd)
+
+
+def _torch_qkv(B, T, H, Kh, hd):
+    return (torch.from_numpy(_normal(0, B, T, H, hd)),
+            torch.from_numpy(_normal(1, B, T, Kh, hd)),
+            torch.from_numpy(_normal(2, B, T, Kh, hd)))
+
+
+@pytest.mark.parametrize("S,H,Kh,hd", [(64, 2, 2, 16), (200, 4, 2, 64),
+                                       (130, 8, 2, 128), (1, 4, 1, 64),
+                                       (24, 4, 4, 32), (100, 4, 2, 32)])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=33, softcap=30.0)])
+def test_three_tf32_products_hold_tol32(S, H, Kh, hd, kw):
+    q, k, v = _torch_qkv(2, S, H, Kh, hd)
+    want = ref_attention(q, k, v, **kw)
+    torch.testing.assert_close(_attention_tf32(q, k, v, 3, **kw), want,
+                               **TOL32)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_three_tf32_products_hold_tol32_head_dims_and_groups(hd, group):
+    q, k, v = _torch_qkv(1, 129, 4, 4 // group, hd)
+    torch.testing.assert_close(_attention_tf32(q, k, v, 3),
+                               ref_attention(q, k, v), **TOL32)
+
+
+def test_one_tf32_product_misses_tol32_at_the_main_fp32_shape():
+    """chip_smoke.py's fp32 flash shape, B2 T777 H8 Kh8 hd64 non-causal."""
+    q, k, v = _torch_qkv(2, 777, 8, 8, 64)
+    want = ref_attention(q, k, v, causal=False)
+    torch.testing.assert_close(_attention_tf32(q, k, v, 3, causal=False),
+                               want, **TOL32)
+    assert not torch.allclose(_attention_tf32(q, k, v, 1, causal=False),
+                              want, **TOL32)

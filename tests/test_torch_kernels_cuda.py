@@ -8,10 +8,13 @@ only torch and the port, so it also runs where JAX is not installed:
 chip_smoke.py holds the kernels against their plain versions at the
 serving and training paths' full shapes; these are small, quick cases, and
 the edges of the kernels' tiles.  Flash attention goes by dtype: bf16 to the
-tensor-core kernel (`launches`), fp32 to the CUDA-core one
-(`launches_f32`); every flash case checks which one launched.
+wgmma kernel (`launches`), fp32 to the TF32 mma.sync kernel with three
+products a product (`launches_f32`); every flash case checks which one
+launched, and the fp32 kernel with one TF32 product must miss TOL32.
 The quant pair must equal its plain version bit for bit (wire bytes,
-scales, decoded values, the SR seed).  The gradients of the rmsnorm and
+scales, decoded values, the seed the SR launch used), also at the largest
+bucket of the full-width path, around the edge of the SR seed pass's grid
+and on views whose loads are misaligned.  The gradients of the rmsnorm and
 flash `autograd.Function`s (kernel forward, plain-torch backward) are held
 against autograd through the plain versions.  The SSD goes by dtype too:
 bf16 to the chunk-parallel tensor-core forward (`launches`), fp32 to the
@@ -169,6 +172,58 @@ def test_flash_bf16_kernel_rejects_misaligned_strides(dev):
     shifted = flat[1:].view(1, 64, 2, 64)    # base 2 bytes off
     with pytest.raises(ValueError, match="TMA"):
         flash_ops.flash_attention(k, shifted, k)
+
+
+@pytest.mark.parametrize("T", [63, 64, 65, 129, 2064])
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_kernel_tile_edges(dev, T, hd, causal):
+    """fp32 query tiles are 64 rows, key tiles 32 keys."""
+    q = _randn(dev, 1, T, 4, hd)
+    k = _randn(dev, 1, T, 2, hd, seed=1)
+    v = _randn(dev, 1, T, 2, hd, seed=2)
+    _check_flash(q, k, v, dict(causal=causal))
+
+
+@pytest.mark.parametrize("window", [63, 64, 65])
+def test_flash_f32_kernel_window_edges_softcap(dev, window):
+    q = _randn(dev, 2, 300, 4, 64)
+    k = _randn(dev, 2, 300, 2, 64, seed=1)
+    v = _randn(dev, 2, 300, 2, 64, seed=2)
+    _check_flash(q, k, v, dict(causal=True, window=window, softcap=30.0))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_flash_f32_kernel_head_dims_and_groups(dev, hd, group):
+    q = _randn(dev, 2, 300, 8, hd)
+    k = _randn(dev, 2, 300, 8 // group, hd, seed=1)
+    v = _randn(dev, 2, 300, 8 // group, hd, seed=2)
+    _check_flash(q, k, v, dict(causal=True))
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+def test_flash_f32_kernel_reads_strided_and_unaligned_heads(dev, hd):
+    """q/k/v as head slices of one packed projection (16-byte copies), and
+    k/v one element off 16-byte alignment (element copies)."""
+    q, k, v = _randn(dev, 2, 77, 12, hd).split([8, 2, 2], dim=2)
+    _check_flash(q, k, v, dict(causal=True))
+    flat = _randn(dev, 1 + 2 * 100 * 2 * hd, seed=1)
+    kv = flat[1:].view(2, 100, 2, hd)
+    _check_flash(_randn(dev, 2, 100, 4, hd), kv, kv, dict(causal=False))
+
+
+def test_flash_f32_kernel_with_one_tf32_product_misses_tol32(dev):
+    """The planted fault: hi*hi alone, at chip_smoke.py's fp32 shape."""
+    q = _randn(dev, 2, 777, 8, 64)
+    k = _randn(dev, 2, 777, 8, 64, seed=1)
+    v = _randn(dev, 2, 777, 8, 64, seed=2)
+    want = flash_ref.attention(q, k, v, causal=False)
+    got = flash_ops.flash_attention_cuda(q, k, v, False, None, None, None)
+    torch.testing.assert_close(got, want, **TOL32)
+    one = flash_ops.flash_attention_cuda(q, k, v, False, None, None, None,
+                                         tf32_products=1)
+    assert not torch.allclose(one, want, **TOL32)
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(dev):
@@ -338,24 +393,22 @@ def _bits(a):
     return a.float().view(torch.int32)
 
 
-@pytest.mark.parametrize("n", [129, 1024, 5000, 1_000_003])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("codec", ["fp8", "int8"])
-@pytest.mark.parametrize("stochastic", [False, True])
-def test_quant_kernels_match_plain_bit_for_bit(dev, n, dtype, codec,
-                                               stochastic):
-    x = codec_input(n, dtype, dev, seed=n)
-    x2, _ = quant_ref.chunk(x)
-    want_seed = int(quant_ref.buffer_seed(x2))
-    got_seed = int(quant_ops.seed_cuda(x)) & quant_ref.M32 | 1
-    assert got_seed == want_seed
+def _check_codec(x, codec, stochastic):
+    """Wire bytes, scales, decoded values and (SR) the seed the launch used,
+    bit for bit the plain version's; the round trip, also in place."""
+    n, dtype = x.numel(), x.dtype
+    seed = torch.empty(1, dtype=torch.int32, device=x.device) \
+        if stochastic else None
     nq, nd = quant_ops.quant_launches, quant_ops.dequant_launches
-    q, s = quant_ops.quantize_cuda(x, codec, stochastic)
+    q, s = quant_ops.quantize_cuda(x, codec, stochastic, seed_out=seed)
     assert quant_ops.quant_launches == nq + 1
     wq, ws = quant_ref.quantize(x, codec, stochastic)
     assert q.dtype == wq.dtype and q.shape == wq.shape
     assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
     assert torch.equal(_bits(s), _bits(ws))
+    if stochastic:
+        want_seed = int(quant_ref.buffer_seed(quant_ref.chunk(x)[0]))
+        assert int(seed.item()) & quant_ref.M32 == want_seed
     out = quant_ops.dequantize_cuda(q, s, n, x.shape, dtype)
     assert quant_ops.dequant_launches == nd + 1
     want = quant_ref.dequantize(wq, ws, n, x.shape, dtype)
@@ -367,6 +420,47 @@ def test_quant_kernels_match_plain_bit_for_bit(dev, n, dtype, codec,
     rt = quant_ops.roundtrip(y, codec, stochastic, out=y)
     assert rt.data_ptr() == y.data_ptr()
     assert torch.equal(_bits(y), _bits(want))
+
+
+CODEC_CASES = pytest.mark.parametrize("dtype,codec,stochastic", [
+    (dt, c, sr) for dt in (torch.float32, torch.bfloat16)
+    for c in ("fp8", "int8") for sr in (False, True)])
+
+
+@pytest.mark.parametrize("n", [129, 1024, 5000, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codec", ["fp8", "int8"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quant_kernels_match_plain_bit_for_bit(dev, n, dtype, codec,
+                                               stochastic):
+    _check_codec(codec_input(n, dtype, dev, seed=n), codec, stochastic)
+
+
+@CODEC_CASES
+def test_quant_kernels_at_the_largest_bucket(dev, dtype, codec, stochastic):
+    """37,750,784 elements: the largest bucket of qwen3-1.7b's full-width
+    prefetch path (chip_smoke.py's quant phase)."""
+    _check_codec(codec_input(37_750_784, dtype, dev, seed=3), codec,
+                 stochastic)
+
+
+@pytest.mark.parametrize("extra", [-128, -1, 0, 1, 128])
+@CODEC_CASES
+def test_quant_kernels_around_the_seed_pass_edge(dev, extra, dtype, codec,
+                                                 stochastic):
+    """n at one pass of the SR seed kernel's grid, one chunk or one element
+    either side: its loop ends on the last step, or a second pass takes a
+    chunk or one element of one."""
+    n = quant_ops.sr_seed_pass(dtype, dev) + extra
+    _check_codec(codec_input(n, dtype, dev, seed=4), codec, stochastic)
+
+
+@CODEC_CASES
+def test_quant_kernels_on_a_misaligned_view(dev, dtype, codec, stochastic):
+    """A view one element past a 16-byte boundary: element loads."""
+    x = codec_input(5001, dtype, dev, seed=5)[1:]
+    assert x.data_ptr() % 16
+    _check_codec(x, codec, stochastic)
 
 
 def test_quant_kernels_reject_what_they_do_not_take(dev):
