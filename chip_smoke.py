@@ -98,6 +98,24 @@ without printing the final line):
      (the Mamba layers once, the shared block once per invocation, the head,
      attention and the SSD products), ssd forward and backward launches
      per step and none on the fp32 route.
+ 10c. full-width auto-planned training (the main path of the eighth
+     slice): qwen3-1.7b B4 T2048 through `Trainer` with bucket_mode
+     auto_dp, comm_precision auto and remat auto:AUTO_BUDGET_GB under the
+     H100 profile: the plan, the modeled peak per component beside
+     max_memory_allocated over one step (`Trainer.memory_report`), the
+     first step's loss bit-equal to a loss step of `parallelize(plan.
+     exec_dcfg)` on the same storage and batch, the gathers and
+     reduce-scatters per step equal to the executed buckets x layers, and
+     the readings of 8.
+ 10d. full-width mixed-precision training: qwen3-1.7b's blocks planned for
+     a modeled 4 x 8 mesh (auto_dp + auto, host math) and its
+     exposed_comm_time; the plan's groups at bf16 / fp8_ef / int8_ag (the
+     groups halved when the planner's precisions are not mixed) trained at
+     world size 1; quant and dequant calls per step equal to what the
+     precisions imply, error feedback non-zero only in fp8_ef buckets.
+ 10e. planner lines: zamba2-1.2b's resolved plans and modeled peaks, the
+     H100 profile's HBM size beside the card's total memory, pinned 1 GiB
+     host <-> device copies beside the profile's host DMA rate.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -1291,6 +1309,221 @@ def phase_full_quant_train(state):
                 need=QUANT)
 
 
+# remat="auto:<GB>" for the auto-planned phase (qwen3-1.7b B4 T2048, world
+# size 1, auto_dp buckets, comm_precision auto, the H100 profile).  The
+# port's planner models, with the error-feedback state 'auto' carries,
+# full at 44.90 GiB and none at 45.32-45.37 GiB; below 45.25 GiB the
+# search takes residual offload (which no step executes, a fault of the
+# reference).  45.3 lies between and picks attn=fsdp_only,mlp=none (45.30
+# GiB), a non-'none' vector without offload.
+AUTO_BUDGET_GB = 45.3
+# the modeled mesh the mixed-precision phase plans for: 4 nodes x 8 GPUs,
+# ZeRO-3 over both axes ('pod' prices NDR InfiniBand, 'data' NVLink)
+MIXED_MESH = dict(mesh_axes=("pod", "data", "model"), mesh_shape=(4, 8, 1),
+                  fsdp_axes=("pod", "data"))
+MIXED_CYCLE = ("bf16", "fp8_ef", "int8_ag")
+
+
+def _exec_groups(par):
+    """(groups as leaf indices, their precisions, the block metas) of the
+    blocks' plan as the prefetch stack executes it (split at the
+    segments)."""
+    from repro_torch.core.bucketing import split_plan_at_segments
+    d = par.plan.exec_dcfg
+    metas = par.model.block_metas(d)
+    plan = split_plan_at_segments(par.plan.bucket_plan("blocks"), metas,
+                                  par.model.block_segments(d))
+    return plan.index_groups(metas), plan.group_precisions(metas, d), metas
+
+
+def _expected_collectives(par):
+    """Gathers and reduce-scatters one prefetch step issues: every
+    executed bucket of every layer gathered in the forward and again in
+    the backward, reduce-scattered once; plus the embedding, the final
+    norm and the tied head outside the stack, once each."""
+    groups, _, _ = _exec_groups(par)
+    n = len(groups) * par.model.n_steps
+    return 2 * n + 3, n + 3
+
+
+def _expected_codec_calls(par):
+    """Quant (= dequant) wrapper calls one prefetch step makes under the
+    plan's precisions: an all-gather codec twice a bucket and layer
+    (forward, backward re-gather), a reduce-scatter codec once a TP class
+    of the bucket and layer, and the error-feedback hop once a stacked
+    leaf of an *_ef bucket; the other groups gather at bf16."""
+    from repro_torch.core.dist import precision_codecs
+    groups, precs, metas = _exec_groups(par)
+    ms = [m for _, m in _named(metas)]
+    per_layer, ef = 0, 0
+    for grp, p in zip(groups, precs):
+        ag, rs = precision_codecs(p)
+        per_layer += 2 * (ag is not None)
+        per_layer += (rs is not None) * len({ms[i].tp_dim is None
+                                             for i in grp})
+        ef += len(grp) * p.endswith("_ef")
+    return per_layer * par.model.n_steps + ef
+
+
+def phase_full_auto_train(state):
+    """qwen3-1.7b B4 T2048 through `Trainer` with bucket_mode auto_dp,
+    comm_precision auto and remat auto:<AUTO_BUDGET_GB>, the prefetch stack,
+    world size 1, the H100 profile."""
+    import tempfile
+    from repro_torch.core import hw
+    from repro_torch.core.api import parallelize, plan_parallel
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    if hw.active() is not hw.H100:
+        raise AssertionError(f"planning with {hw.active().name}, not H100")
+    _, model = get_arch("qwen3_1_7b")
+    shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
+    dcfg = DistConfig(bucket_mode="auto_dp", comm_precision="auto",
+                      remat=f"auto:{AUTO_BUDGET_GB}")
+    fixed = {pol: plan_parallel(model, dcfg.with_(remat=pol), shape).memory
+             for pol in ("none", "fsdp_only", "save_dots", "full")}
+    say("modeled peaks of the fixed policies (H100 profile): " + ", ".join(
+        f"{p} {m.peak / 2**30:.4f} GiB" for p, m in fixed.items()))
+    budget = AUTO_BUDGET_GB * 2**30
+    if not fixed["full"].peak < budget < fixed["none"].peak:
+        raise AssertionError(f"budget {AUTO_BUDGET_GB} GiB is not between "
+                             "full's and none's modeled peaks")
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = Trainer(model, dcfg, shape, AdamWConfig(),
+                          TrainerConfig(total_steps=100, warmup=10,
+                                        ckpt_dir=ckpt), device="cuda")
+    plan, mem = trainer.plan, trainer.plan.memory
+    say(f"auto plan: {plan.describe()}")
+    for b in mem.breakdown:
+        say(f"  {b.describe()}")
+    say(f"  exec_dcfg: remat={plan.exec_dcfg.remat!r}, bucket_mode "
+        f"{'the memory plan' if mem.bucket_plan else 'auto_dp'}'s "
+        f"{plan.bucket_plan('blocks').n_buckets} buckets a layer, "
+        f"precisions {plan.bucket_plan('blocks').precisions}")
+    if set(mem.policies) == {"none"} or mem.offload_opt_state \
+            or mem.offload_residuals:
+        raise AssertionError(f"the search picked {mem.describe()}, not a "
+                             "non-'none' policy without offload")
+    rep = trainer.memory_report()
+    say(f"  modeled peak {rep['modeled_peak_bytes'] / 2**30:.4f} GiB, "
+        f"measured max_memory_allocated over one step "
+        f"{rep['measured_peak_bytes'] / 2**30:.4f} GiB: modeled / measured "
+        f"{rep['modeled_over_measured']:.4f}")
+    state["auto_memory"] = rep
+    exec_par = parallelize(model, plan.exec_dcfg, shape, device="cuda")
+
+    def first_loss(storage, batch):
+        loss, grads = exec_par.loss_step()(storage, batch)
+        del grads
+        return loss.detach().clone()
+
+    par, _, _ = _full_train(state, "train_auto", dcfg, par=trainer.par,
+                            step=trainer.step_fn, first_loss=first_loss)
+    want = _expected_collectives(par)
+    got = tuple(state["train_auto_launches"][k] / TRAIN_STEPS
+                for k in COLLECTIVES)
+    say(f"  gathers, reduce-scatters per step {got}; the plan's "
+        f"{len(_exec_groups(par)[0])} executed buckets x "
+        f"{model.n_steps} layers give {want}")
+    if got != want:
+        raise AssertionError(f"collectives per step {got} != {want}")
+
+
+def phase_full_mixed_train(state):
+    """The runtime of a per-bucket precision plan at full width: qwen3-1.7b's
+    blocks planned for a modeled 4 x 8 mesh (host math, H100 profile),
+    trained at world size 1 as an explicit bucket_mode."""
+    from repro_torch.core.autowrap import exposed_comm_time
+    from repro_torch.core.bucketing import BucketPlan, plan_for
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.models.registry import get_arch
+    _, model = get_arch("qwen3_1_7b")
+    dm = DistConfig(bucket_mode="auto_dp", comm_precision="auto",
+                    **MIXED_MESH)
+    metas, segs = model.block_metas(dm), model.block_segments(dm)
+    stats = model.block_stats(dm, (TRAIN_B, TRAIN_T))
+    plan = plan_for(metas, dm, stats, segments=segs)
+    r = exposed_comm_time(plan, metas, dm, stats, segments=segs)
+    say(f"planned for {dm.mesh_shape} {dm.mesh_axes}, fsdp {dm.fsdp_axes}, "
+        f"B{TRAIN_B} T{TRAIN_T} a rank: groups "
+        f"{[len(g) for g in plan.groups]}, precisions {plan.precisions}")
+    say("  exposed_comm_time: " + ", ".join(
+        f"{k}={v}" for k, v in r.items()))
+    groups = list(plan.groups)
+    if len(set(plan.precisions)) > 1:
+        say("  the planner's precisions are mixed: trained as planned")
+        precs = list(plan.precisions)
+    else:
+        # not mixed: give the planner's groups alternating precisions; with
+        # fewer groups than precisions, halve each group (in order) first
+        if len(groups) < len(MIXED_CYCLE):
+            groups = [h for g in groups
+                      for h in (g[:len(g) // 2], g[len(g) // 2:]) if h]
+        precs = [MIXED_CYCLE[i % len(MIXED_CYCLE)]
+                 for i in range(len(groups))]
+        say(f"  the planner's precisions are not mixed ({plan.precisions});"
+            f" trained with its groups halved: "
+            f"{[len(g) for g in groups]} at {precs}")
+    dcfg = DistConfig(comm_precision="auto",
+                      bucket_mode=BucketPlan(tuple(groups), tuple(precs)))
+    par, _, _ = _full_train(state, "train_mixed", dcfg, need=QUANT)
+    counts = state["train_mixed_launches"]
+    want = _expected_codec_calls(par)
+    got = tuple(counts[k] / TRAIN_STEPS for k in QUANT)
+    say(f"  quant, dequant calls per step {got}; the plan's precisions "
+        f"imply {want} each")
+    if got != (want, want):
+        raise AssertionError(f"codec calls per step {got} != {want}")
+
+
+def phase_planner_lines(state):
+    """Host math and two readings of the card beside the H100 profile."""
+    from repro_torch.core import hw
+    from repro_torch.core.api import plan_parallel
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.core.memory import to_device, to_host
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    _, zamba = get_arch("zamba2_1_2b")
+    shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
+    for pol in ("none", "fsdp_only", "save_dots", "full"):
+        p = plan_parallel(zamba, DistConfig(remat=pol, bucket_mode="auto_dp",
+                                            comm_precision="auto"), shape)
+        say(f"zamba2-1.2b B{TRAIN_B} T{TRAIN_T}: {p.describe()}")
+    for b in p.memory.breakdown:
+        say(f"  {b.describe()}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    say(f"H100 profile hbm_bytes {hw.H100.hbm_bytes} "
+        f"({hw.H100.hbm_bytes / 2**30:.2f} GiB) against the card's "
+        f"total_memory {total} ({total / 2**30:.2f} GiB): "
+        f"{total / hw.H100.hbm_bytes:.4f}")
+    x = torch.arange(2**28, device="cuda", dtype=torch.float32)   # 1 GiB
+    host = to_host({"x": x})
+    if not host["x"].is_pinned() or not torch.equal(
+            to_device(host, "cuda")["x"], x):
+        raise AssertionError("the pinned host round trip failed")
+    h = host["x"]
+    rates = {}
+    for _ in range(2):            # the second of two: no first-touch cost
+        for name, dst, src in (("device->host", h, x),
+                               ("host->device", x, h)):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            dst.copy_(src, non_blocking=True)
+            ev[1].record()
+            torch.cuda.synchronize()
+            rates[name] = x.numel() * 4 / (ev[0].elapsed_time(ev[1]) / 1e3)
+    say("pinned 1 GiB copies (CUDA events, second of two): " +
+        ", ".join(f"{k} {v / 1e9:.2f} GB/s" for k, v in rates.items()) +
+        f"; the H100 profile's host_dma_bw {hw.H100.host_dma_bw / 1e9:.0f} "
+        "GB/s (printed, not installed)")
+    state["planner"] = dict(total_memory=total, copy_rates=rates)
+
+
 def _ssd_flops(b, t, h, p, n, lc):
     """FLOPs of one SSD chunk-scan forward: per (b, h) and chunk, the
     causal lower triangle of C B^T (2N a pair) and of its product with x (2P
@@ -1330,17 +1563,26 @@ def _model_flops(cfg, model, batch, seq):
     return 6.0 * mm * tokens + attn + ssd
 
 
-def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b"):
+def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
+                step=None, first_loss=None):
+    """Trains `arch` at full width: 1 warm-up step, TRAIN_STEPS timed
+    steps and a profiled one, through `par` / `step` when given (else
+    `parallelize(dcfg)` and its train step).  `first_loss(storage, batch)`,
+    when given, runs before the warm-up step on its storage and batch and
+    returns a loss the warm-up step's must equal bit for bit.  Returns
+    (par, storage, opt_state)."""
     from repro_torch.core.api import parallelize
     from repro_torch.data.pipeline import DataConfig, SyntheticC4
     from repro_torch.models.common import ShapeConfig
     from repro_torch.models.registry import get_arch
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.train_step import default_schedule, \
+    from repro_torch.train.train_step import default_schedule, ef_mask, \
         init_train_state
     cfg, model = get_arch(arch)
     shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
-    par = parallelize(model, dcfg, shape, device="cuda")
+    if par is None:
+        par = parallelize(model, dcfg, shape, device="cuda")
+    model = par.model
     say(f"plan: {par.plan.describe()} reorder={dcfg.reorder}")
     t0 = time.perf_counter()
     storage, opt_state = init_train_state(
@@ -1350,17 +1592,28 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b"):
     say(f"{cfg.name}: {n / 1e9:.4f}B storage elements (padded), fp32 "
         f"storage + {' + '.join(k for k in opt_state if k != 'step')} made "
         f"on the card in {time.perf_counter() - t0:.1f}s")
-    ocfg = AdamWConfig()
-    step = par.train_step(ocfg, default_schedule(ocfg, 100, 10))
+    if step is None:
+        ocfg = AdamWConfig()
+        step = par.train_step(ocfg, default_schedule(ocfg, 100, 10))
     data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_T,
                                   global_batch=TRAIN_B, seed=0))
     batches = [data.batch(i) for i in range(TRAIN_STEPS + 3)]
+    want_first = first_loss(storage, batches[0]) if first_loss else None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     storage, opt_state, m = step(storage, opt_state, batches[0])
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     warm_loss = float(m["loss"])
+    if want_first is not None:
+        same = torch.equal(m["loss"].float().view(torch.int32),
+                           want_first.float().view(torch.int32))
+        say(f"  first step's loss {warm_loss!r} against the reference "
+            f"loss step's {float(want_first)!r}: "
+            f"{'bit-equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("the first step's loss is not bit-equal "
+                                 "to the reference loss step's")
     _reset_counts()
     times, losses = [], []
     for i in range(1, TRAIN_STEPS + 1):
@@ -1395,10 +1648,19 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b"):
         raise AssertionError(f"a kernel of the path never launched, or one "
                              f"off the path did: {counts}")
     if "ef" in opt_state:
-        ef = max(a.abs().max().item() for a in _leaves(opt_state["ef"]))
-        say(f"  error-feedback accumulator: max |ef| {ef:.3e}")
-        if not ef > 0:
-            raise AssertionError("the error-feedback accumulator is zero")
+        # the hop applies to the leaves of *_ef buckets alone: every
+        # non-zero leaf must be one, and some must be non-zero if any is
+        mask = dict(_named(ef_mask(par)))
+        ef = {n: a.abs().max().item() for n, a in _named(opt_state["ef"])}
+        live = {n for n, v in ef.items() if v > 0}
+        on = {n for n, v in mask.items() if v}
+        say(f"  error-feedback accumulator: max |ef| "
+            f"{max(ef.values()):.3e}; non-zero in {len(live)} of "
+            f"{len(ef)} leaves, {len(on)} leaves in *_ef buckets")
+        if not live <= on or (on and not live):
+            raise AssertionError(f"ef non-zero outside the *_ef buckets or "
+                                 f"zero in all of them: {sorted(live - on)}"
+                                 f" / {sorted(on)}")
     busy, dev_s = _profile(f"{key} step", lambda: step(
         storage, opt_state, batches[-1]), 1, top=24)
     if dev_s is not None:
@@ -1411,6 +1673,7 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b"):
                       mfu=mfu, max_memory_allocated=peak, busy=busy,
                       busy_vs_median=None if dev_s is None
                       else dev_s / step_s)
+    return par, storage, opt_state
 
 
 def phase_full_zamba_train(state):
@@ -1925,6 +2188,15 @@ def _profile(label, fn, n, top=8):
     return dev_us / 1e6 / wall, dev_us / 1e6 / n
 
 
+def _named(tree, prefix=""):
+    """(name, leaf) of a nested dict, names joined with '/'."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1938,8 +2210,8 @@ def kernels_line(state):
     that brought the kernel in: the full-width quantized qwen3 training
     (fp8_ef, the prefetch stack) for the first seven, which it runs all,
     and the full-width zamba2 training for the ssd rows; `launches_by_path`
-    adds the serving run's, the bf16 qwen3 training runs' (vanilla and
-    prefetch) and the zamba2 run's counts.  flash_attention_f32 and
+    adds the serving run's, the bf16 qwen3 training runs' (vanilla,
+    prefetch, auto-planned, mixed precision) and the zamba2 run's counts.  flash_attention_f32 and
     ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
     smoke training runs' counts.  A count is one call of the kernel's
@@ -1954,7 +2226,9 @@ def kernels_line(state):
     def row(name, key, source, replaces, serve_key=None, home=main,
             **extra):
         by_path = dict(train=train[key], train_prefetch=prefetch[key],
-                       train_fp8_ef=main[key], train_zamba2=zamba[key])
+                       train_fp8_ef=main[key], train_zamba2=zamba[key],
+                       train_auto=state["train_auto_launches"][key],
+                       train_mixed=state["train_mixed_launches"][key])
         if serve_key:
             by_path["serve"] = serve[serve_key]
         if key == "flash_f32":
@@ -2023,7 +2297,12 @@ def main() -> int:
                         ("full-width quantized training",
                          phase_full_quant_train),
                         ("full-width zamba2 training",
-                         phase_full_zamba_train)]:
+                         phase_full_zamba_train),
+                        ("full-width auto-planned training",
+                         phase_full_auto_train),
+                        ("full-width mixed-precision training",
+                         phase_full_mixed_train),
+                        ("planner lines", phase_planner_lines)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

@@ -7,10 +7,11 @@
 
   * **`ParallelPlan`** — the frozen, resolved description of how one model
     runs: the stacked param groups, the bucket plan per group (the paper's
-    wrapping decision) and the remat policy.  The reference's memory plan
-    changes nothing that runs for a fixed remat policy (`plan_memory`
-    returns no bucket plan and the resolved policies), and its budgeted
-    form is not ported, so `memory` is None.
+    wrapping decision, manual or auto, with per-bucket wire precisions
+    under ``comm_precision="auto"``), the remat policy and, when a shape
+    is given or remat is budgeted, the memory plan (`core/memory`).
+    `exec_dcfg` is the config the steps run: the memory plan's resolved
+    policy vector (and any retightened buckets) written back.
   * **`parallelize(model, dcfg, shape)`** — returns a `Parallelized`
     bundle: the plan, the process group, storage init and the loss /
     train steps (`train/train_step.py`).
@@ -31,7 +32,7 @@ from repro_torch.core.bucketing import BucketPlan, plan_for
 from repro_torch.core.dist import (DistConfig, Mesh, check_trainable,
                                    make_mesh, resolve_device)
 from repro_torch.core.meta import from_storage, to_storage, tree_map
-from repro_torch.core.remat import parse_remat
+from repro_torch.core.remat import AUTO_PREFIX, parse_remat
 
 
 def shard_params(params_full, metas, cfg: DistConfig):
@@ -58,16 +59,33 @@ def unshard_params(storage, metas, cfg: DistConfig):
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """Resolved bucketing / remat decisions for (model, dcfg) at pp = 1."""
+    """Resolved bucketing / remat / memory decisions for (model, dcfg) at
+    pp = 1."""
 
     dcfg: DistConfig
     stacked_keys: Mapping[str, int]
     bucket_plans: Mapping[str, BucketPlan]
     remat: str
-    memory: Any = None
+    memory: Any = None                  # core/memory.MemoryPlan | None
 
     def bucket_plan(self, key: str) -> BucketPlan | None:
         return self.bucket_plans.get(key)
+
+    @property
+    def exec_dcfg(self) -> DistConfig:
+        """The DistConfig the steps run with: `dcfg` with the memory
+        plan's decisions written back — the resolved per-segment policy
+        vector replacing ``remat="auto:<GB>"`` and, when the planner
+        retightened buckets against the budget, the chosen BucketPlan as
+        the explicit bucket_mode."""
+        d = self.dcfg
+        kw = {}
+        if self.memory is not None:
+            if self.memory.policy_spec != d.remat:
+                kw["remat"] = self.memory.policy_spec
+            if self.memory.bucket_plan is not None:
+                kw["bucket_mode"] = self.memory.bucket_plan
+        return d.with_(**kw) if kw else d
 
     def describe(self) -> str:
         d = self.dcfg
@@ -75,20 +93,30 @@ class ParallelPlan:
                         zip(d.mesh_axes, d.mesh_shape))
         buckets = ",".join(f"{k}:{p.n_buckets}"
                            for k, p in self.bucket_plans.items())
-        quant = f" comm={d.comm_precision}" \
-            if d.comm_precision != "bf16" else ""
+        mem = f" mem[{self.memory.describe()}]" if self.memory is not None \
+            else ""
+        quant = ""
+        if d.comm_precision != "bf16":
+            per_bucket = {q for p in self.bucket_plans.values()
+                          for q in (p.precisions or ())}
+            quant = f" comm={d.comm_precision}"
+            if per_bucket:
+                quant += "(" + ",".join(sorted(per_bucket)) + ")"
         return (f"mesh[{mesh}] fsdp={d.fsdp_axes} tp={d.tp_size} "
-                f"remat={self.remat} buckets[{buckets}]{quant}")
+                f"remat={self.remat} buckets[{buckets}]{quant}{mem}")
 
 
 def plan_parallel(model, dcfg: DistConfig, shape=None) -> ParallelPlan:
     """Build + validate the frozen `ParallelPlan` for one (model, dcfg).
-    Raises a pointed "not yet ported" error for every layout the port does
-    not run (tp > 1, pp/cp axes, comm_precision='auto', the auto bucket and
-    memory planners)."""
+
+    `shape` (models/common.ShapeConfig) feeds the auto bucket planners'
+    workload model (per-device batch) and the memory plan.  Raises a
+    pointed "not yet ported" error for every layout the port does not run
+    (tp > 1, pp / cp axes, HSDP)."""
     from repro_torch.models.runtime import stacked_keys as model_stacked_keys
     check_trainable(dcfg)
-    parse_remat(dcfg.remat)
+    # malformed remat strings fail here, once, not at the first step
+    remat_kind, _ = parse_remat(dcfg.remat)
     if shape is not None:
         rows = dcfg.dp_total * max(1, dcfg.microbatches)
         if shape.global_batch % rows:
@@ -103,10 +131,45 @@ def plan_parallel(model, dcfg: DistConfig, shape=None) -> ParallelPlan:
             raise ValueError(
                 f"{type(model).__name__}.stacked_keys names {k!r} which is "
                 f"not a param group ({sorted(metas)})")
+
+    stats = None
+    if shape is not None and hasattr(model, "block_stats") \
+            and "blocks" in metas:
+        # per-device workload: rows shard over batch_dp, the sequence over
+        # the ctx axis
+        b_local = max(1, shape.global_batch // max(1, dcfg.batch_dp))
+        stats = model.block_stats(
+            dcfg, (b_local, shape.seq_len // max(1, dcfg.cp_size)))
+
+    bucket_plans = {}
+    for k in sk:
+        segments = model.block_segments(dcfg) \
+            if k == "blocks" and hasattr(model, "block_segments") else None
+        bucket_plans[k] = plan_for(metas[k], dcfg,
+                                   stats if k == "blocks" else None,
+                                   segments=segments)
+
+    # the memory plan: simulate (and, for remat="auto:<GB>", choose) the
+    # per-segment policy vector under the HBM budget.  It needs the
+    # workload shape; a fixed policy without one carries no memory record.
+    memory = None
+    if remat_kind == AUTO_PREFIX and not hasattr(model, "block_stats"):
+        raise ValueError(
+            f"remat={dcfg.remat!r}: the budgeted auto form needs the "
+            f"model's cost contract, but {type(model).__name__} does not "
+            "implement block_stats; set an explicit policy (or vector) "
+            "instead")
+    if (shape is not None or remat_kind == AUTO_PREFIX) \
+            and hasattr(model, "block_stats"):
+        from repro_torch.core.memory import plan_memory
+        memory = plan_memory(model, dcfg, shape, bucket_plans=bucket_plans)
+        if memory.bucket_plan is not None:
+            bucket_plans = dict(bucket_plans)
+            bucket_plans[memory.main_key] = memory.bucket_plan
+
     return ParallelPlan(dcfg=dcfg, stacked_keys=sk,
-                        bucket_plans={k: plan_for(metas[k], dcfg)
-                                      for k in sk},
-                        remat=dcfg.remat)
+                        bucket_plans=bucket_plans, remat=dcfg.remat,
+                        memory=memory)
 
 
 @dataclasses.dataclass

@@ -19,10 +19,11 @@ Three layers, bottom-up:
   3. `replicate` / `replicate_tree` — per-parameter and bucketed wrappers.
 
 Quantized collectives (`DistConfig.comm_precision`; every collective
-takes a `precision` argument, None = the config's, which the per-bucket
-precision planner of `comm_precision="auto"` will set): the all-gather round-trips the packed buffer
-through the wire codec with round-to-nearest before the gather (every
-rank decodes identical params), the reduce-scatter round-trips the packed
+takes a `precision` argument, None = the config's; the bucketed paths pass
+each bucket's own, `BucketPlan.group_precisions`, which the per-bucket
+planner of `comm_precision="auto"` sets): the all-gather round-trips the
+packed buffer through the wire codec with round-to-nearest before the
+gather (every rank decodes identical params), the reduce-scatter round-trips the packed
 (fsdp, len) gradient buffer with stochastic rounding before the reduce
 (`kernels/quant`: the CUDA kernels on the card).  Decoding commutes with
 the gather and with a sum of contributions each quantized once, so the
@@ -382,15 +383,21 @@ def replicate(shard: torch.Tensor, meta: ParamMeta,
 
 
 def replicate_tree(shards_tree, metas_tree, cfg: DistConfig, plan=None):
-    """Gather a whole tree of shards, bucketed per `plan` (a BucketPlan) or
-    per-parameter when plan is None."""
+    """Gather a whole tree of shards, bucketed per `plan` (a BucketPlan,
+    each bucket at its own precision) or per-parameter at the config's
+    precision when plan is None."""
     shard_leaves = leaves(shards_tree)
     metas = [m for _, m in named_leaves(metas_tree)]
-    groups = plan.index_groups(metas_tree) if plan is not None \
-        else [[i] for i in range(len(shard_leaves))]
+    if plan is None:
+        groups = [[i] for i in range(len(shard_leaves))]
+        precisions = [default_precision(cfg)] * len(groups)
+    else:
+        groups = plan.index_groups(metas_tree)
+        precisions = plan.group_precisions(metas_tree, cfg)
     out: list = [None] * len(shard_leaves)
-    for grp in groups:
+    for grp, prec in zip(groups, precisions):
         for i, g in zip(grp, gather_group([shard_leaves[i] for i in grp],
-                                          [metas[i] for i in grp], cfg)):
+                                          [metas[i] for i in grp], cfg,
+                                          prec)):
             out[i] = g
     return unflatten_like(metas_tree, out)

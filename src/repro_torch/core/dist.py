@@ -5,10 +5,10 @@ One frozen `DistConfig` flows through the port, as in the reference.  It
 carries the fields the serving path and the pp=1 FSDP training path read:
 the (data, model) mesh, the ZeRO-3 domain, the mixed-precision dtypes, the
 SimpleFSDP schedule knobs (bucketing, the prefetch stack and its Table-6
-flags) and the wire precision of the collectives.  What the port does not
-run yet raises a pointed "not yet ported" error (`check_trainable`): tp > 1,
-pipeline or context axes, HSDP replication axes, and
-`comm_precision="auto"` (it needs the bucket planners).
+flags), the auto-wrap memory cap and the wire precision of the
+collectives.  What the port does not run yet raises a pointed "not yet
+ported" error (`check_trainable`): tp > 1, pipeline or context axes and
+HSDP replication axes.
 `make_mesh` checks (or, at world size 1, creates) the `torch.distributed`
 process group the FSDP collectives run on.
 """
@@ -27,8 +27,8 @@ TP_AXIS = "model"
 # `repro.core.dist`): 'bf16' is uncompressed; '*_ag' quantizes the param
 # all-gathers only (RTN); 'fp8' / 'int8' add a stochastically rounded grad
 # reduce-scatter; '*_ef' add the error-feedback accumulator in the
-# optimizer state; 'auto' lets the planner pick from AUTO_PRECISIONS per
-# bucket (not ported: it needs the bucket planners).
+# optimizer state; 'auto' lets the bucket planner pick from AUTO_PRECISIONS
+# per bucket (`core/autowrap`).
 COMM_PRECISIONS = ("bf16", "fp8_ag", "fp8", "fp8_ef",
                    "int8_ag", "int8", "int8_ef", "auto")
 AUTO_PRECISIONS = ("bf16", "fp8_ag", "fp8_ef", "int8_ag", "int8_ef")
@@ -64,7 +64,9 @@ class DistConfig:
     gather_in_param_dtype: bool = True
 
     # SimpleFSDP schedule knobs (paper SS3.2, Tables 5/6)
-    bucket_mode: object = "block"      # 'none' | 'block' | a BucketPlan
+    # 'none' | 'block' | 'auto' (greedy Alg. 1) | 'auto_dp' (the
+    # exposure-minimizing DP, core/autowrap.py) | a BucketPlan
+    bucket_mode: object = "block"
     reorder: bool = True               # the bucket+reorder prefetch stack
     # pipeline the prefetch per block segment (attn / mlp); off = one
     # whole-layer gather point per layer
@@ -77,6 +79,8 @@ class DistConfig:
     # before RS34")
     rs_delay: bool = True
     remat: str = "fsdp_only"           # core/remat.py vocabulary
+    # auto-wrap memory cap (paper Alg. 1 M_max), bytes of prefetched params
+    autowrap_mem_limit: float = 1.0 * 1024**3
     # reduce-scatter in bf16, accumulated in reduce_dtype afterwards
     grad_compression: bool = False
     comm_precision: str = "bf16"       # COMM_PRECISIONS
@@ -98,6 +102,10 @@ class DistConfig:
         return self.mesh_shape[self.mesh_axes.index(name)]
 
     @property
+    def axis_sizes(self) -> dict[str, int]:
+        return dict(zip(self.mesh_axes, self.mesh_shape))
+
+    @property
     def fsdp_size(self) -> int:
         return math.prod(self.axis_size(a) for a in self.fsdp_axes)
 
@@ -111,6 +119,16 @@ class DistConfig:
         reduce-scatter divides by this for the global-batch mean)."""
         return math.prod(s for a, s in zip(self.mesh_axes, self.mesh_shape)
                          if a != TP_AXIS)
+
+    @property
+    def cp_size(self) -> int:
+        """Context-parallel degree: the 'ctx' axis (1 without one)."""
+        return self.axis_size("ctx") if "ctx" in self.mesh_axes else 1
+
+    @property
+    def batch_dp(self) -> int:
+        """Batch-row sharding ways: dp_total without the ctx axis."""
+        return self.dp_total // self.cp_size
 
     @property
     def n_devices(self) -> int:
@@ -149,12 +167,6 @@ def check_trainable(dcfg: DistConfig) -> None:
             raise NotImplementedError(
                 f"axis {a!r} of size {s} replicates parameters (HSDP); "
                 "not yet ported to repro_torch — put it in fsdp_axes")
-    if dcfg.comm_precision == "auto":
-        raise NotImplementedError(
-            "comm_precision='auto': the per-bucket precision planner needs "
-            "the bucket planners (autowrap / irgraph / hw, ROADMAP item 4), "
-            "which are not yet ported to repro_torch; pick a fixed precision "
-            f"from {COMM_PRECISIONS[:-1]}")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -19,9 +19,11 @@ and gathered again before their backward use.  In the port:
     included), the closest torch form of the reference's
     ``checkpoint_dots_with_no_batch_dims``.
 
-``parse_remat`` validates a spec once; ``"auto:<GB>"`` (the budgeted
-memory planner, ROADMAP item 6) raises "not yet ported".  A comma-joined
-per-segment vector ("attn=full,mlp=fsdp_only") is supported.
+``parse_remat`` validates a spec once.  ``"auto:<GB>"`` is the budgeted
+form: `core/memory` picks the cheapest per-segment policy vector whose
+modeled peak fits the per-device budget, and `core/api.plan_parallel`
+writes it back as a comma-joined per-segment vector
+("attn=full,mlp=fsdp_only"), which users may also set directly.
 
 On the prefetch path (`reorder=True`, `core/stack.py`) the hand-written
 backward already saves only each layer's input and re-gathers per bucket,
@@ -33,6 +35,7 @@ bounds how much of it is resident at once (the values are the same).
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -49,23 +52,42 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
          torch.ops.aten.bmm.default)
 
 
-def parse_remat(spec) -> tuple[str, None]:
-    """Validate a remat spec -> (kind, None); kind is one of POLICIES or
-    ``"vector"``.  The budgeted ``"auto:<GB>"`` form raises."""
+def parse_remat(spec) -> tuple[str, float | None]:
+    """Validate a remat spec -> (kind, budget_bytes).
+
+    `kind` is one of POLICIES, ``"auto"`` or ``"vector"``; `budget_bytes`
+    is the parsed HBM budget of the auto form (None otherwise).  Raises a
+    pointed ValueError for malformed strings: ``auto`` / ``auto:`` without
+    a budget, a non-numeric or non-positive budget, an unknown policy."""
     if not isinstance(spec, str):
         raise ValueError(
             f"remat must be a string, got {type(spec).__name__}; one of "
-            f"{POLICIES} or a per-segment vector")
+            f"{POLICIES} or 'auto:<GB>' (e.g. 'auto:12.5')")
     if "," in spec or "=" in spec:
         parse_policy_vector(spec)
         return VECTOR_KIND, None
     if spec == AUTO_PREFIX or spec.startswith(AUTO_PREFIX + ":"):
-        raise NotImplementedError(
-            f"remat={spec!r}: the budgeted auto-SAC memory planner "
-            "(core/memory, ROADMAP item 6) is not yet ported to repro_torch; "
-            f"set one of {POLICIES} or a per-segment vector")
+        body = spec[len(AUTO_PREFIX):]
+        if not body or body == ":":
+            raise ValueError(
+                f"remat={spec!r}: the auto form needs an HBM budget in GiB "
+                "after the colon, e.g. remat='auto:12.5'")
+        try:
+            gb = float(body[1:])
+        except ValueError:
+            raise ValueError(
+                f"remat={spec!r}: budget {body[1:]!r} is not a number; "
+                "expected remat='auto:<GB>' with a positive GiB value") \
+                from None
+        # NaN fails every comparison, so `gb <= 0` alone would let it pass
+        if not math.isfinite(gb) or gb <= 0:
+            raise ValueError(
+                f"remat={spec!r}: budget must be a finite GiB value > 0")
+        return AUTO_PREFIX, gb * 1024**3
     if spec not in POLICIES:
-        raise ValueError(f"unknown remat policy {spec!r}; one of {POLICIES}")
+        raise ValueError(
+            f"unknown remat policy {spec!r}; one of {POLICIES} or "
+            "'auto:<GB>'")
     return spec, None
 
 
@@ -98,6 +120,12 @@ def resolve_segment_policies(spec: str, seg_names) -> tuple[str, ...]:
     exactly once."""
     seg_names = tuple(seg_names)
     kind, _ = parse_remat(spec)
+    if kind == AUTO_PREFIX:
+        raise ValueError(
+            f"remat={spec!r} reached the runtime unresolved; the budgeted "
+            "auto form is resolved to a per-segment vector by "
+            "core/api.plan_parallel — go through parallelize() or set an "
+            "explicit policy (vector)")
     if kind != VECTOR_KIND:
         return (kind,) * max(1, len(seg_names))
     entries = parse_policy_vector(spec)
@@ -125,6 +153,19 @@ def most_aggressive(policies) -> str:
     whole-block wrap uses so it never saves more than the vector
     promised."""
     return max(policies, key=_AGGRESSIVENESS.index)
+
+
+def whole_block_policy(spec: str) -> str:
+    """Collapse a (possibly per-segment) spec to ONE policy for whole-block
+    wraps that cannot apply a vector."""
+    kind, _ = parse_remat(spec)
+    if kind == AUTO_PREFIX:
+        raise ValueError(
+            f"remat={spec!r} reached the runtime unresolved (see "
+            "resolve_segment_policies)")
+    if kind != VECTOR_KIND:
+        return kind
+    return most_aggressive([p for _, p in parse_policy_vector(spec)])
 
 
 def _save_dots_policy(ctx, op, *args, **kwargs):

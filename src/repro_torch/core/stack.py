@@ -61,16 +61,21 @@ from repro_torch.core.remat import (maybe_remat, most_aggressive,
 
 
 def apply_stack(block_fn: Callable, metas_tree, cfg: DistConfig, stacked,
-                consts, x, plan: BucketPlan | None = None, segments=None,
-                remat=None):
+                consts, x, plan: BucketPlan | None = None, block_stats=None,
+                segments=None, remat=None):
     """Run the layer stack over `stacked` (leaves (L, *shard)); returns
     (y, aux_sums).
 
-    `remat` is the per-segment policy vector; by default it is resolved
-    from ``cfg.remat``.  A non-uniform vector checkpoints each segment
+    By default the bucket plan is `plan_for(metas_tree, cfg, block_stats,
+    segments)`: the auto planners price the block's workload from
+    `block_stats` and, under the prefetch stack, plan the segmented
+    schedule it executes.  Every bucket gathers and reduce-scatters at its
+    own precision (`BucketPlan.group_precisions`).  `remat` is the
+    per-segment policy vector; by default it is resolved from
+    ``cfg.remat``.  A non-uniform vector checkpoints each segment
     separately, gathering that segment's buckets inside its own wrap."""
     if plan is None:
-        plan = plan_for(metas_tree, cfg)
+        plan = plan_for(metas_tree, cfg, block_stats, segments=segments)
     seg_names = tuple(segments.names) \
         if segments is not None and len(segments.fns) > 1 else ()
     if remat is None:
@@ -115,15 +120,16 @@ def _segmented_vanilla_layer(metas_tree, cfg, plan, consts, segments,
     metas = [m for _, m in named_leaves(metas_tree)]
     seg_of = assign_segments(names, segments.param_globs, segments.names)
     exec_plan = split_plan_at_segments(plan, metas_tree, segments)
-    seg_groups: list[list[list[int]]] = [[] for _ in segments.fns]
-    for grp in exec_plan.index_groups(metas_tree):
-        seg_groups[seg_of[grp[0]]].append(grp)
+    seg_groups: list[list[tuple[list[int], str]]] = [[] for _ in segments.fns]
+    for grp, prec in zip(exec_plan.index_groups(metas_tree),
+                         exec_plan.group_precisions(metas_tree, cfg)):
+        seg_groups[seg_of[grp[0]]].append((grp, prec))
 
     def seg_run(s, shard_leaves, state):
         full: list = [None] * len(metas)
-        for grp in seg_groups[s]:
+        for grp, prec in seg_groups[s]:
             outs = coll.gather_group([shard_leaves[i] for i in grp],
-                                     [metas[i] for i in grp], cfg)
+                                     [metas[i] for i in grp], cfg, prec)
             for i, o in zip(grp, outs):
                 full[i] = o
         return segments.fns[s](unflatten_like(metas_tree, full), consts,
@@ -209,10 +215,14 @@ class _Schedule:
             for fn, p in zip(fns, policies))
         S = self.S = len(fns)
         self.seg_groups: list[list[list[int]]] = [[] for _ in range(S)]
-        for grp in plan.index_groups(metas_tree):
+        self.seg_precs: list[list[str]] = [[] for _ in range(S)]
+        for grp, prec in zip(plan.index_groups(metas_tree),
+                             plan.group_precisions(metas_tree, cfg)):
             self.seg_groups[seg_of[grp[0]]].append(grp)
+            self.seg_precs[seg_of[grp[0]]].append(prec)
         # segment-major flat group order: the reduce-scatter order
         self.flat_groups = [g for s in range(S) for g in self.seg_groups[s]]
+        self.flat_precs = [p for s in range(S) for p in self.seg_precs[s]]
         self.seg_base = [sum(len(self.seg_groups[t]) for t in range(s))
                          for s in range(S)]
         self.seg_idxs = [sorted(i for g in self.seg_groups[s] for i in g)
@@ -226,7 +236,8 @@ class _Schedule:
         """Async all-gathers of segment s's bucket groups of layer idx."""
         return [coll.gather_group_start(
             [stacked[i][idx] for i in grp], [self.metas[i] for i in grp],
-            self.cfg, async_op=True) for grp in self.seg_groups[s]]
+            self.cfg, prec, async_op=True)
+            for grp, prec in zip(self.seg_groups[s], self.seg_precs[s])]
 
     def wait_gather(self, works: list, s: int) -> list[torch.Tensor]:
         """Segment s's gathered tensors, ordered as seg_idxs[s]."""
@@ -240,7 +251,8 @@ class _Schedule:
         grp = self.flat_groups[gi]
         return layer, gi, coll.finalize_grad_bucket(
             packed, [self.metas[i] for i in grp], self.cfg,
-            [self.shard_shapes[i] for i in grp], async_op=True)
+            [self.shard_shapes[i] for i in grp], self.flat_precs[gi],
+            async_op=True)
 
     def land(self, issued: list, dstack: list) -> None:
         """Waits on issued reduce-scatters; their chunks go into the

@@ -4,15 +4,22 @@
       --seq 2048 --batch 4 --steps 20 --comm-precision fp8_ef
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 3 --dtype float32 --comm-precision fp8_ef
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 3 --bucket-mode auto_dp --comm-precision auto \\
+      --remat auto:0.5
 
 Runs on the card unless `--device cpu` is given.  At world size 1 it
 creates its own one-rank process group on an in-process store (no
 network); a multi-rank run initialises `torch.distributed` itself (one
 process per card, `--mesh D,1`) before calling `main`.  The default
 schedule is the reference's: the bucket+reorder prefetch stack;
-`--no-reorder` runs the vanilla bucketed schedule.  `--comm-precision auto`
-and the reference's observability and replanning flags are accepted and
-raise "not yet ported".
+`--no-reorder` runs the vanilla bucketed schedule.  `--bucket-mode
+auto|auto_dp` runs the bucket planners, `--comm-precision auto` picks a
+wire precision per bucket, and `--remat auto:<GB>` lets the memory plan
+choose the remat policy under a per-device budget; the printed plan shows
+the choices (`comm=auto(...)`, `mem[...]`).  The reference's
+observability and replanning flags are accepted and raise "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -44,13 +51,22 @@ def parse_args(argv=None):
     ap.add_argument("--pp", type=int, default=1)
     ap.add_argument("--cp", type=int, default=1)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--bucket-mode", default="block")
+    ap.add_argument("--bucket-mode", default="block",
+                    choices=("none", "block", "auto", "auto_dp"),
+                    help="block: one bucket a layer; none: one a param; "
+                         "auto: greedy Algorithm 1; auto_dp: the "
+                         "exposure-minimizing DP (core/autowrap)")
     ap.add_argument("--comm-precision", default="bf16",
                     choices=COMM_PRECISIONS,
                     help="collective wire precision (kernels/quant): bf16 "
                          "off; *_ag quantize the param all-gathers; fp8 / "
                          "int8 also the grad reduce-scatter; *_ef add error "
-                         "feedback; auto is not ported")
+                         "feedback; auto: the planner picks per bucket")
+    ap.add_argument("--remat", default="fsdp_only",
+                    help="none | fsdp_only | full | save_dots, a "
+                         "per-segment vector (attn=full,mlp=fsdp_only), or "
+                         "auto:<GB> (the memory plan picks under a "
+                         "per-device budget in GiB)")
     ap.add_argument("--no-reorder", action="store_true")
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
@@ -90,7 +106,7 @@ def build_trainer(args):
     dcfg = DistConfig(
         mesh_shape=mesh_shape, param_dtype=DTYPES[args.dtype],
         reduce_dtype=torch.float32, bucket_mode=args.bucket_mode,
-        reorder=not args.no_reorder,
+        reorder=not args.no_reorder, remat=args.remat,
         comm_precision=args.comm_precision, microbatches=args.microbatches,
         grad_compression=args.grad_compression)
     _, model = get_arch(args.arch, smoke=args.smoke)

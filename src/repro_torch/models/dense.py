@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.dist import DistConfig
-from repro_torch.core.meta import tree_map
+from repro_torch.core.irgraph import BlockStats
+from repro_torch.core.meta import named_leaves, tree_map
 from repro_torch.core.remat import maybe_remat
 from repro_torch.core.stack import apply_stack
 from repro_torch.models import layers as LY
@@ -44,6 +45,9 @@ class DenseLM:
                 f"{unported} are not ported to repro_torch yet")
         self.cfg = cfg
         self.n_steps = cfg.n_layers
+        # a measured BlockStats override: when set, block_stats() returns
+        # it instead of the analytic model
+        self.measured_stats: BlockStats | None = None
 
     # ------------------------------------------------------------- metas --
     def block_metas(self, dcfg: DistConfig) -> dict:
@@ -156,6 +160,35 @@ class DenseLM:
             param_globs=(("ln1", "attn/*", "pn1"), ("ln2", "mlp/*", "pn2")),
             fns=(seg_attn, seg_mlp))
 
+    # ----------------------------------------------------------- costing --
+    def block_stats(self, dcfg: DistConfig, batch_shape) -> BlockStats:
+        """Per-layer workload for auto-wrapping, per device: analytic
+        (core/hw roofline) unless `measured_stats` is set."""
+        if self.measured_stats is not None:
+            return self.measured_stats
+        cfg = self.cfg
+        B, S = batch_shape          # per-device microbatch (cp-local seq)
+        tokens = B * S
+        d, hd = cfg.d_model, cfg.head_dim
+        hq = cfg.q_heads_padded(dcfg.tp_size)
+        pf, pb = {}, {}
+        it = dcfg.param_dtype.itemsize
+        for nm, m in named_leaves(self.block_metas(dcfg)):
+            numel = m.numel_local(dcfg)
+            # matmul params: 2*tokens*numel flops; norms: O(tokens*d)
+            flops = 2.0 * tokens * numel if numel > 4 * d \
+                else 8.0 * tokens * d / max(1, dcfg.tp_size)
+            pf[nm] = flops
+            pb[nm] = numel * it + flops / max(d, 1) * it
+        # attention itself (not a param op) folds into the first param's
+        # consumer cost; the kv span is the whole sequence (S * cp)
+        attn_flops = 4.0 * tokens * (S * dcfg.cp_size) * hd \
+            * (hq / dcfg.tp_size)
+        first = next(iter(pf))
+        pf[first] += attn_flops
+        act = tokens * d * it / dcfg.tp_size
+        return BlockStats(param_flops=pf, param_bytes=pb, act_bytes=act)
+
     def _logits(self, params, x):
         """x: (B, S, D) -> fp32 logits (B, S, V) from the full params."""
         w = params["embed"] if self.cfg.tie_embeddings else params["head"]
@@ -186,12 +219,15 @@ class DenseLM:
         return self._embed_in(storage, mb["tokens"], dcfg), {}
 
     def stage_blocks(self, storage, state, dcfg: DistConfig):
-        """The layer stack, vanilla FSDP schedule (core/stack)."""
+        """The layer stack under the SimpleFSDP schedule (core/stack); the
+        planners see this rank's (B, S) workload."""
         x, aux = state
-        consts = self.consts(x.shape[1], x.device)
+        B, S = x.shape[0], x.shape[1]
+        consts = self.consts(S, x.device)
         blk = functools.partial(self.block_fn, dcfg=dcfg)
         x, aux2 = apply_stack(blk, self.block_metas(dcfg), dcfg,
                               storage["blocks"], consts, x,
+                              block_stats=self.block_stats(dcfg, (B, S)),
                               segments=self.block_segments(dcfg))
         return x, {k: aux.get(k, 0) + v for k, v in aux2.items()}
 

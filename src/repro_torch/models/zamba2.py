@@ -19,8 +19,7 @@ plain torch, as in the reference.
 Simplifications of the reference kept (DESIGN.md there): shared-block LoRA
 adapters omitted; per-head RMSNorm instead of a full-d_inner groupnorm.
 Not ported yet, each raising "not yet ported": the pipeline-stage contract
-(`stage_spec` / `stage_blocks`, pp > 1), `block_stats` (the planners), the
-serving half (prefill / decode and their SSD and conv states), and tp > 1.
+(`stage_spec` / `stage_blocks`, pp > 1), the serving half (prefill / decode and their SSD and conv states), and tp > 1.
 """
 
 from __future__ import annotations
@@ -34,8 +33,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.dist import DistConfig
-from repro_torch.core.meta import ParamMeta, leaves, tree_map
-from repro_torch.core.remat import maybe_remat
+from repro_torch.core.irgraph import BlockStats
+from repro_torch.core.meta import ParamMeta, leaves, named_leaves, tree_map
+from repro_torch.core.remat import maybe_remat, whole_block_policy
 from repro_torch.core.stack import apply_stack
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import layers as LY
@@ -150,8 +150,20 @@ class Zamba2LM:
     def stage_blocks(self, *a, **k):
         _unported("stage_blocks (pipeline stages)")
 
-    def block_stats(self, *a, **k):
-        _unported("block_stats (the bucket planners)")
+    def block_stats(self, dcfg: DistConfig, batch_shape) -> BlockStats:
+        """Per-layer workload of one Mamba block for auto-wrapping, per
+        device (analytic)."""
+        B, S = batch_shape          # per-device microbatch
+        tokens = B * S
+        it = dcfg.param_dtype.itemsize
+        pf, pb = {}, {}
+        for nm, m in named_leaves(self.block_metas(dcfg)):
+            numel = m.numel_local(dcfg)
+            pf[nm] = 2.0 * tokens * numel
+            pb[nm] = numel * it
+        return BlockStats(param_flops=pf, param_bytes=pb,
+                          act_bytes=tokens * self.cfg.d_model * it
+                          / dcfg.tp_size)
 
     def prefill_local(self, *a, **k):
         _unported("prefill_local (serving)")
@@ -287,14 +299,20 @@ class Zamba2LM:
         its saved input, so an inner checkpoint would only add a third
         forward: it is left out, and the stack's own policy applies.  The
         choice changes memory and time, not values."""
+        # the planners price this rank's (B, S) workload, as plan_parallel
+        # does (the reference plans its runtime without block_stats, so
+        # under comm_precision='auto' it can run another plan than the one
+        # it reports)
+        stats = self.block_stats(dcfg, tuple(x.shape[:2]))
         if dcfg.reorder:
             blk = functools.partial(self._mamba_stack_fn, dcfg=dcfg)
             return apply_stack(blk, self.block_metas(dcfg), dcfg, seg,
-                               consts, x)[0]
-        inner = dcfg.remat == "none"
+                               consts, x, block_stats=stats)[0]
+        inner = whole_block_policy(dcfg.remat) == "none"
         blk = functools.partial(self._mamba_stack_fn, dcfg=dcfg,
                                 inner_remat=inner)
         return apply_stack(blk, self.block_metas(dcfg), dcfg, seg, consts, x,
+                           block_stats=stats,
                            remat=("none" if inner else "full",))[0]
 
     # ------------------------------------------------------ shared block --
@@ -332,7 +350,8 @@ class Zamba2LM:
             return self.shared_block(sh, xc, embc, consts, dcfg)
 
         return maybe_remat(shared_fn, "full"
-                           if dcfg.remat != "none" else "none")
+                           if whole_block_policy(dcfg.remat) != "none"
+                           else "none")
 
     def consts(self, seq_len: int, device) -> dict:
         cos, sin = LY.rope_cache(seq_len, self.cfg.head_dim,

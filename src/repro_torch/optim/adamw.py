@@ -15,7 +15,10 @@ accumulator `ef` beside m and v (`DistConfig.needs_ef`): each step the
 shard-local reduced gradient plus `ef` goes through the fp8 wire codec
 (round to nearest; the reference uses fp8 here under int8_ef too), the
 decoded value feeds the norm and the update, and the rounding residual is
-kept for the next step.
+kept for the next step.  Under ``comm_precision="auto"`` the hop applies
+only to the leaves whose bucket the planner put at an ``*_ef`` precision
+(`ef_mask`); the reference applies it to every leaf, so a bucket it
+gathers and reduces in bf16 still gets fp8-rounded gradients.
 """
 
 from __future__ import annotations
@@ -65,12 +68,18 @@ def global_grad_norm(grads_tree, cfg: DistConfig) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def error_feedback(grads, ef):
+def error_feedback(grads, ef, mask=None):
     """The quantize-compensate hop: g2 = g + ef; gq = fp8 round trip of g2
     (round to nearest); ef' = g2 - gq.  Returns gq; `ef` becomes ef' IN
-    PLACE (g2 is formed in its buffer)."""
+    PLACE (g2 is formed in its buffer).  `mask` (a tree of bools like
+    `grads`; None = every leaf) picks the leaves the hop applies to; the
+    others pass through and keep their `ef`."""
+    flags = leaves(mask) if mask is not None else [True] * len(leaves(ef))
     out = []
-    for g, e in zip(leaves(grads), leaves(ef)):
+    for g, e, on in zip(leaves(grads), leaves(ef), flags):
+        if not on:
+            out.append(g)
+            continue
         e.add_(g.to(torch.float32))
         gq = quant_ops.roundtrip(e, "fp8", stochastic=False)
         e.sub_(gq)
@@ -79,11 +88,13 @@ def error_feedback(grads, ef):
 
 
 def apply_adamw(storage, grads, opt_state, cfg: DistConfig,
-                ocfg: AdamWConfig, lr: torch.Tensor) -> torch.Tensor:
+                ocfg: AdamWConfig, lr: torch.Tensor,
+                ef_mask=None) -> torch.Tensor:
     """One AdamW step on the sharded storage, IN PLACE on storage and
-    opt_state (the error-feedback hop first; the state carries "ef"
-    exactly when `cfg.needs_ef`).  lr: fp32 device scalar.  Returns the
-    global grad norm."""
+    opt_state (the error-feedback hop first, on the leaves `ef_mask`
+    picks — all by default; the state carries "ef" exactly when
+    `cfg.needs_ef`).  lr: fp32 device scalar.  Returns the global grad
+    norm."""
     if ("ef" in opt_state) != cfg.needs_ef:
         raise ValueError(
             f"comm_precision={cfg.comm_precision!r} "
@@ -93,7 +104,7 @@ def apply_adamw(storage, grads, opt_state, cfg: DistConfig,
             "init_opt_state(storage, cfg)")
     t = opt_state["step"] + 1
     if "ef" in opt_state:
-        grads = error_feedback(grads, opt_state["ef"])
+        grads = error_feedback(grads, opt_state["ef"], ef_mask)
     gnorm = global_grad_norm(grads, cfg)
     scale = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if ocfg.grad_clip else torch.ones_like(gnorm)

@@ -3,9 +3,11 @@ SimpleFSDP forward/backward + gradient accumulation over microbatches +
 global-norm clipping + AdamW + LR schedule.
 
 The steps are plain callables built from a `Parallelized` bundle
-(`core/api.py`).  Storage and optimizer state are this rank's shards; a
-batch is global and each rank takes its rows.  The logged loss is the mean
-over the data-parallel ranks, as the reference's `pmean`.
+(`core/api.py`); they run the plan's `exec_dcfg`, the config with the
+memory plan's resolved remat written back.  Storage and optimizer state
+are this rank's shards; a batch is global and each rank takes its rows.
+The logged loss is the mean over the data-parallel ranks, as the
+reference's `pmean`.
 """
 
 from __future__ import annotations
@@ -16,14 +18,16 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.meta import leaves, tree_map, unflatten_like
+from repro_torch.core.collectives import default_precision
+from repro_torch.core.meta import (leaves, named_leaves, tree_map,
+                                   unflatten_like)
 from repro_torch.optim.adamw import AdamWConfig, apply_adamw, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
 
 
 def _loss_and_grads(par, storage, batch):
     """(loss, grads) of the model's local loss w.r.t. every storage leaf."""
-    dcfg = par.dcfg
+    dcfg = par.plan.exec_dcfg
     params = [a.detach().requires_grad_() for a in leaves(storage)]
     loss = par.model.loss_local(unflatten_like(storage, params), batch,
                                 dcfg)[0]
@@ -47,12 +51,29 @@ def make_loss_step(par):
     return step
 
 
+def ef_mask(par):
+    """Per storage leaf: whether its gradient is reduce-scattered at an
+    ``*_ef`` precision, the leaves the error-feedback hop applies to.  A
+    stacked group's leaf takes its bucket's precision in the plan; every
+    other group gathers at the config's own precision ('auto': bf16)."""
+    dcfg = par.plan.exec_dcfg
+    metas = par.model.metas(dcfg)
+    prec = {n: default_precision(dcfg) for n, _ in named_leaves(metas)}
+    for k, plan in par.plan.bucket_plans.items():
+        names = [n for n, _ in named_leaves(metas[k])]
+        for grp, p in zip(plan.index_groups(metas[k]),
+                          plan.group_precisions(metas[k], dcfg)):
+            prec.update((f"{k}/{names[i]}", p) for i in grp)
+    return unflatten_like(metas, [p.endswith("_ef") for p in prec.values()])
+
+
 def make_train_step(par, ocfg: AdamWConfig,
                     schedule: Callable | None = None):
     """step(storage, opt_state, batch) -> (storage, opt_state, metrics),
     updating storage and opt_state in place.  metrics: loss, grad_norm and
     lr as device scalars."""
-    dcfg = par.dcfg
+    dcfg = par.plan.exec_dcfg
+    mask = ef_mask(par) if dcfg.needs_ef else None
     sched = schedule or (lambda t: torch.full((), ocfg.lr,
                                               device=t.device))
 
@@ -73,7 +94,8 @@ def make_train_step(par, ocfg: AdamWConfig,
         else:
             loss, grads = _loss_and_grads(par, storage, b)
         lr = sched(opt_state["step"])
-        gnorm = apply_adamw(storage, grads, opt_state, dcfg, ocfg, lr)
+        gnorm = apply_adamw(storage, grads, opt_state, dcfg, ocfg, lr,
+                            ef_mask=mask)
         metrics = {"loss": _rank_mean(loss, par), "grad_norm": gnorm,
                    "lr": lr.to(torch.float32)}
         return storage, opt_state, metrics

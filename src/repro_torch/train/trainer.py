@@ -1,8 +1,10 @@
 """Training loop (port of `repro.train.trainer` at pp = 1): data, init or
 restore, failure restart, straggler monitor, checkpoints and history.
 
-It resolves a `ParallelPlan` through `core/api.parallelize` and drives the
-plan's train step.  Checkpoints hold the logical (topology-independent)
+It resolves a `ParallelPlan` through `core/api.parallelize` (the workload
+shape makes it resolve the memory plan too) and drives the plan's train
+step, which runs `plan.exec_dcfg`.  `memory_report` sets the modeled peak
+beside the one the card measures over a step.  Checkpoints hold the logical (topology-independent)
 layout in the reference's format, so a run restarts from a checkpoint
 written by either package; the port's also hold the error-feedback
 accumulator of a `*_ef` run (the reference's drop it, and resume with it
@@ -65,6 +67,42 @@ class Trainer:
             ocfg, default_schedule(ocfg, tcfg.total_steps, tcfg.warmup))
         self.history: list[dict] = []
         self.restarts = 0
+        if self.plan.memory is not None:
+            log.info("plan: %s", self.plan.describe())
+            for b in self.plan.memory.breakdown:
+                log.info("modeled peak %s", b.describe())
+
+    def memory_report(self, measured: bool = True) -> dict:
+        """The memory plan's modeled per-device peak, its policy spec and
+        per-stage breakdown.  On the card, with `measured`, also the
+        measured peak: `torch.cuda.max_memory_allocated()` over one step
+        from fresh state (the state is allocated before the peak counter
+        is reset, so it counts), and modeled / measured."""
+        mem = self.plan.memory
+        rep = {
+            "modeled_peak_bytes": mem.peak if mem else None,
+            "policy_spec": mem.policy_spec if mem else self.dcfg.remat,
+            "per_stage": [b.describe() for b in mem.breakdown]
+            if mem else [],
+        }
+        dev = self.par.device
+        if measured and dev.type == "cuda":
+            storage, opt_state = init_train_state(self.par,
+                                                  self._generator())
+            batch = self._batch(0)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            self.step_fn(storage, opt_state, batch)
+            torch.cuda.synchronize(dev)
+            meas = torch.cuda.max_memory_allocated(dev)
+            del storage, opt_state
+            rep["measured_peak_bytes"] = meas
+            if mem is not None:
+                rep["modeled_over_measured"] = mem.peak / max(1, meas)
+                log.info("memory: modeled %.2f GiB, measured %.2f GiB "
+                         "(remat=%s)", mem.peak / 2**30, meas / 2**30,
+                         rep["policy_spec"])
+        return rep
 
     def _init_or_restore(self, generator):
         latest = self.ckpt.latest_step()

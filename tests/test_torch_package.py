@@ -52,6 +52,9 @@ def test_imports_neither_jax_nor_the_reference():
         "          'kernels.ssd.ops', 'kernels.ssd.ref', 'models.zamba2',\n"
         "          'models.xlstm', 'configs.zamba2_1_2b',\n"
         "          'core.collectives', 'core.stack', 'core.api',\n"
+        "          'core.hw', 'core.irgraph', 'core.autowrap',\n"
+        "          'core.bucketing', 'core.memory', 'core.memory.simulator',\n"
+        "          'core.memory.planner', 'core.memory.offload',\n"
         "          'train.trainer', 'launch.train', 'checkpoint.checkpointer',\n"
         "          'data.pipeline', 'ft.failures', 'optim.adamw'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
@@ -159,10 +162,30 @@ def test_train_launcher_runs_end_to_end_on_cpu(tmp_path):
     assert (tmp_path / "step_00000002" / "manifest.json").exists()
 
 
+def test_train_launcher_runs_the_planners_on_cpu(tmp_path):
+    """--bucket-mode auto_dp, --comm-precision auto and --remat auto:<GB>
+    resolve and train 3 steps: the printed plan shows the per-bucket
+    precisions and the memory plan."""
+    r = _run(["-m", "repro_torch.launch.train", "--smoke", "--device",
+              "cpu", "--steps", "3", "--seq", "16", "--batch", "4",
+              "--dtype", "float32", "--bucket-mode", "auto_dp",
+              "--comm-precision", "auto", "--remat", "auto:0.5",
+              "--ckpt-dir", str(tmp_path)])
+    assert r.returncode == 0, r.stderr
+    plan = r.stdout.splitlines()[0]
+    assert plan.startswith("plan: mesh[data=1xmodel=1]")
+    # at one rank every candidate costs 0, so the memory plan keeps the
+    # per-param partition (the smallest gathered peak), as the reference
+    assert " remat=auto:0.5 buckets[blocks:11] comm=auto " in plan
+    assert " mem[remat[" in plan and "budget=0.50GiB" in plan
+    losses = [float(l.split()[3]) for l in r.stdout.splitlines()
+              if l.startswith("step ")]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+
+
 def test_train_launcher_refuses_what_is_not_ported(monkeypatch, tmp_path):
     base = ["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
-    for extra, match in ((["--comm-precision", "auto"], "not yet ported"),
-                         (["--no-reorder", "--metrics-jsonl", "x"],
+    for extra, match in ((["--no-reorder", "--metrics-jsonl", "x"],
                           "observability"),
                          (["--no-reorder", "--replan-threshold", "0.1"],
                           "observability"),
@@ -208,7 +231,7 @@ def test_quantized_prefetch_training_runs_on_cpu_without_the_build(
         "--batch", "2", "--dtype", "float32", "--comm-precision", "fp8_ef",
         "--grad-compression", "--ckpt-dir", str(tmp_path)])
     assert trainer.dcfg.reorder and trainer.dcfg.grad_compression
-    assert trainer.plan.describe().endswith("comm=fp8_ef")
+    assert " comm=fp8_ef mem[remat[fsdp_only] " in trainer.plan.describe()
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
     assert (quant_ops.quant_launches, quant_ops.dequant_launches) == before
     assert (tmp_path / "step_00000002" / "ef__blocks__mlp__wg.npy").exists()

@@ -30,7 +30,11 @@ the CPU, qwen3 smoke, fp32, one rank, the prefetch stack (reorder=True).
     drift <= 4*lr*steps (the stochastic-rounding seed depends on every bit
     of the gradient, so the two packages dither differently); `ef` is in
     the optimizer state exactly when `needs_ef`, and non-zero;
-    comm_precision="auto" raises "not yet ported";
+    comm_precision="auto" resolves (bf16 everywhere at one rank);
+  * a per-bucket plan (bf16 / fp8_ef / int8_ag) on both schedules: the
+    first loss step against the reference's on the same plan, two chained
+    steps within the harness bounds, EF non-zero only in the fp8_ef
+    bucket;
   * a `Trainer` restart under fp8_ef ends bit-exact, EF included, and a
     checkpoint written by the reference's checkpointer (which drops EF)
     resumes with EF at zero.
@@ -48,6 +52,7 @@ from jax.sharding import PartitionSpec as P
 
 from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
 from repro.core import api as japi
+from repro.core.bucketing import BucketPlan as JBucketPlan
 from repro.core import collectives as jcoll
 from repro.core.compat import shard_map
 from repro.core.dist import make_mesh as jax_make_mesh
@@ -67,7 +72,8 @@ from repro.optim.adamw import init_opt_state as jinit_opt_state
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core import api
 from repro_torch.core import collectives as coll
-from repro_torch.core.bucketing import plan_for, split_plan_at_segments
+from repro_torch.core.bucketing import (BucketPlan, plan_for,
+                                        split_plan_at_segments)
 from repro_torch.core.dist import COMM_PRECISIONS, DistConfig, make_mesh
 from repro_torch.core.meta import named_leaves
 from repro_torch.ft.failures import InjectedFailures
@@ -334,7 +340,8 @@ def _ef_step_both(precision, monkeypatch=None, plant=None):
     state = {"m": T(st["m"]), "v": T(st["v"]), "ef": T(st["ef"]),
              "step": torch.tensor(4, dtype=torch.int32)}
     if plant == "no_hop":
-        monkeypatch.setattr(adamw, "error_feedback", lambda g, ef: g)
+        monkeypatch.setattr(adamw, "error_feedback",
+                            lambda g, ef, mask=None: g)
     elif plant == "hop_after_norm":
         norm = adamw.global_grad_norm
         monkeypatch.setattr(adamw, "global_grad_norm",
@@ -497,11 +504,95 @@ def test_quantized_steps_stay_within_harness_bounds(precision, kw):
 
 
 def test_auto_precision_raises_not_yet_ported():
+    """comm_precision='auto' resolves (it raised before the planners were
+    ported): every block bucket gets a precision from the lattice, the
+    state carries EF, and at one rank (every collective priced at 0) the
+    planner keeps bf16, so the first loss step is the bf16 one."""
     assert "auto" in COMM_PRECISIONS
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _port("auto")
+    _, dcfg, par = _port("auto")
+    precs = par.plan.bucket_plan("blocks").precisions
+    assert precs is not None and set(precs) == {"bf16"}
+    assert dcfg.needs_ef and "comm=auto(bf16)" in par.plan.describe()
+    model, _, bf = _port("bf16")
+    storage_np, batch = _jax_storage()
+    storage = RT.storage_from_jax(storage_np, model, dcfg, device="cpu")
+    assert float(par.loss_step()(storage, batch)[0]) == \
+        float(bf.loss_step()(storage, batch)[0])
     with pytest.raises(ValueError, match="comm_precision"):
         DistConfig(comm_precision="fp4")
+
+
+# a per-bucket plan: a bf16 bucket, an fp8_ef bucket spanning the attn and
+# mlp segments (split by the prefetch stack, each piece keeping fp8_ef),
+# and an int8_ag bucket
+MIXED = (("attn/wk", "attn/wq", "attn/wv", "ln1"),
+         ("attn/k_norm", "attn/q_norm", "attn/wo", "ln2", "mlp/wd"),
+         ("mlp/wg", "mlp/wu"))
+MIXED_PRECISIONS = ("bf16", "fp8_ef", "int8_ag")
+
+
+@pytest.mark.parametrize("reorder", [False, True],
+                         ids=["vanilla", "prefetch"])
+def test_mixed_precision_plan_first_step_matches_reference(reorder):
+    """One BucketPlan with a precision per bucket, on both schedules: the
+    first loss step against the reference's on the same plan.  The loss
+    and the gradients of buckets whose reduce-scatter is uncompressed
+    (bf16, int8_ag) at TOL32, as the uniform *_ag cases; the fp8_ef
+    bucket's gradients (a stochastically rounded reduce-scatter that
+    dithers differently in the two packages) within two fp8 e4m3 steps
+    of the reference's: 2 x (2^-3 |g| + 2^-9 x the leaf's largest |g|),
+    plus TOL32's atol."""
+    _, jmodel = jax_get_arch(ARCH, smoke=True)
+    storage_np, batch = _jax_storage()
+    jd = jax_single_device_config(
+        param_dtype=jnp.float32, reduce_dtype=jnp.float32,
+        comm_precision="auto", reorder=reorder,
+        bucket_mode=JBucketPlan(MIXED, MIXED_PRECISIONS))
+    jpar = japi.parallelize(jmodel, jd, JShapeConfig("t", S, B, "train"))
+    want_loss, want_grads = jpar.loss_step()(
+        jax.tree.map(jnp.asarray, storage_np),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    model, dcfg, par = _port("auto", reorder=reorder,
+                             bucket_mode=BucketPlan(MIXED, MIXED_PRECISIONS))
+    assert par.plan.describe() == jpar.plan.describe()
+    storage = RT.storage_from_jax(storage_np, model, dcfg, device="cpu")
+    q0, d0 = quant_ops.quant_launches, quant_ops.dequant_launches
+    loss, grads = par.loss_step()(storage, batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), **TOL32)
+    bf_loss = float(_port("bf16")[2].loss_step()(storage, batch)[0])
+    assert abs(float(want_loss) - bf_loss) > 1e-5   # the codecs moved it
+    sr = {f"blocks/{n}" for n in MIXED[1]}
+    got = named_leaves(grads)
+    want = named_leaves(jax.tree.map(np.asarray, want_grads))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (n, a), (_, b) in zip(got, want):
+        a = a.numpy()
+        if n in sr:
+            bound = 2 * (2.0 ** -3 * np.abs(b) + 2.0 ** -9 * np.abs(b).max()) \
+                + TOL32["atol"]
+            assert np.all(np.abs(a - b) <= bound), n
+        else:
+            np.testing.assert_allclose(a, b, err_msg=n, **TOL32)
+    # the CPU runs the plain codec: no kernel launch is counted
+    assert (quant_ops.quant_launches, quant_ops.dequant_launches) == (q0, d0)
+
+
+def test_mixed_precision_plan_trains_within_harness_bounds():
+    """Two chained AdamW steps of the per-bucket plan (prefetch) within
+    the harness bounds of the reference's bf16 run, as the uniform
+    quantized cases; the error-feedback accumulator is non-zero exactly
+    in the fp8_ef bucket's leaves (the hop applies to *_ef buckets only;
+    the other groups gather at 'auto''s default, bf16)."""
+    want_losses, want_st, _ = _jax_two_steps()
+    losses, st, opt, dcfg = _port_two_steps(
+        "auto", bucket_mode=BucketPlan(MIXED, MIXED_PRECISIONS))
+    np.testing.assert_allclose(losses, want_losses, rtol=5e-2)
+    drift = max(float(np.abs(a.numpy() - b).max()) for (_, a), (_, b) in
+                zip(named_leaves(st), named_leaves(want_st)))
+    assert drift <= 4.0 * LR * STEPS, drift
+    ef_leaves = {n for n, a in named_leaves(opt["ef"])
+                 if float(a.abs().max()) > 0}
+    assert ef_leaves == {f"blocks/{n}" for n in MIXED[1]}
 
 
 def _trainer(ckpt_dir, failures=None, steps=4):

@@ -33,6 +33,7 @@ from repro.models.registry import get_arch as jax_get_arch
 
 from repro_torch.core import api
 from repro_torch.core import collectives as coll
+from repro_torch.core import hw
 from repro_torch.core.dist import DistConfig
 from repro_torch.core.meta import named_leaves
 from repro_torch.models import runtime as RT
@@ -194,28 +195,42 @@ def test_collective_counts_per_remat_policy(remat, per_bucket, bucket_mode):
 
 @pytest.mark.parametrize("bucket_mode", ["none", "block"])
 def test_bucket_plans_match_reference(bucket_mode):
+    """The plan, its memory record and describe() equal the reference's
+    (priced with the reference's TPU profile)."""
     for arch in ARCHS:
         _, jmodel = jax_get_arch(arch, smoke=True)
         jplan = japi.plan_parallel(jmodel, jax_single_device_config(
-            reorder=False, bucket_mode=bucket_mode))
-        model, dcfg, par = _port(arch, bucket_mode=bucket_mode)
-        assert par.plan.memory is None
+            param_dtype=jnp.float32, reduce_dtype=jnp.float32,
+            reorder=False, bucket_mode=bucket_mode),
+            JShapeConfig("t", S, B, "train"))
+        with hw.use_profile(hw.TPU_V5E):
+            model, dcfg, par = _port(arch, bucket_mode=bucket_mode)
+        assert par.plan.memory is not None
+        assert par.plan.memory.peak_bytes == jplan.memory.peak_bytes
+        assert par.plan.exec_dcfg == dcfg
         assert par.plan.bucket_plan("blocks").groups == \
             jplan.bucket_plan("blocks").groups
-        assert par.plan.describe().endswith(
-            f"buckets[blocks:{jplan.bucket_plan('blocks').n_buckets}]")
+        assert par.plan.describe() == jplan.describe()
 
 
 def test_unported_layouts_raise_pointedly():
+    """tp > 1 and pp > 1 raise; the bucket planners, the budgeted memory
+    plan and per-bucket precision resolve."""
     _, model = get_arch("qwen3_1_7b", smoke=True)
     shape = ShapeConfig("t", S, B, "train")
     base = DistConfig(param_dtype=torch.float32, reorder=False)
     for kw, match in ((dict(mesh_shape=(1, 2)), "tp=2"),
                       (dict(mesh_axes=("pipe", "data", "model"),
-                            mesh_shape=(2, 1, 1)), "pp>1"),
-                      (dict(bucket_mode="auto"), "bucket planners"),
-                      (dict(bucket_mode="auto_dp"), "bucket planners"),
-                      (dict(remat="auto:12"), "memory planner"),
-                      (dict(comm_precision="auto"), "not yet ported")):
+                            mesh_shape=(2, 1, 1)), "pp>1")):
         with pytest.raises(NotImplementedError, match=match):
             api.parallelize(model, base.with_(**kw), shape, device="cpu")
+    for kw in (dict(bucket_mode="auto"), dict(bucket_mode="auto_dp"),
+               dict(remat="auto:12"), dict(comm_precision="auto")):
+        plan = api.parallelize(model, base.with_(**kw), shape,
+                               device="cpu").plan
+        assert plan.memory is not None, kw
+        if "remat" in kw:
+            assert plan.exec_dcfg.remat != kw["remat"]
+            assert plan.memory.budget_bytes == 12 * 1024**3
+        if "comm_precision" in kw:
+            assert plan.bucket_plan("blocks").precisions == ("bf16",)

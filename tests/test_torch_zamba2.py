@@ -283,8 +283,15 @@ def test_full_config_size_and_layout():
 
 
 def test_unported_parts_raise():
+    """Pipeline stages, serving and tp > 1 raise; block_stats (the
+    planners' workload) is ported and equals the reference's."""
     cfg, model = get_arch(ARCH, smoke=True)
-    for call in (lambda: model.stage_spec(2), lambda: model.block_stats(),
+    _, jmodel = jax_get_arch(ARCH, smoke=True)
+    got = model.block_stats(DistConfig(), (B, S))
+    want = jmodel.block_stats(jax_single_device_config(), (B, S))
+    assert (got.param_flops, got.param_bytes, got.act_bytes) == \
+        (want.param_flops, want.param_bytes, want.act_bytes)
+    for call in (lambda: model.stage_spec(2),
                  lambda: model.prefill_local(None, None, None),
                  lambda: model.input_specs(ShapeConfig("p", 8, 2, "prefill"),
                                            DistConfig())):
