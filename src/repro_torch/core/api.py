@@ -164,8 +164,16 @@ def plan_parallel(model, dcfg: DistConfig, shape=None) -> ParallelPlan:
         from repro_torch.core.memory import plan_memory
         memory = plan_memory(model, dcfg, shape, bucket_plans=bucket_plans)
         if memory.bucket_plan is not None:
+            # the override as the steps run it: under comm_precision='auto'
+            # a plan without precisions (the per-param partition) gets them
+            # here, priced with the same stats (the reference attaches them
+            # only when its stack re-resolves the plan, so its describe()
+            # omits them)
+            k = memory.main_key
             bucket_plans = dict(bucket_plans)
-            bucket_plans[memory.main_key] = memory.bucket_plan
+            bucket_plans[k] = plan_for(
+                metas[k], dcfg.with_(bucket_mode=memory.bucket_plan),
+                stats if k == "blocks" else None)
 
     return ParallelPlan(dcfg=dcfg, stacked_keys=sk,
                         bucket_plans=bucket_plans, remat=dcfg.remat,
@@ -229,7 +237,18 @@ class Parallelized:
 def parallelize(model, dcfg: DistConfig, shape=None,
                 device="cuda") -> Parallelized:
     """The paper's one-line wrap, resolved for (model, dcfg[, shape]) on
-    `device` (CUDA unless the caller asks for the CPU)."""
+    `device` (CUDA unless the caller asks for the CPU).  Raises when the
+    memory plan takes host offload, which no step executes (its modeled
+    peak would not be the step's)."""
     dev = resolve_device(device)
-    return Parallelized(model=model, plan=plan_parallel(model, dcfg, shape),
-                        mesh=make_mesh(dcfg), device=dev)
+    plan = plan_parallel(model, dcfg, shape)
+    mem = plan.memory
+    if mem is not None and (mem.offload_opt_state or mem.offload_residuals):
+        raise NotImplementedError(
+            f"remat={dcfg.remat!r}: the memory plan {mem.describe()} takes "
+            "host offload, which is planned but not executed (the "
+            "reference executes it nowhere either); its modeled peak is "
+            "not the step's.  Raise the budget until the search needs no "
+            "offload, or set an explicit policy")
+    return Parallelized(model=model, plan=plan, mesh=make_mesh(dcfg),
+                        device=dev)

@@ -65,8 +65,11 @@ H100 = HardwareProfile(
     peak_flops_bf16=989e12,
     # datasheet, nominal: HBM3 at 3.35 TB/s
     hbm_bandwidth=3.35e12,
-    # datasheet, nominal: 80 GB of HBM3, taken as 80 GiB
-    hbm_bytes=80 * 1024**3,
+    # datasheet, nominal: 80 GB of HBM3, in decimal bytes (74.5 GiB).  The
+    # card's total_memory is 85,017,493,504 B (79.18 GiB, less than 80
+    # GiB), so a plan that fits 80e9 B fits the card; 80 GiB would pass
+    # plans the card cannot hold
+    hbm_bytes=80e9,
     # datasheet, nominal: NVLink 4, 900 GB/s bidirectional = 450 GB/s per
     # direction per GPU, for every axis inside the 8-GPU node
     intra_bw=450e9,

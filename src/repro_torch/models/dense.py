@@ -218,15 +218,16 @@ class DenseLM:
         """tokens -> embeddings (+ zero aux)."""
         return self._embed_in(storage, mb["tokens"], dcfg), {}
 
-    def stage_blocks(self, storage, state, dcfg: DistConfig):
-        """The layer stack under the SimpleFSDP schedule (core/stack); the
-        planners see this rank's (B, S) workload."""
+    def stage_blocks(self, storage, state, dcfg: DistConfig, plan=None):
+        """The layer stack under the SimpleFSDP schedule (core/stack) with
+        the blocks' bucket `plan`; without one the stack resolves it from
+        this rank's (B, S) workload."""
         x, aux = state
         B, S = x.shape[0], x.shape[1]
         consts = self.consts(S, x.device)
         blk = functools.partial(self.block_fn, dcfg=dcfg)
         x, aux2 = apply_stack(blk, self.block_metas(dcfg), dcfg,
-                              storage["blocks"], consts, x,
+                              storage["blocks"], consts, x, plan=plan,
                               block_stats=self.block_stats(dcfg, (B, S)),
                               segments=self.block_segments(dcfg))
         return x, {k: aux.get(k, 0) + v for k, v in aux2.items()}
@@ -242,11 +243,13 @@ class DenseLM:
         loss, _ = LY.vocab_parallel_xent(logits, mb["targets"], mb["valid"])
         return loss
 
-    def loss_local(self, storage, batch, dcfg: DistConfig):
+    def loss_local(self, storage, batch, dcfg: DistConfig, plan=None):
         """batch: tokens/targets (B, S) int, valid (B, S) fp32.  Returns
-        (this rank's masked mean loss, aux)."""
+        (this rank's masked mean loss, aux).  `plan`: the blocks' bucket
+        plan (`stage_blocks`)."""
         state = self.stage_blocks(storage,
-                                  self.stage_pre(storage, batch, dcfg), dcfg)
+                                  self.stage_pre(storage, batch, dcfg), dcfg,
+                                  plan)
         return self.stage_loss(storage, state, batch, dcfg), state[1]
 
     # ------------------------------------------------------------- serve --

@@ -281,8 +281,9 @@ class Zamba2LM:
                               use_reentrant=False), {}
         return self.mamba_block(p, consts, x, dcfg), {}
 
-    def _run_stack(self, seg, consts, x, dcfg: DistConfig):
-        """One run of Mamba layers through `apply_stack`.
+    def _run_stack(self, seg, consts, x, dcfg: DistConfig, plan=None):
+        """One run of Mamba layers through `apply_stack`, with the blocks'
+        bucket `plan` (without one the stack resolves it).
 
         The reference wraps every Mamba block in `jax.checkpoint` inside
         the stack's own policy: each layer saves its input (and, under
@@ -299,20 +300,20 @@ class Zamba2LM:
         its saved input, so an inner checkpoint would only add a third
         forward: it is left out, and the stack's own policy applies.  The
         choice changes memory and time, not values."""
-        # the planners price this rank's (B, S) workload, as plan_parallel
-        # does (the reference plans its runtime without block_stats, so
-        # under comm_precision='auto' it can run another plan than the one
-        # it reports)
+        # without a plan the planners price this rank's (B, S) workload,
+        # as plan_parallel does (the reference plans its runtime without
+        # block_stats, so under comm_precision='auto' it can run another
+        # plan than the one it reports)
         stats = self.block_stats(dcfg, tuple(x.shape[:2]))
         if dcfg.reorder:
             blk = functools.partial(self._mamba_stack_fn, dcfg=dcfg)
             return apply_stack(blk, self.block_metas(dcfg), dcfg, seg,
-                               consts, x, block_stats=stats)[0]
+                               consts, x, plan=plan, block_stats=stats)[0]
         inner = whole_block_policy(dcfg.remat) == "none"
         blk = functools.partial(self._mamba_stack_fn, dcfg=dcfg,
                                 inner_remat=inner)
         return apply_stack(blk, self.block_metas(dcfg), dcfg, seg, consts, x,
-                           block_stats=stats,
+                           plan=plan, block_stats=stats,
                            remat=("none" if inner else "full",))[0]
 
     # ------------------------------------------------------ shared block --
@@ -382,10 +383,11 @@ class Zamba2LM:
                                          mb["targets"], mb["valid"])
         return loss
 
-    def loss_local(self, storage, batch, dcfg: DistConfig):
+    def loss_local(self, storage, batch, dcfg: DistConfig, plan=None):
         """Full superblocks, each followed by the shared block, then the
         trailing partial superblock (no shared block after it).  Returns
-        (this rank's masked mean loss, aux)."""
+        (this rank's masked mean loss, aux).  `plan`: the blocks' bucket
+        plan (`_run_stack`)."""
         state = self.stage_pre(storage, batch, dcfg)
         x, emb0 = state["x"], state["emb0"]
         consts = self.consts(x.shape[1], x.device)
@@ -397,7 +399,7 @@ class Zamba2LM:
         runs = tree_map(lambda a: a.split(sizes, 0), storage["blocks"])
         for g in range(len(sizes)):
             seg = tree_map(lambda parts: parts[g], runs)
-            x = self._run_stack(seg, consts, x, dcfg)
+            x = self._run_stack(seg, consts, x, dcfg, plan)
             if g < self.n_super:
                 x = shared_fn(storage["shared"], x, emb0)
         loss = self.stage_loss(storage, {"x": x, "emb0": emb0}, batch, dcfg)

@@ -4,7 +4,9 @@ global-norm clipping + AdamW + LR schedule.
 
 The steps are plain callables built from a `Parallelized` bundle
 (`core/api.py`); they run the plan's `exec_dcfg`, the config with the
-memory plan's resolved remat written back.  Storage and optimizer state
+memory plan's resolved remat written back, and hand the stack the blocks'
+bucket plan the `ParallelPlan` reports, so the plan that runs (and the
+error-feedback mask read from it) is the one `describe()` prints.  Storage and optimizer state
 are this rank's shards; a batch is global and each rank takes its rows.
 The logged loss is the mean over the data-parallel ranks, as the
 reference's `pmean`.
@@ -30,7 +32,7 @@ def _loss_and_grads(par, storage, batch):
     dcfg = par.plan.exec_dcfg
     params = [a.detach().requires_grad_() for a in leaves(storage)]
     loss = par.model.loss_local(unflatten_like(storage, params), batch,
-                                dcfg)[0]
+                                dcfg, par.plan.bucket_plan("blocks"))[0]
     grads = torch.autograd.grad(loss, params)
     return loss.detach(), unflatten_like(storage, grads)
 
@@ -54,8 +56,9 @@ def make_loss_step(par):
 def ef_mask(par):
     """Per storage leaf: whether its gradient is reduce-scattered at an
     ``*_ef`` precision, the leaves the error-feedback hop applies to.  A
-    stacked group's leaf takes its bucket's precision in the plan; every
-    other group gathers at the config's own precision ('auto': bf16)."""
+    stacked group's leaf takes its bucket's precision in the plan the
+    steps run; every other group gathers at the config's own precision
+    ('auto': bf16)."""
     dcfg = par.plan.exec_dcfg
     metas = par.model.metas(dcfg)
     prec = {n: default_precision(dcfg) for n, _ in named_leaves(metas)}

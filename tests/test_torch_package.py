@@ -175,8 +175,10 @@ def test_train_launcher_runs_the_planners_on_cpu(tmp_path):
     plan = r.stdout.splitlines()[0]
     assert plan.startswith("plan: mesh[data=1xmodel=1]")
     # at one rank every candidate costs 0, so the memory plan keeps the
-    # per-param partition (the smallest gathered peak), as the reference
-    assert " remat=auto:0.5 buckets[blocks:11] comm=auto " in plan
+    # per-param partition (the smallest gathered peak), as the reference;
+    # it is shown with the precisions it runs at (the reference's
+    # describe() omits them)
+    assert " remat=auto:0.5 buckets[blocks:11] comm=auto(bf16) " in plan
     assert " mem[remat[" in plan and "budget=0.50GiB" in plan
     losses = [float(l.split()[3]) for l in r.stdout.splitlines()
               if l.startswith("step ")]

@@ -17,7 +17,12 @@ only, on the CPU.
   * the llama3-8b rows of `benchmarks/results/BENCH_overlap.json` (16x16
     mesh, analytic stats at (1, 4096)) reproduced exactly under the TPU
     profile (the file is read, never written);
-  * the H100 profile is the default and prices differently.
+  * the H100 profile is the default and prices differently;
+  * the steps run the plan `plan_parallel` reports: the stack is handed
+    it, and a memory-plan override without precisions (the per-param
+    partition under comm_precision='auto') is reported with the
+    precisions the reference's stack attaches when it runs it, which the
+    error-feedback mask reads; a plan that takes host offload is refused.
 """
 
 import itertools
@@ -403,8 +408,11 @@ def test_runtime_plans_with_the_stats_plan_parallel_reports(arch):
                    comm_precision="auto")
     seen = []
 
+    plans = []
+
     def spy(*a, **kw):
         seen.append(kw["block_stats"].cache_key())
+        plans.append(kw["plan"])
         return stack.apply_stack(*a, **kw)
 
     mod = zamba2 if arch == "zamba2_1_2b" else dense
@@ -420,9 +428,74 @@ def test_runtime_plans_with_the_stats_plan_parallel_reports(arch):
         mp.undo()
     want = model.block_stats(d, (4, seq)).cache_key()
     assert seen and all(k == want for k in seen)
+    # the stack is handed the reported plan; it resolves none of its own
+    assert all(p is par.plan.bucket_plan("blocks") for p in plans)
     # and the plan those stats resolve is the one the plan reports
     assert bk.plan_for(model.block_metas(d), d,
                        model.block_stats(d, (4, seq)),
                        segments=getattr(model, "block_segments",
                                         lambda _: None)(d)) \
         == par.plan.bucket_plan("blocks")
+
+
+# budgets at which the search keeps the per-param partition (and takes
+# optimizer offload) at 8 ranks, B8, under the TPU profile
+OVERRIDE_BUDGETS = {"qwen3_1_7b": "auto:0.00035", "llama3_8b": "auto:0.0004",
+                    "zamba2_1_2b": "auto:0.00089"}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_memory_override_is_reported_as_it_runs(arch):
+    """dp 8, auto_dp + auto + auto:<GB>, where the memory plan keeps the
+    per-param partition: the MemoryPlan equals the reference's (its
+    override carries no precisions); the blocks' reported plan is that
+    partition with the precisions the reference's stack attaches when it
+    runs it (`plan_for` on exec_dcfg with the per-device stats), so
+    describe() is the reference's with them shown; the error-feedback
+    mask is `endswith('_ef')` of those precisions; and parallelize refuses
+    the plan, because it takes offload that no step executes."""
+    from types import SimpleNamespace
+    from repro_torch.core.api import parallelize
+    from repro_torch.core.meta import leaves
+    from repro_torch.train.train_step import ef_mask
+    _, jmodel = jax_get_arch(arch, smoke=True)
+    _, model = get_arch(arch, smoke=True)
+    seq = 40 if arch == "zamba2_1_2b" else 16
+    remat = OVERRIDE_BUDGETS[arch]
+    d = DistConfig(mesh_shape=(8, 1), bucket_mode="auto_dp",
+                   comm_precision="auto", remat=remat)
+    jd = JDistConfig(mesh_axes=("data", "model"), mesh_shape=(8, 1),
+                     bucket_mode="auto_dp", comm_precision="auto",
+                     remat=remat)
+    jp = jplan_parallel(jmodel, jd, JShapeConfig("t", seq, 8, "train"))
+    with hw.use_profile(hw.TPU_V5E):
+        p = plan_parallel(model, d, ShapeConfig("t", seq, 8, "train"))
+    jmem, mem = jp.memory, p.memory
+    assert jmem.bucket_plan is not None and jmem.bucket_plan.precisions \
+        is None and jp.bucket_plan("blocks").precisions is None
+    assert (mem.policy_spec, mem.peak_bytes, mem.offload_opt_state,
+            mem.bucket_plan.groups, mem.bucket_plan.precisions) == \
+        (jmem.policy_spec, jmem.peak_bytes, jmem.offload_opt_state,
+         jmem.bucket_plan.groups, None)
+    jmetas = jmodel.block_metas(jp.exec_dcfg)
+    want = jbk.plan_for(jmetas, jp.exec_dcfg,
+                        jmodel.block_stats(jp.exec_dcfg, (1, seq)))
+    got = p.bucket_plan("blocks")
+    assert (got.groups, got.precisions) == (want.groups, want.precisions)
+    assert any(q.endswith("_ef") for q in got.precisions)
+    shown = ",".join(sorted(set(want.precisions)))
+    assert p.describe() == jp.describe().replace(
+        " comm=auto ", f" comm=auto({shown}) ")
+    mask = ef_mask(SimpleNamespace(plan=p, model=model))
+    metas = model.block_metas(p.exec_dcfg)
+    flags = [False] * len(leaves(metas))
+    for grp, q in zip(got.index_groups(metas),
+                      got.group_precisions(metas, p.exec_dcfg)):
+        for i in grp:
+            flags[i] = q.endswith("_ef")
+    assert leaves(mask["blocks"]) == flags
+    assert not any(leaves({k: v for k, v in mask.items() if k != "blocks"}))
+    with pytest.raises(NotImplementedError, match="planned but not "
+                       "executed"):
+        parallelize(model, d, ShapeConfig("t", seq, 8, "train"),
+                    device="cpu")

@@ -32,8 +32,12 @@ the CPU, qwen3 smoke, fp32, one rank, the prefetch stack (reorder=True).
     the optimizer state exactly when `needs_ef`, and non-zero;
     comm_precision="auto" resolves (bf16 everywhere at one rank);
   * a per-bucket plan (bf16 / fp8_ef / int8_ag) on both schedules: the
-    first loss step against the reference's on the same plan, two chained
-    steps within the harness bounds, EF non-zero only in the fp8_ef
+    first loss step against the reference's on the same plan; two chained
+    steps within the harness bounds and against the reference's two steps
+    on the same plan, its error-feedback hop restricted to the fp8_ef
+    bucket's leaves as the port's (the reference quantizes every leaf
+    under 'auto'): losses and the bf16 / int8_ag leaves at TOL32, the
+    fp8_ef leaves within lr * steps / 2; EF non-zero only in the fp8_ef
     bucket;
   * a `Trainer` restart under fp8_ef ends bit-exact, EF included, and a
     checkpoint written by the reference's checkpointer (which drops EF)
@@ -577,12 +581,86 @@ def test_mixed_precision_plan_first_step_matches_reference(reorder):
     assert (quant_ops.quant_launches, quant_ops.dequant_launches) == (q0, d0)
 
 
+def _flat(tree, prefix=""):
+    """A nested dict -> {"a/b": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _replaced(tree, new, prefix=""):
+    """`tree` with the leaves `new` names replaced."""
+    return {k: _replaced(v, new, f"{prefix}{k}/") if isinstance(v, dict)
+            else new.get(f"{prefix}{k}", v) for k, v in tree.items()}
+
+
+def _masked_hop(names):
+    """The reference's error-feedback hop on the leaves `names` only (the
+    port's rule: *_ef buckets); the others pass through, their EF kept."""
+    def hop(grads, ef):
+        fg, fe = _flat(grads), _flat(ef)
+        gq, new_ef = _error_feedback({n: fg[n] for n in names},
+                                     {n: fe[n] for n in names})
+        return _replaced(grads, gq), _replaced(ef, new_ef)
+    return hop
+
+
+@functools.cache
+def _jax_two_steps_mixed(masked):
+    """The reference's 2 chained AdamW steps on the MIXED plan, its
+    error-feedback hop on every leaf (as it runs) or, `masked`, on the
+    fp8_ef bucket's leaves only; returns (losses, storage, opt state)."""
+    _, jmodel = jax_get_arch(ARCH, smoke=True)
+    storage, batch = _jax_storage()
+    jd = jax_single_device_config(
+        param_dtype=jnp.float32, reduce_dtype=jnp.float32,
+        comm_precision="auto",
+        bucket_mode=JBucketPlan(MIXED, MIXED_PRECISIONS))
+    mp = pytest.MonkeyPatch()
+    if masked:
+        mp.setattr(jadamw, "_error_feedback",
+                   _masked_hop([f"blocks/{n}" for n in MIXED[1]]))
+    try:
+        par = japi.parallelize(jmodel, jd, JShapeConfig("t", S, B, "train"))
+        fn = par.train_step(JAdamWConfig(lr=LR), donate=False)
+        st = jax.tree.map(jnp.asarray, storage)
+        opt = jinit_opt_state(st, jd)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        losses = []
+        for _ in range(STEPS):
+            st, opt, met = fn(st, opt, jb)
+            losses.append(float(met["loss"]))
+    finally:
+        mp.undo()
+    return losses, jax.tree.map(np.asarray, st), jax.tree.map(np.asarray,
+                                                               opt)
+
+
 def test_mixed_precision_plan_trains_within_harness_bounds():
     """Two chained AdamW steps of the per-bucket plan (prefetch) within
     the harness bounds of the reference's bf16 run, as the uniform
-    quantized cases; the error-feedback accumulator is non-zero exactly
-    in the fp8_ef bucket's leaves (the hop applies to *_ef buckets only;
-    the other groups gather at 'auto''s default, bf16)."""
+    quantized cases, and against the reference's two steps on the SAME
+    plan with its error-feedback hop restricted to the fp8_ef bucket's
+    leaves, the port's rule (the reference applies it to every leaf under
+    'auto'):
+
+      * losses and the leaves of the bf16 and int8_ag buckets, and the
+        leaves outside the stack, at TOL32 (their gradients differ in
+        summation order, and through the loss in the fp8_ef leaves);
+      * the fp8_ef bucket's leaves within lr * steps / 2: the two
+        packages' stochastic rounding dithers their gradients by up to two
+        e4m3 steps (relative 2^-2, the first-step bound), and AdamW's step
+        lr * m/sqrt(v) is invariant to the gradients' scale, so a relative
+        change e moves it by about e * lr a step; the bound is twice that;
+      * the error-feedback accumulator is non-zero exactly in the fp8_ef
+        bucket's leaves, in both.
+
+    Against the reference as it runs (the hop on every leaf), the bf16 /
+    int8_ag leaves miss TOL32: the rule is the difference, measured."""
     want_losses, want_st, _ = _jax_two_steps()
     losses, st, opt, dcfg = _port_two_steps(
         "auto", bucket_mode=BucketPlan(MIXED, MIXED_PRECISIONS))
@@ -590,9 +668,30 @@ def test_mixed_precision_plan_trains_within_harness_bounds():
     drift = max(float(np.abs(a.numpy() - b).max()) for (_, a), (_, b) in
                 zip(named_leaves(st), named_leaves(want_st)))
     assert drift <= 4.0 * LR * STEPS, drift
+    ef_names = {f"blocks/{n}" for n in MIXED[1]}
     ef_leaves = {n for n, a in named_leaves(opt["ef"])
                  if float(a.abs().max()) > 0}
-    assert ef_leaves == {f"blocks/{n}" for n in MIXED[1]}
+    assert ef_leaves == ef_names
+
+    same_losses, same_st, same_opt = _jax_two_steps_mixed(True)
+    np.testing.assert_allclose(losses, same_losses, **TOL32)
+    got, want = named_leaves(st), named_leaves(same_st)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (n, a), (_, b) in zip(got, want):
+        if n in ef_names:
+            diff = float(np.abs(a.numpy() - b).max())
+            assert diff <= LR * STEPS / 2, (n, diff)
+        else:
+            np.testing.assert_allclose(a.numpy(), b, err_msg=n, **TOL32)
+    assert {n for n, a in named_leaves(same_opt["ef"])
+            if np.abs(a).max() > 0} == ef_names
+
+    _, all_st, all_opt = _jax_two_steps_mixed(False)
+    assert {n for n, a in named_leaves(all_opt["ef"])
+            if np.abs(a).max() > 0} == {n for n, _ in named_leaves(st)}
+    ports = dict(named_leaves(st))
+    assert not all(np.allclose(ports[n].numpy(), b, **TOL32)
+                   for n, b in named_leaves(all_st) if n not in ef_names)
 
 
 def _trainer(ckpt_dir, failures=None, steps=4):
