@@ -116,6 +116,21 @@ without printing the final line):
  10e. planner lines: zamba2-1.2b's resolved plans and modeled peaks, the
      H100 profile's HBM size beside the card's total memory, pinned 1 GiB
      host <-> device copies beside the profile's host DMA rate.
+ 10f. full-width observability (the main path of the ninth slice): 10c's
+     configuration through `Trainer.run` for OBS_STEPS steps with
+     replan_threshold 0, patience 2, no apply: the drift report (the H100
+     prior's modeled step beside the measured one), `train/steps`, wire
+     bytes by precision equal to `step_wire_metrics` x steps, a replan
+     delta, the profile's segment ms beside their modeled ms and scales,
+     the closure factor, fp8 and int8 rates from the CUDA codec (its
+     launch counts rose in each harvest) beside the analytic prior, no
+     collective bandwidth at world size 1, the calibrated step within 2%
+     of the wall, and the trace (build/obs/) whose non-overlapped comm
+     equals exposed_s exactly.
+ 10g. smoke replan on the card: qwen3 SMOKE bf16 through `Trainer` with
+     replan_apply: every changed replan is applied (save,
+     `parallelize(plan=...)`, restore), the loop ends at its last step on
+     the last applied plan.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -1524,6 +1539,199 @@ def phase_planner_lines(state):
     state["planner"] = dict(total_memory=total, copy_rates=rates)
 
 
+# the observability phases: steps of the Trainer's loop; the smoke replan's
+# workload (qwen3 SMOKE, bf16)
+OBS_STEPS, REPLAN_STEPS, REPLAN_B, REPLAN_T = 4, 5, 4, 64
+
+
+def _obs_trainer(model, dcfg, shape, steps, ckpt, apply, jsonl=None):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    return Trainer(model, dcfg, shape, AdamWConfig(), TrainerConfig(
+        total_steps=steps, ckpt_every=steps, log_every=1, warmup=10,
+        ckpt_dir=ckpt, metrics_jsonl=jsonl, replan_threshold=0.0,
+        replan_patience=2, replan_apply=apply), device="cuda")
+
+
+def phase_full_obs(state):
+    """qwen3-1.7b B4 T2048 through `Trainer` at the auto-planned phase's
+    configuration (auto_dp + auto + remat auto:AUTO_BUDGET_GB), OBS_STEPS
+    steps with replan_threshold 0 and patience 2, replan_apply off: every
+    step in the registry and the drift monitor, a `profile_step` of the
+    executed plan at each replan (segments, both codecs, the wall the loop
+    measured), the calibrated replan's delta, and the trace with the
+    measured overlay.  The loop's final checkpoint (~27 GB at full width)
+    is skipped: nothing here restarts from it."""
+    import math
+    import tempfile
+    from repro_torch.core import hw
+    from repro_torch.core.autowrap import exposed_comm_time
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.core.obs import (calibrated_step_time,
+                                      nonoverlapped_comm_s, plan_trace)
+    from repro_torch.core.obs import profile as obs_profile
+    from repro_torch.kernels.quant import ops as quant_ops
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train.train_step import step_wire_metrics
+    if hw.active() is not hw.H100:
+        raise AssertionError(f"planning with {hw.active().name}, not H100")
+    _, model = get_arch("qwen3_1_7b")
+    shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
+    dcfg = DistConfig(bucket_mode="auto_dp", comm_precision="auto",
+                      remat=f"auto:{AUTO_BUDGET_GB}")
+    out = ROOT / "build" / "obs"
+    out.mkdir(parents=True, exist_ok=True)
+    jsonl = out / "metrics.jsonl"
+    jsonl.unlink(missing_ok=True)
+    # the quant launches of each harvest, so the codec timed is the kernel
+    harvests = []
+    real = obs_profile.harvest_quant_timing
+
+    def harvest(elems, codec="fp8", **kw):
+        before = (quant_ops.quant_launches, quant_ops.dequant_launches)
+        q = real(elems, codec=codec, **kw)
+        harvests.append((codec, before, (quant_ops.quant_launches,
+                                         quant_ops.dequant_launches), q))
+        return q
+    obs_profile.harvest_quant_timing = harvest
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            tr = _obs_trainer(model, dcfg, shape, OBS_STEPS, ckpt, False,
+                              str(jsonl))
+            tr._save = lambda *a: None
+            say(f"plan: {tr.plan.describe()}")
+            say(f"  H100 prior's modeled step {tr._modeled_step_s * 1e3:.3f}"
+                " ms (modeled_step_time)")
+            _reset_counts()
+            storage, opt_state, _ = tr.run()
+            counts = _train_counts()
+            del storage, opt_state
+    finally:
+        obs_profile.harvest_quant_timing = real
+    state["train_obs_launches"] = counts
+    say(f"  launches over {OBS_STEPS} steps and "
+        f"{len(tr.replans)} profiles: {counts}")
+    if min(counts[k] for k in ("rmsnorm", "flash", "xent_fwd", "xent_bwd",
+                               "adamw", *QUANT)) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{counts}")
+    say(tr.drift.report())
+    r, prof = tr.registry, tr.profile
+    steps = r.counter("train/steps").value
+    if steps != OBS_STEPS:
+        raise AssertionError(f"train/steps {steps} != {OBS_STEPS}")
+    wire = step_wire_metrics(model, tr.plan)["by_precision"]
+    got = {k: r.counter(f"train/wire_bytes/{k}").value for k in wire}
+    say(f"  wire bytes by precision over {OBS_STEPS} steps: {got}")
+    if got != {k: v * OBS_STEPS for k, v in wire.items()}:
+        raise AssertionError(f"wire bytes {got} != {OBS_STEPS} x {wire}")
+    if not tr.replans or r.counter("replan/count").value < 1:
+        raise AssertionError("no replan delta was recorded")
+    if sorted(prof.seg_scales) != ["attn", "mlp"] or not all(
+            math.isfinite(v) and v > 0 for v in prof.seg_scales.values()):
+        raise AssertionError(f"segment scales {prof.seg_scales}")
+    g = prof.meta["closure_factor"]
+    say(f"  profile ({prof.meta['backend']}): wall step "
+        f"{prof.wall_step_s * 1e3:.3f} ms (the loop's), closure factor "
+        f"{g!r}")
+    for sp in prof.spans:
+        if sp["cat"] == "compute":
+            seg = sp["segment"]
+            say(f"  segment {seg}: measured {sp['dur_s'] * 1e3:.4f} ms, "
+                f"modeled {sp['modeled_s'] * 1e3:.4f} ms (H100 roofline), "
+                f"measured / modeled {sp['dur_s'] / sp['modeled_s']:.4f}, "
+                f"scale with closure {prof.seg_scales[seg]:.4f}")
+    prior = hw.active().hbm_bandwidth / 2.0
+    for codec, rate in sorted(prof.quant_rates.items()):
+        say(f"  codec {codec}: measured {rate / 1e9:.2f} GB/s of bf16 "
+            f"input, analytic prior {prior / 1e9:.2f} GB/s "
+            f"(HBM / 2): {rate / prior:.4f} of it")
+    if sorted(prof.quant_rates) != ["fp8", "int8"]:
+        raise AssertionError(f"quant rates {prof.quant_rates}")
+    for codec, before, after, q in harvests:
+        times = [(x["n_elems"], round(x["t_us"], 2)) for x in q["samples"]]
+        say(f"  harvest {codec}: {times} (elements, us); quant / dequant "
+            f"launches {before} -> {after}")
+        if not (after[0] > before[0] and after[1] > before[1]):
+            raise AssertionError(f"{codec}: the CUDA codec was not timed")
+    if prof.comm_bandwidth != {}:
+        raise AssertionError(f"one card measured a collective bandwidth: "
+                             f"{prof.comm_bandwidth}")
+    closed = calibrated_step_time(model, tr.plan, shape, prof)
+    say(f"  calibrated step {closed * 1e3:.3f} ms against the wall "
+        f"{prof.wall_step_s * 1e3:.3f} ms: "
+        f"{abs(closed / prof.wall_step_s - 1):.3e} off")
+    if abs(closed - prof.wall_step_s) > 0.02 * prof.wall_step_s:
+        raise AssertionError("calibration does not close within 2%")
+    for d in tr.replans:
+        say(f"  replan at step {d['step']}: changed={d['changed']} "
+            f"fields={d['fields']} modeled before "
+            f"{d['modeled_step_before_s'] * 1e3:.3f} ms, after "
+            f"{d['modeled_step_after_s'] * 1e3:.3f} ms")
+        say(f"    before: {d['before']}")
+        say(f"    after:  {d['after']}")
+    prof.save(str(out / "profile.json"))
+    tb = plan_trace(model, tr.plan, shape, profile=prof)
+    tb.save(str(out / "trace.json"))
+    d = tr.plan.dcfg
+    stats = model.block_stats(d, (TRAIN_B, TRAIN_T))
+    exposed = exposed_comm_time(tr.plan.bucket_plan("blocks"),
+                                model.block_metas(d), d, stats,
+                                segments=model.block_segments(d))
+    doc = json.loads((out / "trace.json").read_text())
+    got = nonoverlapped_comm_s(doc)
+    say(f"  trace build/obs/trace.json: {len(tb.events)} events; "
+        f"non-overlapped comm {got!r} s, exposed_s {exposed['exposed_s']!r}")
+    if got != exposed["exposed_s"]:
+        raise AssertionError("the trace's non-overlapped comm is not "
+                             "exposed_s")
+    state["obs"] = dict(modeled_step_s=tr._modeled_step_s,
+                        wall_step_s=prof.wall_step_s, closure=g,
+                        seg_scales=prof.seg_scales,
+                        quant_rates=prof.quant_rates,
+                        replans=len(tr.replans))
+
+
+def phase_smoke_replan(state):
+    """qwen3 SMOKE, bf16, through `Trainer` on the card with
+    replan_threshold 0, patience 2 and replan_apply: the apply path (save,
+    `parallelize(plan=...)`, restore) runs, and the loop trains to its
+    last step on the replanned plan."""
+    import tempfile
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    _, model = get_arch("qwen3_1_7b", smoke=True)
+    shape = ShapeConfig("train", REPLAN_T, REPLAN_B, "train")
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr = _obs_trainer(model, DistConfig(), shape, REPLAN_STEPS, ckpt,
+                          True)
+        _reset_counts()
+        tr.run()
+        counts = _train_counts()
+    state["smoke_replan_launches"] = counts
+    for d in tr.replans:
+        say(f"  replan at step {d['step']}: changed={d['changed']} "
+            f"applied={d['applied']} fields={d['fields']}")
+        say(f"    after: {d['after']}")
+    steps = tr.registry.counter("train/steps").value
+    applied = [d for d in tr.replans if d["applied"]]
+    say(f"  train/steps {steps}; {len(applied)} of {len(tr.replans)} "
+        f"replans applied; launches {counts}")
+    if steps != REPLAN_STEPS:
+        raise AssertionError(f"train/steps {steps} != {REPLAN_STEPS}")
+    if not applied or any(d["applied"] != d["changed"] for d in tr.replans):
+        raise AssertionError("the apply path did not run on every changed "
+                             "replan")
+    if tr.plan.describe() != applied[-1]["after"]:
+        raise AssertionError("the trainer does not run the replanned plan")
+    if min(counts[k] for k in ("rmsnorm", "flash", "xent_fwd", "xent_bwd",
+                               "adamw")) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{counts}")
+
+
 def _ssd_flops(b, t, h, p, n, lc):
     """FLOPs of one SSD chunk-scan forward: per (b, h) and chunk, the
     causal lower triangle of C B^T (2N a pair) and of its product with x (2P
@@ -2211,7 +2419,8 @@ def kernels_line(state):
     (fp8_ef, the prefetch stack) for the first seven, which it runs all,
     and the full-width zamba2 training for the ssd rows; `launches_by_path`
     adds the serving run's, the bf16 qwen3 training runs' (vanilla,
-    prefetch, auto-planned, mixed precision) and the zamba2 run's counts.  flash_attention_f32 and
+    prefetch, auto-planned, mixed precision, observability), the smoke
+    replan's and the zamba2 run's counts.  flash_attention_f32 and
     ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
     smoke training runs' counts.  A count is one call of the kernel's
@@ -2228,7 +2437,9 @@ def kernels_line(state):
         by_path = dict(train=train[key], train_prefetch=prefetch[key],
                        train_fp8_ef=main[key], train_zamba2=zamba[key],
                        train_auto=state["train_auto_launches"][key],
-                       train_mixed=state["train_mixed_launches"][key])
+                       train_mixed=state["train_mixed_launches"][key],
+                       train_obs=state["train_obs_launches"][key],
+                       smoke_replan=state["smoke_replan_launches"][key])
         if serve_key:
             by_path["serve"] = serve[serve_key]
         if key == "flash_f32":
@@ -2302,7 +2513,9 @@ def main() -> int:
                          phase_full_auto_train),
                         ("full-width mixed-precision training",
                          phase_full_mixed_train),
-                        ("planner lines", phase_planner_lines)]:
+                        ("planner lines", phase_planner_lines),
+                        ("full-width observability", phase_full_obs),
+                        ("smoke replan on the card", phase_smoke_replan)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

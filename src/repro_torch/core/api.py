@@ -14,7 +14,7 @@
     policy vector (and any retightened buckets) written back.
   * **`parallelize(model, dcfg, shape)`** — returns a `Parallelized`
     bundle: the plan, the process group, storage init and the loss /
-    train steps (`train/train_step.py`).
+    train steps (`train/train_step.py`); `plan=` runs a pre-built plan.
 
 `shard_params` / `unshard_params` are the one full <-> storage layout
 transform (stacked-aware).
@@ -234,14 +234,18 @@ class Parallelized:
         return TS.make_train_step(self, ocfg, lr_schedule)
 
 
-def parallelize(model, dcfg: DistConfig, shape=None,
-                device="cuda") -> Parallelized:
+def parallelize(model, dcfg: DistConfig, shape=None, device="cuda",
+                plan: ParallelPlan | None = None) -> Parallelized:
     """The paper's one-line wrap, resolved for (model, dcfg[, shape]) on
-    `device` (CUDA unless the caller asks for the CPU).  Raises when the
-    memory plan takes host offload, which no step executes (its modeled
-    peak would not be the step's)."""
+    `device` (CUDA unless the caller asks for the CPU).  Pass a pre-built
+    `plan` (a replan's, `core/obs/calibrate.replan`) to skip re-resolution;
+    it must describe the same dcfg.  Raises when the memory plan takes
+    host offload, which no step executes (its modeled peak would not be
+    the step's)."""
     dev = resolve_device(device)
-    plan = plan_parallel(model, dcfg, shape)
+    plan = plan if plan is not None else plan_parallel(model, dcfg, shape)
+    if plan.dcfg is not dcfg and plan.dcfg != dcfg:
+        raise ValueError("plan was resolved for a different DistConfig")
     mem = plan.memory
     if mem is not None and (mem.offload_opt_state or mem.offload_residuals):
         raise NotImplementedError(

@@ -7,6 +7,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 3 --bucket-mode auto_dp --comm-precision auto \\
       --remat auto:0.5
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 4 --metrics-jsonl m.jsonl --profile-out p.json \\
+      --replan-threshold 0 --replan-patience 2 --replan-apply
 
 Runs on the card unless `--device cpu` is given.  At world size 1 it
 creates its own one-rank process group on an in-process store (no
@@ -17,9 +20,12 @@ schedule is the reference's: the bucket+reorder prefetch stack;
 auto|auto_dp` runs the bucket planners, `--comm-precision auto` picks a
 wire precision per bucket, and `--remat auto:<GB>` lets the memory plan
 choose the remat policy under a per-device budget; the printed plan shows
-the choices (`comm=auto(...)`, `mem[...]`).  The reference's
-observability and replanning flags are accepted and raise "not yet
-ported".
+the choices (`comm=auto(...)`, `mem[...]`).  `--metrics-jsonl` appends the
+metrics registry every step; `--replan-threshold` arms profile-guided
+replanning (`--replan-apply` restarts onto the new plan); after the run
+the launcher prints the drift report and the last replan, and writes the
+measured profile (`--profile-out`) and a Chrome trace of the plan
+(`--trace-out`, or `<profile-out>.trace.json` with the measured overlay).
 """
 
 from __future__ import annotations
@@ -34,8 +40,6 @@ import torch
 from repro_torch.core.dist import COMM_PRECISIONS
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_OBS_FLAGS = ("metrics_jsonl", "trace_out", "profile_out",
-              "replan_threshold")
 
 
 def parse_args(argv=None):
@@ -75,10 +79,29 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train"))
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--metrics-jsonl", default=None)
-    ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--profile-out", default=None)
-    ap.add_argument("--replan-threshold", type=float, default=None)
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append a metrics-registry snapshot (step time, "
+                         "tokens/s, wire bytes, drift gauges) here every "
+                         "step (core/obs)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome/Perfetto trace of the executed "
+                         "plan's modeled timeline here after the run "
+                         "(core/obs.plan_trace)")
+    ap.add_argument("--profile-out", default=None,
+                    help="after the run, write the MeasuredProfile JSON "
+                         "here (the last replan's, else a profile_step of "
+                         "the executed plan) plus a modeled-vs-measured "
+                         "overlay trace next to it "
+                         "(<profile-out>.trace.json)")
+    ap.add_argument("--replan-threshold", type=float, default=None,
+                    help="arm profile-guided replanning: |rel| step-time "
+                         "drift above this for --replan-patience "
+                         "consecutive steps triggers profile_step + replan "
+                         "(core/obs)")
+    ap.add_argument("--replan-patience", type=int, default=3)
+    ap.add_argument("--replan-apply", action="store_true",
+                    help="restart the loop onto the replanned ParallelPlan "
+                         "(default: log the delta only)")
     return ap.parse_args(argv)
 
 
@@ -89,13 +112,6 @@ def build_trainer(args):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    unported = [f"--{f.replace('_', '-')}" for f in _OBS_FLAGS
-                if getattr(args, f) is not None]
-    if unported:
-        raise NotImplementedError(
-            f"{unported}: the observability slice (metrics registry, "
-            "traces, profile-guided replanning) is not yet ported to "
-            "repro_torch")
     if args.pp > 1 or args.cp > 1:
         raise NotImplementedError(
             f"--pp {args.pp} / --cp {args.cp}: pipeline and context "
@@ -112,7 +128,11 @@ def build_trainer(args):
     _, model = get_arch(args.arch, smoke=args.smoke)
     shape = ShapeConfig("train", args.seq, args.batch, "train")
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=args.steps,
-                         log_every=1, warmup=10, ckpt_dir=args.ckpt_dir)
+                         log_every=1, warmup=10, ckpt_dir=args.ckpt_dir,
+                         metrics_jsonl=args.metrics_jsonl,
+                         replan_threshold=args.replan_threshold,
+                         replan_patience=args.replan_patience,
+                         replan_apply=args.replan_apply)
     return Trainer(model, dcfg, shape, AdamWConfig(lr=args.lr), tcfg,
                    device=args.device)
 
@@ -127,7 +147,43 @@ def main(argv=None):
         print(f"step {h['step']} loss {h['loss']:.6f} grad_norm "
               f"{h['grad_norm']:.6f} lr {h['lr']:.3e} {h['dt'] * 1e3:.1f}ms")
     print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    report_obs(trainer, args)
     return trainer, hist
+
+
+def report_obs(trainer, args):
+    """What the reference's launcher prints after a run: the drift report,
+    the last replan, and the profile and trace files it writes."""
+    from repro_torch.core.obs import plan_trace, profile_step
+    if trainer.drift.records:
+        print(trainer.drift.report())
+    if trainer.replans:
+        last = trainer.replans[-1]
+        print(f"replan: changed={last['changed']} "
+              f"applied={last['applied']} gain={last['modeled_gain_s']}")
+    profile = trainer.profile
+    if args.profile_out and profile is None:
+        # reuse the measured wall from the run so the profiler only has to
+        # time segments and codecs, not re-drive full steps
+        rows = trainer.drift.records.get("step_time", [])
+        wall = rows[-1]["measured"] if rows else None
+        profile = profile_step(trainer.model, trainer.plan, trainer.shape,
+                               wall_step_s=wall, device=trainer.par.device)
+    if trainer.par.mesh.rank != 0:
+        return                      # every rank profiles; rank 0 writes
+    if args.profile_out:
+        profile.save(args.profile_out)
+        print(f"profile: {args.profile_out} "
+              f"(wall {profile.wall_step_s:.4f}s, "
+              f"{len(profile.spans)} spans)")
+    if args.trace_out or args.profile_out:
+        out = args.trace_out or f"{args.profile_out}.trace.json"
+        tb = plan_trace(trainer.model, trainer.plan, trainer.shape,
+                        profile=profile)
+        tb.save(out)
+        print(f"trace: {out} ({len(tb.events)} events; "
+              f"{'overlay' if profile is not None else 'modeled only'}; "
+              f"open in Perfetto)")
 
 
 if __name__ == "__main__":

@@ -27,6 +27,33 @@ from repro_torch.optim.adamw import AdamWConfig, apply_adamw, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
 
 
+def step_wire_metrics(model, plan) -> dict:
+    """Per-step collective wire-byte accounting by comm precision, straight
+    from the plan's own bucket groups and precision assignments — the
+    numbers `Trainer` mirrors into `train/wire_bytes/<prec>` counters each
+    step.  Host math only: {"total_bytes", "by_precision"}."""
+    from repro_torch.core.autowrap import _cfg_precision
+    from repro_torch.core.irgraph import build_nodes
+
+    dcfg = plan.dcfg
+    metas = model.metas(dcfg)
+    by_prec: dict[str, float] = {}
+    total = 0.0
+    for key, bplan in plan.bucket_plans.items():
+        if key not in metas:
+            continue
+        nodes = {n.name: n for n in build_nodes(metas[key], dcfg, None)}
+        precs = bplan.precisions or \
+            [_cfg_precision(dcfg)] * len(bplan.groups)
+        mult = max(1, plan.stacked_keys.get(key, 1))
+        for grp, prec in zip(bplan.groups, precs):
+            wire = sum(nodes[n].ag_wire(prec) + nodes[n].rs_wire(prec)
+                       for n in grp if n in nodes) * mult
+            by_prec[prec] = by_prec.get(prec, 0.0) + wire
+            total += wire
+    return {"total_bytes": total, "by_precision": by_prec}
+
+
 def _loss_and_grads(par, storage, batch):
     """(loss, grads) of the model's local loss w.r.t. every storage leaf."""
     dcfg = par.plan.exec_dcfg

@@ -4,6 +4,7 @@ from the kernel build, and its launchers (serve and train) run end to end
 on the CPU."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -56,6 +57,9 @@ def test_imports_neither_jax_nor_the_reference():
         "          'core.bucketing', 'core.memory', 'core.memory.simulator',\n"
         "          'core.memory.planner', 'core.memory.offload',\n"
         "          'train.trainer', 'launch.train', 'checkpoint.checkpointer',\n"
+        "          'core.obs', 'core.obs.metrics', 'core.obs.drift',\n"
+        "          'core.obs.trace', 'core.obs.calibrate', 'core.obs.profile',\n"
+        "          'launch.dryrun',\n"
         "          'data.pipeline', 'ft.failures', 'optim.adamw'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
@@ -187,11 +191,8 @@ def test_train_launcher_runs_the_planners_on_cpu(tmp_path):
 
 def test_train_launcher_refuses_what_is_not_ported(monkeypatch, tmp_path):
     base = ["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
-    for extra, match in ((["--no-reorder", "--metrics-jsonl", "x"],
-                          "observability"),
-                         (["--no-reorder", "--replan-threshold", "0.1"],
-                          "observability"),
-                         (["--no-reorder", "--pp", "2"], "pipeline"),
+    for extra, match in ((["--no-reorder", "--pp", "2"], "pipeline"),
+                         (["--no-reorder", "--cp", "2"], "context"),
                          (["--no-reorder", "--mesh", "1,2"], "tp=2")):
         with pytest.raises(NotImplementedError, match=match):
             launch_train.main(base + extra)
@@ -237,3 +238,34 @@ def test_quantized_prefetch_training_runs_on_cpu_without_the_build(
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
     assert (quant_ops.quant_launches, quant_ops.dequant_launches) == before
     assert (tmp_path / "step_00000002" / "ef__blocks__mlp__wg.npy").exists()
+
+
+def test_train_launcher_obs_flags_write_their_files(tmp_path):
+    """--metrics-jsonl, --trace-out, --profile-out and --replan-threshold /
+    --replan-patience / --replan-apply on the CPU: a registry line a step,
+    the profile JSON, the trace, the drift report and the replan line."""
+    out = {k: tmp_path / f"{k}" for k in ("m.jsonl", "p.json", "t.json")}
+    r = _run(["-m", "repro_torch.launch.train", "--smoke", "--device",
+              "cpu", "--steps", "4", "--seq", "16", "--batch", "4",
+              "--dtype", "float32", "--ckpt-dir", str(tmp_path / "ck"),
+              "--metrics-jsonl", str(out["m.jsonl"]),
+              "--profile-out", str(out["p.json"]),
+              "--trace-out", str(out["t.json"]), "--replan-threshold", "0",
+              "--replan-patience", "2", "--replan-apply"])
+    assert r.returncode == 0, r.stderr
+    rows = [json.loads(l) for l in out["m.jsonl"].read_text().splitlines()]
+    assert [row["step"] for row in rows] == [1, 2, 3, 4]
+    m = rows[-1]["metrics"]
+    assert m["train/steps"]["value"] == 4 and m["replan/count"]["value"] >= 1
+    prof = json.loads(out["p.json"].read_text())
+    assert prof["wall_step_s"] > 0 and set(prof["seg_scales"]) == \
+        {"attn", "mlp"}
+    doc = json.loads(out["t.json"].read_text())
+    assert {e["pid"] for e in doc["traceEvents"]} == {1, 2}   # + overlay
+    lines = r.stdout.splitlines()
+    assert any(l.startswith("drift report (4 observations)") for l in lines)
+    assert any(l.startswith("replan: changed=True applied=True")
+               for l in lines)
+    assert any(l.startswith(f"profile: {out['p.json']}") for l in lines)
+    assert any(l.startswith(f"trace: {out['t.json']}") and "overlay" in l
+               for l in lines)
