@@ -131,6 +131,40 @@ without printing the final line):
      replan_apply: every changed replan is applied (save,
      `parallelize(plan=...)`, restore), the loop ends at its last step on
      the last applied plan.
+ 10h. moe kernels vs plain (the main path of the tenth slice, the moe
+     family): bf16 flash at qwen3-moe-30b-a3b's attention (B 4, T 2048,
+     H 32 on Kh 4: a GQA group of 8) against its plain version at TOL and
+     FLASH_BF16_RMS_REL with its two planted faults, beside SDPA and the
+     bound; its training gradient (kernel forward, plain fp32 backward)
+     against autograd through the plain version; AdamW at the path's
+     largest leaf (4 layers of a 128-expert stack, 805,306,368 elements).
+ 10i. moe smoke, card vs CPU: both moe SMOKE configs, fp32, 3 steps of the
+     launcher's trainer on the vanilla and the prefetch stack from one
+     CPU-made checkpoint (losses, grad norms, storage at TOL32; the expert
+     ids of every dispatch equal; no choice dropped), a bit-exact prefetch
+     restart, a loss step at capacity_factor 1.0 with the aux in the loss
+     (loss, aux, drop count, gradients at TOL32), prefill and 4 decode
+     steps card vs CPU, and on the card prefill over p+1 tokens against
+     prefill over p + one decode step, with no choice dropped.
+ 10j. full-width qwen3-moe-30b-a3b training: every published width, 4 of
+     48 layers (MOE_TRAIN_LAYERS), B 4, T 2048, bf16 compute, fp32 storage,
+     the prefetch stack at a bf16 wire: the readings of 8 with MFU on the
+     active FLOPs (k experts a token), the executed routed-expert FLOPs
+     apart, the modeled peak and step (H100 profile) beside the measured,
+     the drop share and the aux; then one forward pass on the last batch
+     and one on uniform random tokens read the router (drop share by
+     layer; in layer 0 the experts' occupancy, the logit spread across
+     tokens and across experts, the common share of the router's input and
+     of the embeddings).  The drop share and the readings that explain it
+     are held to bands (MOE_DROP_BAND and the two beside it).
+ 10k. full-width qwen2-moe-a2.7b training: the same at 4 of 24 layers (60
+     experts padded to 64, top-4 unnormalised, the gated shared expert).
+ 10l. full-width qwen3-moe-30b-a3b serving at all 48 layers: bf16 weights
+     made on the card, B 4, prompt 2000 padded to T 2064, 64 generated
+     tokens; prefill ms, decode ms/token beside the decode step's byte
+     bound (every routed expert is read: the capacity dispatch at T = B),
+     the prefill's drop share (held to MOE_PREFILL_DROP_BAND) by layer,
+     device time a decode step.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -151,6 +185,7 @@ bounds of tests/dist_harness.py's quant case (QUANT_LOSS_RTOL, drift).
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -239,22 +274,32 @@ def time_ms(fn, budget_s=0.3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n=20):
-    """Device kernel time per call of fn (torch.profiler): what time_ms
-    reads less the host's cost of issuing the call, where that cost is the
-    larger.  None where the profiler saw no kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, bound, n=20):
+    """Device ms per call of fn: CUDA events around n calls queued behind a
+    sleep kernel (about 0.1 s), so that the host has issued every call
+    before the first one runs and the reading holds none of the host's
+    time.  Raises where the sleep ended before the host had issued the
+    calls, or the reading falls below `bound`, the least time the calls'
+    work can take on the card.  (torch.profiler's kernel events are not
+    summed here: they lose launches, 15 of 20 flash calls in one window.)"""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / n / 1e3 if us else None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2 * 10 ** 8)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    ahead = not start.query()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    if not ahead or ms < bound:
+        raise AssertionError(
+            f"device reading {ms:.4f} ms against the bound {bound:.4f} ms"
+            + ("" if ahead else "; the sleep ended before the host had "
+               "issued the calls"))
+    return ms
 
 
 def max_err(got, want):
@@ -498,7 +543,7 @@ def phase_kernels(state):
         t_ops, t_bytes = 4 * x.numel() / PEAK_FLOPS[torch.float32], \
             nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
-        on_card = device_ms(lambda: rms_ops.rmsnorm(x, w, 1e-5, uo))
+        on_card = device_ms(lambda: rms_ops.rmsnorm(x, w, 1e-5, uo), bound)
         say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
             f"({nbytes / ms / 1e6:.0f} GB/s); device {_ms(on_card)}")
         if i == 0:
@@ -547,17 +592,6 @@ def phase_kernels(state):
             err = check_rms(name, got, want, FLASH_BF16_RMS_REL)
             check_flash_plants(name, q, k, v, want, **kw)
         del got, want
-        fwd = lambda: flash_ops.flash_attention(q, k, v, **kw)
-        ms = time_ms(fwd)
-        on_card = device_ms(fwd)
-        plain = time_ms(lambda: flash_ref.attention(q, k, v, **kw))
-        lib = lib_dev = None
-        if sdpa:
-            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-            sdpa_fn = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
-            lib = time_ms(sdpa_fn)
-            lib_dev = device_ms(sdpa_fn)
         # work this input needs: unmasked (q, k) pairs, 4*hd flops each
         qi = torch.arange(s, device=dev)[:, None]
         ki = torch.arange(s, device=dev)[None, :]
@@ -569,6 +603,17 @@ def phase_kernels(state):
         flops = 4.0 * hd * b * h * keep.sum().item()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         bound, by = _bound(nbytes, flops, dt, products=True)
+        fwd = lambda: flash_ops.flash_attention(q, k, v, **kw)
+        ms = time_ms(fwd)
+        on_card = device_ms(fwd, bound)
+        plain = time_ms(lambda: flash_ref.attention(q, k, v, **kw))
+        lib = lib_dev = None
+        if sdpa:
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            sdpa_fn = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+            lib = time_ms(sdpa_fn)
+            lib_dev = device_ms(sdpa_fn, bound)
         route = ("wgmma, flash_attention_sm90.cu" if dt == torch.bfloat16
                  else "TF32 mma.sync x3, flash_attention.cu")
         say(f"    {ms:.4f} / {plain:.4f} / {_ms(lib)} / {bound:.4f} ({by}; "
@@ -963,24 +1008,25 @@ def phase_quant_kernels(state):
                           (torch.float32, "fp8", False)):
         x = _codec_input(bucket, dt, seed=3)
         q, sc = qops.quantize_cuda(x, codec, sr)
-        quant = lambda: qops.quantize_cuda(x, codec, sr)
-        ms_q, dev_q = time_ms(quant), device_ms(quant)
-        plain_q = time_ms(lambda: qref.quantize(x, codec, sr))
-        deq = lambda: qops.dequantize_cuda(q, sc, bucket, x.shape, dt)
-        ms_d, dev_d = time_ms(deq), device_ms(deq)
-        plain_d = time_ms(lambda: qref.dequantize(q, sc, bucket, x.shape,
-                                                  dt))
         # quant reads x once, writes one byte an element and a f32 scale a
         # chunk; dequant the reverse; ~8 fp32 operations an element
         wire = bucket + 4 * sc.numel()
         nbytes = bucket * x.element_size() + wire
         bound_q, by_q = _bound(nbytes, 8.0 * bucket)
         bound_d, by_d = _bound(nbytes, 2.0 * bucket)
+        quant = lambda: qops.quantize_cuda(x, codec, sr)
+        ms_q, dev_q = time_ms(quant), device_ms(quant, bound_q)
+        plain_q = time_ms(lambda: qref.quantize(x, codec, sr))
+        deq = lambda: qops.dequantize_cuda(q, sc, bucket, x.shape, dt)
+        ms_d, dev_d = time_ms(deq), device_ms(deq, bound_d)
+        plain_d = time_ms(lambda: qref.dequantize(q, sc, bucket, x.shape,
+                                                  dt))
         label = f"{str(dt)[6:]} {codec} {'SR' if sr else 'RTN'}"
         seed_note = ""
         rtn_dev = None
         if sr:
-            rtn_dev = device_ms(lambda: qops.quantize_cuda(x, codec, False))
+            rtn_dev = device_ms(lambda: qops.quantize_cuda(x, codec, False),
+                                bound_q)
             if dev_q and rtn_dev:
                 seed_note = (f"; RTN device {rtn_dev:.4f}, SR above it "
                              f"{100 * (dev_q - rtn_dev) / dev_q:.1f}%")
@@ -1746,16 +1792,26 @@ def _ssd_flops(b, t, h, p, n, lc):
 def _model_flops(cfg, model, batch, seq):
     """Model FLOPs of one training step (forward and backward, 3 x the
     forward; remat's recompute not counted): 6 x the matmul parameters
-    applied per token x tokens, plus causal attention (4*hd a pair) and,
-    for zamba, the SSD's own products."""
+    applied per token x tokens (for moe the active ones), plus causal
+    attention (4*hd a pair) and, for zamba, the SSD's own products."""
     tokens = batch * seq
     lay = cfg.gqa_layout(1)
     hd = cfg.head_dim
     pairs = seq * (seq + 1) / 2
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         d = cfg.d_model
+        if cfg.family == "dense":
+            ffn = 3 * d * cfg.d_ff
+        else:
+            # the k routed experts a token visits, the router over the
+            # padded experts and the gated shared expert; the capacity
+            # padding of the dispatch is not counted
+            from repro_torch.models.moe import experts_padded
+            ffn = (3 * d * cfg.d_ff_expert * cfg.n_experts_active
+                   + d * experts_padded(cfg, 1)
+                   + (3 * d * cfg.d_ff_shared + d if cfg.d_ff_shared else 0))
         mm = cfg.n_layers * (2 * d * lay["hq"] * hd + 2 * d * lay["kvp"] * hd
-                             + 3 * d * cfg.d_ff) + cfg.vocab * d
+                             + ffn) + cfg.vocab * d
         attn = 3 * cfg.n_layers * 4.0 * batch * lay["hq"] * hd * pairs
         return 6.0 * mm * tokens + attn
     # zamba: the Mamba layers once, the shared block once per invocation
@@ -1772,21 +1828,26 @@ def _model_flops(cfg, model, batch, seq):
 
 
 def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
-                step=None, first_loss=None):
-    """Trains `arch` at full width: 1 warm-up step, TRAIN_STEPS timed
-    steps and a profiled one, through `par` / `step` when given (else
+                step=None, first_loss=None, layers=None):
+    """Trains `arch` at full width (at `layers` layers where given, else
+    its published depth): 1 warm-up step, TRAIN_STEPS timed steps and a
+    profiled one, through `par` / `step` when given (else
     `parallelize(dcfg)` and its train step).  `first_loss(storage, batch)`,
     when given, runs before the warm-up step on its storage and batch and
     returns a loss the warm-up step's must equal bit for bit.  Returns
     (par, storage, opt_state)."""
+    import dataclasses
     from repro_torch.core.api import parallelize
     from repro_torch.data.pipeline import DataConfig, SyntheticC4
     from repro_torch.models.common import ShapeConfig
-    from repro_torch.models.registry import get_arch
+    from repro_torch.models.registry import build_model, get_arch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import default_schedule, ef_mask, \
         init_train_state
     cfg, model = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
     shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
     if par is None:
         par = parallelize(model, dcfg, shape, device="cuda")
@@ -1823,13 +1884,18 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
             raise AssertionError("the first step's loss is not bit-equal "
                                  "to the reference loss step's")
     _reset_counts()
-    times, losses = [], []
+    times, losses, aux_steps = [], [], []
     for i in range(1, TRAIN_STEPS + 1):
         t0 = time.perf_counter()
         storage, opt_state, m = step(storage, opt_state, batches[i])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
+        aux_steps.append({k: float(m[k]) for k in ("moe_aux", "moe_drops")
+                          if k in m})
+    aux = aux_steps[-1]
+    if aux:
+        say(f"  aux terms per timed step: {aux_steps}")
     counts = _train_counts()
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1848,8 +1914,8 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
         f"grad_norm {float(m['grad_norm']):.4f}; lr {float(m['lr']):.3e}")
     say(f"  launches per step: {per_step}")
     state[f"{key}_launches"] = counts
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+    if not all(np.isfinite([warm_loss, *losses])):
+        raise AssertionError(f"non-finite loss: {warm_loss}, {losses}")
     need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw", *need)
     unused = [k for k in NOT_DENSE + NOT_BF16 if k not in need and counts[k]]
     if min(counts[k] for k in need) <= 0 or unused:
@@ -1880,7 +1946,7 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     state[key] = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
                       mfu=mfu, max_memory_allocated=peak, busy=busy,
                       busy_vs_median=None if dev_s is None
-                      else dev_s / step_s)
+                      else dev_s / step_s, **aux)
     return par, storage, opt_state
 
 
@@ -2007,7 +2073,7 @@ def phase_ssd_kernels(state):
             + x.numel() * x.element_size()
         flops = _ssd_flops(b, t, h, p, n, lc)
         bound, by = _bound(nbytes, flops, dt_, products=True)
-        dev_ms = device_ms(lambda: ssd_ops.ssd_cuda(*ins, chunk=lc))
+        dev_ms = device_ms(lambda: ssd_ops.ssd_cuda(*ins, chunk=lc), bound)
         say(f"    {ms:.4f} / {plain:.4f} / {bound:.4f} ({by}; "
             f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s);"
             f" device {_ms(dev_ms)} ms")
@@ -2085,11 +2151,11 @@ def phase_ssd_kernels(state):
         # the backward's own time, given the forward's states
         _, states = ssd_ops._forward(*ins, lc)
         bwd = lambda: ssd_ops.ssd_bwd_cuda(*ins, ct, lc, states=states)
-        ms_bwd = time_ms(bwd)
-        dev_bwd = device_ms(bwd)
-        plain_bwd = time_ms(lambda: ssd_ref.ssd_chunked_bwd(*ins, ct, lc))
         nbytes, flops = _ssd_bwd_bound(b, t, h, p, grp, n, lc, dt_)
         bound, by = _bound(nbytes, flops, dt_, products=True)
+        ms_bwd = time_ms(bwd)
+        dev_bwd = device_ms(bwd, bound)
+        plain_bwd = time_ms(lambda: ssd_ref.ssd_chunked_bwd(*ins, ct, lc))
         ms = time_ms(lambda: _grads(lambda *a: ssd_ops.ssd(*a, chunk=lc),
                                     ins, ct))
         plain = time_ms(lambda: _grads(
@@ -2340,6 +2406,615 @@ def _consistency(params, prefill, decode, x, label):
     return want, got, per_call
 
 
+# ---------------------------------------------------------------------------
+# The moe family (the main path of the tenth slice)
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ("qwen3_moe_30b_a3b", "qwen2_moe_a2_7b")
+# full-width moe training keeps every published width and cuts the depth
+# (48 and 24 layers) to 4: fp32 storage, grads and AdamW moments take 16
+# bytes a parameter, 46.4 GiB at 4 layers of qwen3-moe-30b-a3b (623.1M a
+# layer, 622.3M in the embedding and head); the plan's modeled peak is
+# 60.52 GiB under the H100 profile's 74.51
+MOE_TRAIN_LAYERS = 4
+# the router at these seeds has collapsed: a full-width moe training step
+# on SyntheticC4 drops 0.8002 (qwen3-moe-30b-a3b) and 0.8038
+# (qwen2-moe-a2.7b) of its choices in the last timed step, 0.73-0.80 over
+# the steps (H100).  SyntheticC4's Zipf head gives layer 0's router input a
+# vector common to all tokens (common share 0.945 / 0.963; the embeddings'
+# 0.076 / 0.070), which uniform random tokens do not give it (0.036 /
+# 0.028): layer 0 drops 0.64 / 0.69 on SyntheticC4 and 0.078 / 0.078 on
+# uniform tokens.  The 48-layer prefill of uniform random prompts drops
+# 0.3946, rising from 0.0054 in layer 0.  The gates hold these readings
+MOE_DROP_BAND = (0.70, 0.90)
+MOE_COMMON_SHARE = 0.5          # SyntheticC4's above it, uniform's below
+MOE_UNIFORM_LAYER0_DROPS = 0.2
+MOE_PREFILL_DROP_BAND = (0.30, 0.50)
+
+
+def _spy_routes(model):
+    """Records the expert ids of every `_route` call of `model` (on the
+    CPU, in call order)."""
+    seen, route = [], model._route
+
+    def spy(x2d, router):
+        w, ids, aux = route(x2d, router)
+        seen.append(ids.cpu())
+        return w, ids, aux
+
+    model._route = spy
+    return seen
+
+
+def _spy_drops(model):
+    """Records, as device scalars, the (token, choice) pairs each dispatch
+    of `model` drops over capacity."""
+    seen, dispatch = [], model._dispatch
+
+    def spy(ids, C, ep):
+        pos, keep, slot = dispatch(ids, C, ep)
+        seen.append((~keep).sum())
+        return pos, keep, slot
+
+    model._dispatch = spy
+    return seen
+
+
+def phase_moe_kernels(state):
+    """The kernels at the moe path's new shapes: bf16 flash at
+    qwen3-moe-30b-a3b's attention (a GQA group of 8), its training
+    gradient (kernel forward, plain fp32 backward) against autograd through
+    the plain version, and AdamW on the path's largest leaf (an expert
+    stack of MOE_TRAIN_LAYERS layers)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw import ref as adamw_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    b, s, h, kh, hd = TRAIN_B, TRAIN_T, 32, 4, 128
+    name = (f"flash B{b} T{s} H{h} Kh{kh} hd{hd} causal bf16 "
+            "(qwen3-moe-30b-a3b, GQA group 8)")
+    q = randn(b, s, h, hd, dtype=torch.bfloat16)
+    k = randn(b, s, kh, hd, dtype=torch.bfloat16)
+    v = randn(b, s, kh, hd, dtype=torch.bfloat16)
+    want = flash_ref.attention(q, k, v, causal=True)
+    n = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    if flash_ops.launches != n + 1:
+        raise AssertionError("the bf16 flash kernel did not launch")
+    say("flash kernel vs plain at the moe shape (ms: kernel / plain / SDPA "
+        "/ bound):")
+    err = check_rms(name, got, want, FLASH_BF16_RMS_REL)
+    check_flash_plants(name, q, k, v, want, causal=True)
+    del got, want
+    flops = 4.0 * hd * b * h * s * (s + 1) / 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound, by = _bound(nbytes, flops, torch.bfloat16, products=True)
+    fwd = lambda: flash_ops.flash_attention(q, k, v, causal=True)
+    ms, on_card = time_ms(fwd), device_ms(fwd, bound)
+    plain = time_ms(lambda: flash_ref.attention(q, k, v, causal=True))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    lib, lib_dev = time_ms(sdpa), device_ms(sdpa, bound)
+    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} ({by}; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s); device {_ms(on_card)}, SDPA "
+        f"device {_ms(lib_dev)}")
+    state["flash_group8"] = dict(
+        shape=f"B{b} T{s} H{h} Kh{kh} hd{hd} causal bf16", max_abs_err=err,
+        ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib,
+        library_device_ms=lib_dev, bound_ms=bound, bound_by=by)
+
+    say("gradients at the moe shape: kernel forward + plain fp32 backward vs "
+        "autograd through the plain version (ms fwd+bwd: op / plain / SDPA "
+        "/ bound):")
+    ct = randn(b, s, h, hd, dtype=torch.bfloat16)
+    gname = f"flash B{b} T{s} H{h} Kh{kh} hd{hd} causal bf16"
+    got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
+    want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
+    err = max(check_rms(f"{gname} o", got[0], want[0], FLASH_BF16_RMS_REL),
+              *(check_close(f"{gname} {n}", a, b_, TOL)
+                for n, a, b_ in zip(("dq", "dk", "dv"), got[1:], want[1:])))
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: _grads(lambda *a: flash_ops.flash_attention(*a),
+                                (q, k, v), ct))
+    plain = time_ms(lambda: _grads(lambda *a: flash_ref.attention(*a),
+                                   (q, k, v), ct))
+    ctt = ct.transpose(1, 2)
+    lib = time_ms(lambda: _grads(
+        lambda *a: F.scaled_dot_product_attention(*a, is_causal=True,
+                                                  enable_gqa=True),
+        (qt, kt, vt), ctt))
+    bound, _ = _bound(0, 3.5 * flops, torch.bfloat16, products=True)
+    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f}")
+    state["flash_grad_group8"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain, library_ms=lib,
+                                      bound_ms=bound)
+    del q, k, v, ct, qt, kt, vt, ctt
+    torch.cuda.empty_cache()
+
+    n = MOE_TRAIN_LAYERS * 128 * 2048 * 768
+    say(f"adamw kernel vs plain at the moe path's largest leaf (n={n}; ms: "
+        "kernel / plain / bound):")
+    p, gd, m = randn(n), randn(n), randn(n) * 0.1
+    v = randn(n).abs() * 0.01
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+              lr=torch.tensor(3e-4, device=dev),
+              t=torch.tensor(7, dtype=torch.int32, device=dev),
+              scale=torch.tensor(0.5, device=dev))
+    want = adamw_ref.adamw_update(p, gd, m, v, **kw)
+    got = [a.clone() for a in (p, m, v)]
+    adamw_ops.adamw_update(got[0], gd, got[1], got[2], **kw)
+    err = max(check_close(f"adamw n={n} dp", got[0] - p, want[0] - p,
+                          TOL32),
+              *(check_close(f"adamw n={n} {k_}", a, b_, TOL32)
+                for k_, a, b_ in zip("mv", got[1:], want[1:])))
+    del want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: adamw_ops.adamw_update(got[0], gd, got[1], got[2],
+                                                **kw))
+    plain = time_ms(lambda: adamw_ref.adamw_update(p, gd, m, v, **kw))
+    bound, by = _bound(28 * n, 15.0 * n)
+    say(f"    {ms:.4f} / {plain:.4f} / {bound:.4f} ({28 * n / ms / 1e6:.0f}"
+        " GB/s)")
+    state["adamw_moe_leaf"] = dict(n=n, max_abs_err=err, ms=ms,
+                                   plain_ms=plain, bound_ms=bound,
+                                   bound_by=by)
+
+
+def phase_moe_smoke(state):
+    """Both moe SMOKE configs, fp32, card vs CPU: 3 training steps through
+    the launcher's trainer on the vanilla and the prefetch stack from one
+    CPU-made checkpoint (losses, grad norms, storage at TOL32, the routing
+    ids of every dispatch EQUAL), a bit-exact prefetch restart, one loss
+    step at capacity_factor 1.0 (tokens dropped) with the aux in the loss,
+    and serving: prefill and 4 decode steps card vs CPU, and prefill over
+    p+1 tokens against prefill over p + one decode step on the card."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.core.api import parallelize
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.meta import named_leaves, tree_map
+    from repro_torch.ft.failures import InjectedFailures
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import build_model, get_arch
+    from repro_torch.train import serve as SV
+    from repro_torch.train.train_step import _loss_and_grads, \
+        init_train_state
+    from repro_torch.train.trainer import Trainer
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    need = ("rmsnorm", "flash_f32", "xent_fwd", "xent_bwd", "adamw")
+    try:
+        for arch in MOE_ARCHS:
+            def trainer(dev, sub, reorder):
+                return launch_train.build_trainer(launch_train.parse_args([
+                    "--arch", arch, "--smoke", "--steps", "3", "--seq", "32",
+                    "--batch", "4", "--dtype", "float32", "--device", dev,
+                    "--ckpt-dir", str(root / arch / sub)]
+                    + ([] if reorder else ["--no-reorder"])))
+
+            cpu = trainer("cpu", "seed", False)
+            storage, opt = init_train_state(
+                cpu.par, torch.Generator().manual_seed(0))
+            cpu.ckpt.save(0, cpu.par.unshard(storage), dict(
+                m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
+                step=opt["step"]), cpu.model, cpu.dcfg)
+            for reorder in (False, True):
+                label = f"{arch} smoke {'prefetch' if reorder else 'vanilla'}"
+                runs = {}
+                for dev in ("cpu", "cuda"):
+                    sub = f"{dev}_{reorder}"
+                    shutil.copytree(root / arch / "seed", root / arch / sub)
+                    tr = trainer(dev, sub, reorder)
+                    ids = _spy_routes(tr.model)
+                    _reset_counts()
+                    st, _, hist = tr.run()
+                    runs[dev] = (st, hist, _train_counts(), ids)
+                counts = runs["cuda"][2]
+                state[f"moe_smoke_{arch}_launches"] = counts
+                say(f"  {label}: launches on the card {counts}")
+                if min(counts[k] for k in need) <= 0 or counts["flash"] \
+                        or any(counts[k] for k in NOT_DENSE):
+                    raise AssertionError(f"a kernel never launched, or one "
+                                         f"off the path did: {counts}")
+                if max(v for k, v in runs["cpu"][2].items()
+                       if k not in COLLECTIVES) > 0:
+                    raise AssertionError("the CPU run launched a kernel")
+                cids, gids = runs["cpu"][3], runs["cuda"][3]
+                diff = [i for i, (a, b_) in enumerate(zip(cids, gids))
+                        if not torch.equal(a, b_.cpu())]
+                same = not diff and len(cids) == len(gids)
+                say(f"  {label}: routing ids of {len(gids)} dispatches, "
+                    f"{'all equal' if same else 'DIFFERENT'} card vs CPU")
+                if not same:
+                    i = diff[0] if diff else min(len(cids), len(gids))
+                    rows = 0 if not diff else int(
+                        (cids[i] != gids[i]).any(-1).sum())
+                    raise AssertionError(
+                        f"{label}: routing ids differ card vs CPU at "
+                        f"dispatch {i} of {len(cids)} / {len(gids)} "
+                        f"({rows} rows)")
+                for hc, hg in zip(runs["cpu"][1], runs["cuda"][1]):
+                    for k in ("loss", "grad_norm", "moe_drops"):
+                        check_close(f"{label} step {hc['step']} {k} cuda vs "
+                                    "cpu", torch.tensor(hg[k]),
+                                    torch.tensor(hc[k]), TOL32)
+                    if hg["moe_drops"]:
+                        raise AssertionError(f"{label}: SMOKE dropped "
+                                             f"{hg['moe_drops']} choices")
+                errs = [check_close(f"{label} storage {n}", a.cpu(), b_,
+                                    TOL32)
+                        for (n, a), (_, b_) in zip(
+                            named_leaves(runs["cuda"][0]),
+                            named_leaves(runs["cpu"][0]))]
+                say(f"  {label} storage cuda vs cpu after 3 steps: "
+                    f"{len(errs)} leaves, max abs err {max(errs):.3e}")
+
+            shutil.copytree(root / arch / "seed", root / arch / "restart")
+            cuda = trainer("cuda", "restart", True)
+            tr = Trainer(cuda.model, cuda.dcfg, cuda.shape, cuda.ocfg,
+                         dataclasses.replace(cuda.tcfg, ckpt_every=1),
+                         failure_source=InjectedFailures((2,)),
+                         device="cuda")
+            resumed, _, _ = tr.run()
+            exact = all(torch.equal(a, b_) for (_, a), (_, b_) in zip(
+                named_leaves(resumed), named_leaves(runs["cuda"][0])))
+            say(f"  {arch} smoke prefetch restart after a failure at step 2:"
+                f" restarts {tr.restarts}, "
+                f"{'bit-exact' if exact else 'NOT bit-exact'}")
+            if tr.restarts != 1 or not exact:
+                raise AssertionError("the restarted run is not bit-exact")
+
+            # tokens dropped over capacity and the aux in the loss
+            model = build_model(dataclasses.replace(
+                cpu.model.cfg, capacity_factor=1.0, router_aux_coef=1e-2))
+            dcfg = cpu.dcfg.with_(reorder=True)
+            st = parallelize(model, dcfg, cpu.shape, device="cpu") \
+                .init_storage(torch.Generator().manual_seed(1))
+            out = {}
+            for dev in ("cpu", "cuda"):
+                par = parallelize(model, dcfg, cpu.shape, device=dev)
+                out[dev] = _loss_and_grads(
+                    par, tree_map(lambda a: a.to(dev), st),
+                    par.local_batch(cpu.data.batch(0)))
+            tag = f"{arch} capacity_factor 1.0 loss step"
+            check_close(f"{tag} loss cuda vs cpu", out["cuda"][0].cpu(),
+                        out["cpu"][0], TOL32)
+            for k in ("moe_aux", "moe_drops"):
+                check_close(f"{tag} {k} cuda vs cpu", out["cuda"][2][k].cpu(),
+                            out["cpu"][2][k], TOL32)
+            errs = [check_close(f"{tag} grad {n}", a.cpu(), b_, TOL32)
+                    for (n, a), (_, b_) in zip(named_leaves(out["cuda"][1]),
+                                               named_leaves(out["cpu"][1]))]
+            drops = float(out["cuda"][2]["moe_drops"])
+            say(f"  {tag}: grads max abs err {max(errs):.3e}; {drops:.0f} "
+                f"choices dropped, aux {float(out['cuda'][2]['moe_aux']):.4e}")
+            if drops <= 0:
+                raise AssertionError(f"{tag}: nothing was dropped")
+
+            # serving
+            cfg, model = get_arch(arch, smoke=True)
+            dcfg = single_device_config(param_dtype=torch.float32)
+            tree = _numpy_params(model, dcfg, seed=0)
+            b, prompt, gen = 2, 12, 4
+            t_len = prompt + gen
+            rng = np.random.default_rng(1)
+            tokens = torch.from_numpy(np.pad(
+                rng.integers(3, cfg.vocab, (b, prompt)), ((0, 0), (0, gen)),
+                constant_values=3))
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                params = SV.serve_params_from_jax(tree, model, dcfg,
+                                                  device=dev)
+                pf = SV.make_prefill_step(
+                    model, dcfg, ShapeConfig("p", t_len, b, "prefill"))
+                dec = SV.make_decode_step(
+                    model, dcfg, ShapeConfig("d", t_len, b, "decode"))
+                logits, cache = pf(params, {"tokens": tokens.to(dev)})
+                runs[dev] = dict(params=params, pf=pf, dec=dec, cache=cache,
+                                 logits=[logits.cpu()])
+            check_close(f"{arch} smoke prefill logits cuda vs cpu",
+                        runs["cuda"]["logits"][0], runs["cpu"]["logits"][0],
+                        TOL32)
+            for i in range(gen):
+                tok = runs["cpu"]["logits"][-1].argmax(-1)
+                if not torch.equal(runs["cuda"]["logits"][-1].argmax(-1),
+                                   tok):
+                    raise AssertionError(f"{arch}: greedy tokens differ at "
+                                         f"{i}")
+                pos = torch.full((b,), prompt + i, dtype=torch.int64)
+                for dev, r in runs.items():
+                    logits, r["cache"] = r["dec"](r["params"], r["cache"],
+                                                  tok.to(dev), pos.to(dev))
+                    r["logits"].append(logits.cpu())
+                check_close(f"{arch} smoke decode {i} logits cuda vs cpu",
+                            runs["cuda"]["logits"][-1],
+                            runs["cpu"]["logits"][-1], TOL32)
+            # prefill over p+1 tokens against prefill over p + a decode
+            # step holds only where no choice is dropped: capacity depends
+            # on the tokens in a call (B*T in prefill, B in decode), so a
+            # dropping prefill routes differently from the decode.  SMOKE's
+            # capacity_factor 8 gives every expert room for all the tokens
+            # of a call, so its drop count must be 0
+            r = runs["cuda"]
+            drops = _spy_drops(model)
+            x = torch.from_numpy(rng.integers(3, cfg.vocab, (b, t_len))) \
+                .to("cuda")
+            want, _ = r["pf"](r["params"], {"tokens": x})
+            xp = x.clone()
+            xp[:, -1] = 3
+            _, cache = r["pf"](r["params"], {"tokens": xp})
+            got, _ = r["dec"](r["params"], cache, x[:, -1], torch.full(
+                (b,), t_len - 1, dtype=torch.int64, device="cuda"))
+            dropped = int(sum(d.item() for d in drops))
+            del model._dispatch
+            check_close(f"{arch} smoke on the card: prefill over p+1 vs "
+                        "prefill over p + one decode step", got, want, TOL32)
+            say(f"  {arch}: {len(drops)} dispatches, {dropped} choices "
+                "dropped")
+            if dropped:
+                raise AssertionError(f"{arch}: SMOKE dropped {dropped}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _moe_expert_flops(cfg, tokens, executed):
+    """FLOPs of one training step's routed-expert products (3 x the
+    forward, 2 a multiply-add): of the k choices a token makes
+    (`executed` False: what the model applies) or of every capacity slot
+    of every padded expert (`executed` True: what the step computes)."""
+    from repro_torch.models.moe import capacity, experts_padded
+    ep = experts_padded(cfg, 1)
+    rows = ep * capacity(cfg, tokens, ep) if executed \
+        else tokens * cfg.n_experts_active
+    return 6.0 * cfg.n_layers * 3 * cfg.d_model * cfg.d_ff_expert * rows
+
+
+def _common_share(x):
+    """||the rows' mean||^2 / the mean of ||row||^2 of a (T, D) tensor: 1
+    where every row is one vector, about 1/T where the rows are
+    independent."""
+    x = x.float()
+    return float(x.mean(0).square().sum() / x.square().sum(1).mean())
+
+
+def _route_reading(par, storage, batch, label):
+    """One forward pass (no grad) of the moe model `par.model` on `batch`:
+    the drop share of every layer, and in layer 0 the experts' occupancy
+    (choices an expert against its capacity), the spread of the router
+    logits across tokens (the std over tokens, averaged over experts) and
+    across experts (the std of the experts' mean logits), and the common
+    share (`_common_share`) of the router's input, over the batch and
+    within a sequence, and of the embeddings.  Returns the readings."""
+    from repro_torch.models import layers as LY
+    from repro_torch.models.moe import capacity
+    model, cfg = par.model, par.model.cfg
+    seen, attn, route = {}, model._attn_half, model._route
+
+    def attn_spy(p, rope, x, dcfg):
+        seen.setdefault("emb", x.detach())
+        return attn(p, rope, x, dcfg)
+
+    def route_spy(x2d, router):
+        w, ids, aux = route(x2d, router)
+        seen.setdefault("route", (x2d.detach(), router.detach(), ids))
+        return w, ids, aux
+
+    model._attn_half, model._route = attn_spy, route_spy
+    drops = _spy_drops(model)
+    try:
+        with torch.no_grad():
+            model.loss_local(storage, par.local_batch(batch),
+                             par.plan.exec_dcfg,
+                             par.plan.bucket_plan("blocks"))
+    finally:
+        del model._attn_half, model._route, model._dispatch
+    x2d, router, ids = seen["route"]
+    emb = seen["emb"]
+    b, s, d = emb.shape
+    T, k = x2d.shape[0], cfg.n_experts_active
+    C = capacity(cfg, T, router.shape[1])
+    shares = [float(n) / (T * k) for n in drops]
+    occ = torch.bincount(ids.reshape(-1), minlength=router.shape[1])
+    occ = occ[:cfg.n_experts].sort(descending=True).values.tolist()
+    logits = LY.matmul_f32(x2d, router)[:, :cfg.n_experts]
+    r = dict(
+        drop_share_by_layer=shares,
+        top_k_experts_share=sum(occ[:k]) / (T * k),
+        experts_over_capacity=sum(c > C for c in occ),
+        experts_empty=sum(c == 0 for c in occ),
+        logit_spread_tokens=float(logits.std(0).mean()),
+        logit_spread_experts=float(logits.mean(0).std()),
+        common_share_router_input=_common_share(x2d),
+        common_share_in_a_sequence=float(np.mean([
+            _common_share(x2d.view(b, s, d)[i]) for i in range(b)])),
+        common_share_embeddings=_common_share(emb.reshape(-1, d)))
+    say(f"  routing on {label}: drop share by layer "
+        f"{[round(v, 4) for v in shares]}; layer 0: choices an expert "
+        f"(capacity {C}) top {k} {occ[:k]}, median {occ[len(occ) // 2]}; "
+        f"{r['experts_over_capacity']} experts over capacity, "
+        f"{r['experts_empty']} empty; the top {k} hold "
+        f"{r['top_k_experts_share']:.4f} of the choices")
+    say(f"    layer 0 router logits: spread across tokens "
+        f"{r['logit_spread_tokens']:.4f}, across experts "
+        f"{r['logit_spread_experts']:.4f}; common share of the router "
+        f"input {r['common_share_router_input']:.4f} (within a sequence "
+        f"{r['common_share_in_a_sequence']:.4f}), of the embeddings "
+        f"{r['common_share_embeddings']:.4f}")
+    return r
+
+
+def _full_moe_train(state, arch):
+    """Full-width moe training, MOE_TRAIN_LAYERS layers, the reference
+    launcher's defaults (the prefetch stack, bf16 wire, fsdp_only, block
+    buckets), through `_full_train`, with the moe readings besides: the
+    modeled peak and step, the drop share and the aux."""
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.core.obs import drift
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.moe import capacity, experts_padded
+    key = f"train_{arch}"
+    par, storage, _ = _full_train(state, key, DistConfig(), arch=arch,
+                                  layers=MOE_TRAIN_LAYERS)
+    cfg, tokens = par.model.cfg, TRAIN_B * TRAIN_T
+    # the router's choices on the last timed step's batch, and on uniform
+    # random tokens of the same shape, with the trained weights
+    c4 = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_T,
+                                global_batch=TRAIN_B, seed=0)) \
+        .batch(TRAIN_STEPS)
+    toks = np.random.default_rng(5).integers(
+        3, cfg.vocab, (TRAIN_B, TRAIN_T + 1)).astype(np.int32)
+    uniform = dict(tokens=toks[:, :-1],
+                   targets=np.ascontiguousarray(toks[:, 1:]),
+                   valid=np.ones((TRAIN_B, TRAIN_T), np.float32))
+    routing = {"SyntheticC4": _route_reading(
+        par, storage, c4, "SyntheticC4, the last timed step's batch"),
+        "uniform": _route_reading(par, storage, uniform,
+                                  "uniform random tokens")}
+    del storage
+    ep = experts_padded(cfg, 1)
+    C = capacity(cfg, tokens, ep)
+    r = state[key]
+    share = r["moe_drops"] / (cfg.n_layers * tokens * cfg.n_experts_active)
+    active = _moe_expert_flops(cfg, tokens, False)
+    executed = _moe_expert_flops(cfg, tokens, True)
+    modeled_s = drift.modeled_step_time(
+        par.model, par.plan, ShapeConfig("train", TRAIN_T, TRAIN_B, "train"))
+    say(f"  {cfg.name} x{cfg.n_layers} layers: {cfg.n_params() / 1e9:.4f}B "
+        f"params, capacity {C} slots an expert ({tokens} tokens x top-"
+        f"{cfg.n_experts_active} over {ep} experts: "
+        f"{tokens * cfg.n_experts_active / ep:.0f} on average)")
+    say(f"  drop share (choices over capacity / T*k, last step, all layers) "
+        f"{share:.6f} ({r['moe_drops']:.0f} of "
+        f"{cfg.n_layers * tokens * cfg.n_experts_active}); aux "
+        f"(router_aux_coef x load balance, summed over layers) "
+        f"{r['moe_aux']:.6e}")
+    say(f"  routed-expert FLOPs a step: active (k a token, counted in MFU) "
+        f"{active / 1e12:.3f} TFLOP; executed (every capacity slot) "
+        f"{executed / 1e12:.3f} TFLOP ({executed / active:.3f}x)")
+    say(f"  modeled peak {par.plan.memory.peak / 2**30:.2f} GiB against "
+        f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"({par.plan.memory.peak / r['max_memory_allocated']:.3f}); modeled "
+        f"step (H100 profile, drift.modeled_step_time) "
+        f"{modeled_s * 1e3:.3f} ms against the measured "
+        f"{r['step_ms']:.2f} ms")
+    r.update(drop_share=share, routing=routing,
+             modeled_peak=par.plan.memory.peak,
+             modeled_step_ms=modeled_s * 1e3, capacity=C,
+             expert_tflop_active=active / 1e12,
+             expert_tflop_executed=executed / 1e12)
+    c4, uni = routing["SyntheticC4"], routing["uniform"]
+    if not (MOE_DROP_BAND[0] <= share <= MOE_DROP_BAND[1]
+            and r["moe_aux"] > 0
+            and uni["drop_share_by_layer"][0] < MOE_UNIFORM_LAYER0_DROPS
+            and c4["common_share_router_input"] > MOE_COMMON_SHARE
+            > uni["common_share_router_input"]):
+        raise AssertionError(
+            f"drop share {share} (band {MOE_DROP_BAND}), aux "
+            f"{r['moe_aux']}, uniform tokens' layer-0 drop share "
+            f"{uni['drop_share_by_layer'][0]} (under "
+            f"{MOE_UNIFORM_LAYER0_DROPS}), layer 0's common share "
+            f"{c4['common_share_router_input']} / "
+            f"{uni['common_share_router_input']} (either side of "
+            f"{MOE_COMMON_SHARE})")
+
+
+def phase_full_moe_train(state):
+    _full_moe_train(state, "qwen3_moe_30b_a3b")
+
+
+def phase_full_qwen2_moe_train(state):
+    _full_moe_train(state, "qwen2_moe_a2_7b")
+
+
+def phase_full_moe_serve(state):
+    """qwen3-moe-30b-a3b served at its published depth: bf16 weights made
+    on the card layer by layer, B 4, prompt 2000 padded to T 2064, 64
+    generated tokens through `repro_torch.launch.serve`; prefill ms and
+    decode ms/token beside the decode step's byte bound (every weight and
+    the KV cache read once: the capacity dispatch at T = B runs all 128
+    experts) and its device kernel time."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.launch import serve as launch
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, model, dcfg, params, prefill, decode = launch.setup(
+        "qwen3_moe_30b_a3b", False, B, PROMPT, GEN, device="cuda",
+        dtype="bfloat16")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    say(f"{cfg.name} bf16, {cfg.n_layers} layers: {n / 1e9:.3f}B params, "
+        f"{wbytes / 2**30:.2f} GiB, made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
+    torch.cuda.reset_peak_memory_stats()
+    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
+    tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN)
+    counts = dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
+                  flash_f32=flash_ops.launches_f32)
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step reads every weight but the embedding table (B rows of
+    # it) and the whole KV cache once
+    experts = sum(params["blocks"]["mlp"][k].numel() * 2
+                  for k in ("we_g", "we_u", "we_d"))
+    step_bytes = wbytes - params["embed"].numel() * 2 + B * cfg.d_model * 2 \
+        + 2 * cfg.n_layers * B * T * cfg.gqa_layout(1)["kvp"] \
+        * cfg.head_dim * 2
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"serve B={B} prompt={PROMPT} gen={GEN} T={T}: prefill "
+        f"{t['prefill_s'] * 1e3:.2f} ms (warm-up "
+        f"{t['prefill_warmup_s'] * 1e3:.2f}), decode "
+        f"{t['decode_step_s'] * 1e3:.3f} ms/token (warm-up "
+        f"{t['decode_warmup_s'] * 1e3:.2f}), {t['decode_tok_s']:.1f} "
+        f"tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"  decode byte bound {bound:.3f} ms/token ({step_bytes / 1e9:.2f} "
+        f"GB a step, of it the routed experts {experts / 1e9:.2f} GB: "
+        f"{experts / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+    say(f"launches in the serve run: {counts}")
+    state["serve_moe_launches"] = counts
+    if tokens.shape != (B, GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
+    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or counts["flash_f32"]:
+        raise AssertionError(f"a kernel of the path never launched, or bf16 "
+                             f"took flash's fp32 route: {counts}")
+    drops = _spy_drops(model)
+    logits, cache = prefill(params, {"tokens": padded})
+    by_layer = [d.item() / (B * T * cfg.n_experts_active) for d in drops]
+    dropped = sum(d.item() for d in drops)
+    del model._dispatch
+    choices = cfg.n_layers * B * T * cfg.n_experts_active
+    say(f"  prefill drop share {dropped / choices:.6f} ({dropped:.0f} of "
+        f"{choices} choices); by layer: first four "
+        f"{[round(v, 4) for v in by_layer[:4]]}, least "
+        f"{min(by_layer):.4f}, most {max(by_layer):.4f}")
+    _profile("prefill", lambda: prefill(params, {"tokens": padded}), 1)
+    pos = torch.full((B,), PROMPT, dtype=torch.int64, device=dev)
+    busy, dev_s = _profile("decode step", lambda: decode(
+        params, cache, logits.argmax(-1), pos), 8, top=12)
+    state["serve_moe"] = dict(
+        t, max_memory_allocated=peak, decode_bound_ms=bound,
+        decode_device_ms=None if dev_s is None else dev_s * 1e3,
+        prefill_drop_share=dropped / choices)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    lo, hi = MOE_PREFILL_DROP_BAND
+    if not lo <= dropped / choices <= hi:
+        raise AssertionError(f"prefill drop share {dropped / choices} "
+                             f"outside {MOE_PREFILL_DROP_BAND}")
+
+
 # kernel families summed in every profiler window
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
@@ -2420,7 +3095,10 @@ def kernels_line(state):
     and the full-width zamba2 training for the ssd rows; `launches_by_path`
     adds the serving run's, the bf16 qwen3 training runs' (vanilla,
     prefetch, auto-planned, mixed precision, observability), the smoke
-    replan's and the zamba2 run's counts.  flash_attention_f32 and
+    replan's, the zamba2 run's and the moe runs' (qwen3-moe and qwen2-moe
+    training, qwen3-moe serving) counts; the flash row carries its
+    readings at qwen3-moe's group-8 shape (`group8`), the adamw row at the
+    moe path's largest leaf (`moe_leaf`).  flash_attention_f32 and
     ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
     smoke training runs' counts.  A count is one call of the kernel's
@@ -2439,9 +3117,15 @@ def kernels_line(state):
                        train_auto=state["train_auto_launches"][key],
                        train_mixed=state["train_mixed_launches"][key],
                        train_obs=state["train_obs_launches"][key],
-                       smoke_replan=state["smoke_replan_launches"][key])
+                       smoke_replan=state["smoke_replan_launches"][key],
+                       train_qwen3_moe=state[
+                           "train_qwen3_moe_30b_a3b_launches"][key],
+                       train_qwen2_moe=state[
+                           "train_qwen2_moe_a2_7b_launches"][key])
         if serve_key:
             by_path["serve"] = serve[serve_key]
+            by_path["serve_qwen3_moe"] = state["serve_moe_launches"][
+                serve_key]
         if key == "flash_f32":
             by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
         if key.startswith("ssd"):
@@ -2455,7 +3139,8 @@ def kernels_line(state):
         row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
             "rmsnorm"),
         row("flash_attention", "flash", "flash_attention_sm90.cu",
-            "flash_attention/kernel.py:77", "flash"),
+            "flash_attention/kernel.py:77", "flash",
+            group8=state["flash_group8"]),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_f32", "flash_f32", "flash_attention.cu",
             "flash_attention/kernel.py:77", "flash_f32",
@@ -2465,7 +3150,8 @@ def kernels_line(state):
             "cross_entropy/kernel.py:61"),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:96"),
-        row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40"),
+        row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40",
+            moe_leaf=state["adamw_moe_leaf"]),
         row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46",
             kernel="quant_kernel (RTN); seed_kernel + quant_kernel (SR)"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
@@ -2515,7 +3201,15 @@ def main() -> int:
                          phase_full_mixed_train),
                         ("planner lines", phase_planner_lines),
                         ("full-width observability", phase_full_obs),
-                        ("smoke replan on the card", phase_smoke_replan)]:
+                        ("smoke replan on the card", phase_smoke_replan),
+                        ("moe kernels vs plain", phase_moe_kernels),
+                        ("moe smoke cuda vs cpu", phase_moe_smoke),
+                        ("full-width qwen3-moe-30b-a3b training",
+                         phase_full_moe_train),
+                        ("full-width qwen2-moe-a2.7b training",
+                         phase_full_qwen2_moe_train),
+                        ("full-width qwen3-moe-30b-a3b serve",
+                         phase_full_moe_serve)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:
@@ -2525,6 +3219,7 @@ def main() -> int:
             failed.append(name)
             say(f"== {name}: FAILED")
         say(f"== {name}: {time.perf_counter() - t0:.1f}s")
+        gc.collect()        # a failed phase's frames hold its tensors
         torch.cuda.empty_cache()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

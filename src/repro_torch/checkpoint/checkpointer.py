@@ -38,6 +38,16 @@ def _host(a) -> np.ndarray:
         else np.asarray(a)
 
 
+def _unflatten(loaded: dict, prefix: str, template):
+    """The leaves `loaded` holds under `prefix`, shaped like `template`
+    (module level: a self-referencing closure would keep `loaded` alive in
+    a reference cycle)."""
+    if isinstance(template, dict):
+        return {k: _unflatten(loaded, f"{prefix}{k}/", template[k])
+                for k in sorted(template)}
+    return torch.from_numpy(loaded[prefix[:-1]])
+
+
 class Checkpointer:
     def __init__(self, root: str, async_save: bool = False):
         self.root = root
@@ -105,14 +115,8 @@ class Checkpointer:
         metas = model.metas(dcfg)
         abstract = RT.model_abstract_storage(model, dcfg)
 
-        def unflatten(prefix, template):
-            if isinstance(template, dict):
-                return {k: unflatten(f"{prefix}{k}/", template[k])
-                        for k in sorted(template)}
-            return torch.from_numpy(loaded[prefix[:-1]])
-
         def layout(prefix):
-            logical = unflatten(prefix, abstract)
+            logical = _unflatten(loaded, prefix, abstract)
             return {k: shard_params(logical[k], metas[k], dcfg)
                     for k in logical}
 

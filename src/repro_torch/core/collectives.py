@@ -58,9 +58,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.dist import DistConfig, precision_codecs
-from repro_torch.core.meta import (ParamMeta, flatten_local, leaves,
-                                   named_leaves, unflatten_like,
-                                   unflatten_local)
+from repro_torch.core.meta import (ParamMeta, leaves, named_leaves,
+                                   unflatten_like, unflatten_local)
 from repro_torch.kernels.quant import ops as quant_ops
 
 gathers = 0
@@ -98,11 +97,19 @@ def _squeeze_tp(shard: torch.Tensor, meta: ParamMeta) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # 1. Raw primitives (no autograd attached).
 # ---------------------------------------------------------------------------
-def pack_shards(shards: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Concatenate per-param local chunks into one flat bucket buffer."""
-    if len(shards) == 1:
+def pack_shards(shards: Sequence[torch.Tensor],
+                dtype: torch.dtype) -> torch.Tensor:
+    """Concatenate per-param local chunks into one flat bucket buffer in
+    `dtype`, each chunk cast while it is copied in."""
+    if len(shards) == 1 and shards[0].dtype == dtype:
         return shards[0].reshape(-1)
-    return torch.cat([s.reshape(-1) for s in shards])
+    out = torch.empty(sum(s.numel() for s in shards), dtype=dtype,
+                      device=shards[0].device)
+    off = 0
+    for s in shards:
+        out[off:off + s.numel()].copy_(s.reshape(-1))
+        off += s.numel()
+    return out
 
 
 def gather_flat(buf: torch.Tensor, cfg: DistConfig, async_op: bool = False):
@@ -130,11 +137,27 @@ def unpack_gathered(g: torch.Tensor, metas: Sequence[ParamMeta],
 
 
 def pack_grads(grads: Sequence[torch.Tensor], metas: Sequence[ParamMeta],
-               cfg: DistConfig) -> torch.Tensor:
-    """Copy-in: full TP-local grads -> (fsdp, bucket_len) RS layout."""
-    cols = [flatten_local(g, m, cfg).reshape(cfg.fsdp_size, m.chunk_len(cfg))
-            for g, m in zip(grads, metas)]
-    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+               cfg: DistConfig, dtype: torch.dtype | None = None
+               ) -> torch.Tensor:
+    """Copy-in: full TP-local grads -> (fsdp, bucket_len) RS layout in
+    `dtype` (the grads' own by default).  Each grad is copied (and cast)
+    once, straight into its column block: row r of the block is the r-th
+    `chunk_len` run of the grad flattened and zero-padded to `padded_len`,
+    so no cast, padded or per-param copy is made besides the buffer."""
+    chunks = [m.chunk_len(cfg) for m in metas]
+    out = torch.empty((cfg.fsdp_size, sum(chunks)),
+                      dtype=dtype or grads[0].dtype, device=grads[0].device)
+    off = 0
+    for g, m, chunk in zip(grads, metas, chunks):
+        flat, n = g.reshape(-1), m.numel_local(cfg)
+        full, rem = divmod(n, chunk)
+        blk = out[:, off:off + chunk]
+        blk[:full].copy_(flat[:full * chunk].view(full, chunk))
+        if full < cfg.fsdp_size:      # the padding is zeros
+            blk[full:].zero_()
+            blk[full, :rem].copy_(flat[full * chunk:])
+        off += chunk
+    return out
 
 
 def reduce_scatter_flat(ct: torch.Tensor, cfg: DistConfig,
@@ -180,9 +203,8 @@ def gather_group_start(shards: Sequence[torch.Tensor],
     `precision` is the bucket's wire precision (None = the config's)."""
     ag_codec, _ = precision_codecs(precision or default_precision(cfg))
     flats = [_squeeze_tp(s, m) for s, m in zip(shards, metas)]
-    if cfg.gather_in_param_dtype:
-        flats = [f.to(cfg.param_dtype) for f in flats]
-    buf = pack_shards(flats)
+    buf = pack_shards(flats, cfg.param_dtype if cfg.gather_in_param_dtype
+                      else flats[0].dtype)
     # RTN is chunk-local and every param's chunk is a whole number of
     # QCHUNK = LANE groups, so one round-trip over the bucket equals the
     # reference's one per class buffer, bit for bit
@@ -203,8 +225,8 @@ def pack_grad_bucket(grads_full: Sequence[torch.Tensor],
     """Copy-in: full TP-local grads -> one (fsdp, len) buffer in rs_dtype,
     its columns class by class (`_vma_classes`)."""
     order = [i for idxs in _vma_classes(metas) for i in idxs]
-    return pack_grads([grads_full[i].to(rs_dtype(cfg)) for i in order],
-                      [metas[i] for i in order], cfg)
+    return pack_grads([grads_full[i] for i in order],
+                      [metas[i] for i in order], cfg, rs_dtype(cfg))
 
 
 class ReduceWork:

@@ -109,14 +109,6 @@ def unflatten_local(flat: torch.Tensor, meta: ParamMeta,
     return flat[: meta.numel_local(cfg)].reshape(meta.local_shape(cfg))
 
 
-def flatten_local(x: torch.Tensor, meta: ParamMeta,
-                  cfg: DistConfig) -> torch.Tensor:
-    """TP-local compute tensor -> padded flat (padded_len,)."""
-    flat = x.reshape(-1)
-    return torch.nn.functional.pad(flat, (0, meta.padded_len(cfg)
-                                          - flat.numel()))
-
-
 # --------------------------------------------------------------------------
 # Tree helpers: params, metas, grads and moments travel as nested dicts.
 # --------------------------------------------------------------------------
@@ -147,13 +139,16 @@ def leaves(tree) -> list:
 def unflatten_like(template, values) -> dict:
     """A tree shaped like `template` whose leaves, in `named_leaves` order,
     are `values`."""
-    it = iter(values)
+    return _build(template, iter(values))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(template)
+
+def _build(t, it):
+    # module level, not a closure: a self-referencing inner function forms
+    # a reference cycle that holds `values` (a step's whole gradient tree)
+    # until Python's cycle collector happens to run
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def abstract_storage(metas, cfg: DistConfig, n_layers: int | None = None):

@@ -3,6 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
       --dtype bfloat16
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3_moe_30b_a3b --dtype bfloat16
+
+Serves the dense and moe families (`--arch` any of their ids in
+`models.registry.PORTED`).
 
 Mirrors `repro.launch.serve` at world size 1: seeded weights, prompts of
 random tokens padded with token 3 up to T = prompt_len + gen (so the first

@@ -10,7 +10,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 4 --metrics-jsonl m.jsonl --profile-out p.json \\
       --replan-threshold 0 --replan-patience 2 --replan-apply
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3_moe_30b_a3b --smoke --device cpu --steps 3 \\
+      --dtype float32 --seq 16 --batch 4
 
+`--arch` takes every id of `models.registry.PORTED`: the dense family
+(llama3_8b, qwen3_1_7b, deepseek_coder_33b, phi3_medium_14b), the moe
+family (qwen3_moe_30b_a3b, qwen2_moe_a2_7b; each step logs the router's
+load-balance term apart as `moe_aux`) and zamba2_1_2b.
 Runs on the card unless `--device cpu` is given.  At world size 1 it
 creates its own one-rank process group on an in-process store (no
 network); a multi-rank run initialises `torch.distributed` itself (one
@@ -144,8 +151,11 @@ def main(argv=None):
     print(f"plan: {trainer.plan.describe()}")
     _, _, hist = trainer.run()
     for h in hist:
+        moe = "".join(f" {k} {h[k]:.6g}" for k in ("moe_aux", "moe_drops")
+                      if k in h)
         print(f"step {h['step']} loss {h['loss']:.6f} grad_norm "
-              f"{h['grad_norm']:.6f} lr {h['lr']:.3e} {h['dt'] * 1e3:.1f}ms")
+              f"{h['grad_norm']:.6f} lr {h['lr']:.3e} {h['dt'] * 1e3:.1f}ms"
+              f"{moe}")
     print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
     report_obs(trainer, args)
     return trainer, hist

@@ -1,4 +1,4 @@
-"""Architecture config schema (the dense and zamba subsets of
+"""Architecture config schema (the dense, moe and zamba subsets of
 `repro.models.common`).
 
 `ArchConfig` keeps the reference's field names, defaults and derived head
@@ -57,7 +57,7 @@ class BlockSegments:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # 'dense' | 'zamba' are ported
+    family: str               # 'dense' | 'moe' | 'zamba' are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,6 +78,16 @@ class ArchConfig:
     gated_mlp: str = "swiglu"             # swiglu | geglu | gelu
     tie_embeddings: bool = False
 
+    # moe --------------------------------------------------------------------
+    n_experts: int = 0
+    n_experts_active: int = 0             # top-k
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    d_ff_shared: int = 0
+    router_aux_coef: float = 1e-2
+    capacity_factor: float = 1.25
+    moe_norm_topk: bool = False           # qwen3-moe renormalizes top-k
+
     # ssm / hybrid -----------------------------------------------------------
     ssm_state: int = 0                    # mamba2 d_state
     ssm_head_dim: int = 64
@@ -86,8 +96,13 @@ class ArchConfig:
     ssm_chunk: int = 128
     shared_attn_every: int = 0            # zamba2: shared block period
 
-    # head counts pad to a multiple of this (>= any runtime tp that divides
-    # it), keeping GLOBAL param shapes mesh-independent.
+    # recommended pipeline-parallel degree on the production mesh (the
+    # reference's launch.mesh reads it); 1 = no pipelining.  Nothing in the
+    # port reads it before pipeline parallelism is ported
+    pp_stages: int = 1
+
+    # head/expert counts pad to a multiple of this (>= any runtime tp that
+    # divides it), keeping GLOBAL param shapes mesh-independent.
     pad_to: int = 16
 
     # ------------------------------------------------------------- derived --
@@ -132,16 +147,31 @@ class ArchConfig:
         return attn + mlp + 2 * d
 
     def n_params(self) -> int:
-        """Parameter count.  For zamba it is the sum of the model's metas'
-        global sizes; the reference applies the dense formula to that
-        family too (`repro/models/common.py` `n_params`), which counts
-        attention and MLP weights that the Mamba layers do not have."""
-        if self.family == "zamba":
-            from repro_torch.models.zamba2 import Zamba2LM
-            return Zamba2LM(self).n_params()
+        """Parameter count.  For zamba and moe it is the sum of the model's
+        metas' global sizes.  The reference applies the dense formula to
+        zamba, which counts attention and MLP weights that the Mamba layers
+        do not have; for moe it counts the real experts, not the padded
+        ones the metas hold, and leaves out the q/k norms, the shared
+        expert's gate and the final norm (`repro/models/common.py`
+        `n_params`)."""
+        if self.family in ("zamba", "moe"):
+            from repro_torch.models.registry import build_model
+            from repro_torch.models.runtime import n_params
+            return n_params(build_model(self))
         if self.family != "dense":
             raise NotImplementedError(
-                f"{self.family}: only the dense and zamba families are "
+                f"{self.family}: only the dense, moe and zamba families are "
                 "ported")
         emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
         return emb + self.n_layers * self.params_dense_block()
+
+    def n_params_active(self) -> int:
+        """Parameters applied to each token: `n_params` less, for moe, the
+        routed experts a token does not visit (all but top-k of the padded
+        expert stack)."""
+        if self.family != "moe":
+            return self.n_params()
+        from repro_torch.models.moe import experts_padded
+        idle = experts_padded(self, 1) - self.n_experts_active
+        return self.n_params() - self.n_layers * idle * 3 * self.d_model \
+            * self.d_ff_expert

@@ -4,6 +4,10 @@ Runs llama3-style blocks (RoPE, SwiGLU, GQA) with the qwen3 variants
 (qk-norm, tied embeddings) and the attention flags the kernels take
 (logit softcaps, a sliding window on every layer).  gemma2's local/global
 pairs and sandwich norms, and the gelu/geglu MLPs, are not ported yet.
+The FFN is a hook (`_ffn_metas` / `_ffn_init` / `_ffn_apply` /
+`_ffn_decode`) that the moe family overrides; its per-layer aux (the
+router's load-balance loss) rides the stack's aux channel and
+`_loss_aux` adds it to the loss.
 
 Parameters are plain dicts with the reference's tree and layouts; the
 block leaves are stacked on a leading (n_steps, ...) axis.  Entry points:
@@ -37,9 +41,12 @@ _UNPORTED = ("local_global_alternate", "post_norms")
 
 
 class DenseLM:
+    family = "dense"
+
     def __init__(self, cfg: ArchConfig):
         unported = [f for f in _UNPORTED if getattr(cfg, f)]
-        if cfg.family != "dense" or cfg.gated_mlp != "swiglu" or unported:
+        if (cfg.family != self.family or cfg.gated_mlp != "swiglu"
+                or unported):
             raise NotImplementedError(
                 f"{cfg.name}: family={cfg.family} gated_mlp={cfg.gated_mlp} "
                 f"{unported} are not ported to repro_torch yet")
@@ -56,7 +63,7 @@ class DenseLM:
             "ln1": LY.norm_meta("ln1", cfg.d_model, dt),
             "attn": LY.attn_metas(cfg, dcfg, dt, prefix="attn."),
             "ln2": LY.norm_meta("ln2", cfg.d_model, dt),
-            "mlp": LY.mlp_metas(cfg, dcfg, dt, prefix="mlp."),
+            "mlp": self._ffn_metas(dcfg, dt, prefix="mlp."),
         }
 
     def metas(self, dcfg: DistConfig) -> dict:
@@ -92,7 +99,7 @@ class DenseLM:
             "ln1": LY.norm_init(cfg.d_model, device, dtype),
             "attn": LY.attn_init(generator, cfg, dcfg, device, dtype),
             "ln2": LY.norm_init(cfg.d_model, device, dtype),
-            "mlp": LY.mlp_init(generator, cfg, device, dtype),
+            "mlp": self._ffn_init(generator, dcfg, device, dtype),
         }
 
     def init_full(self, generator: torch.Generator, dcfg: DistConfig,
@@ -136,15 +143,32 @@ class DenseLM:
                               q_scale=self._q_scale)
         return x + h, kv
 
+    # FFN hooks: overridden by the moe family ------------------------------
+    def _ffn_metas(self, dcfg, dtype, prefix=""):
+        return LY.mlp_metas(self.cfg, dcfg, dtype, prefix=prefix)
+
+    def _ffn_init(self, generator, dcfg, device, dtype):
+        return LY.mlp_init(generator, self.cfg, device, dtype)
+
+    def _ffn_apply(self, p, x, dcfg):
+        """-> (FFN output, this layer's aux dict)."""
+        return LY.mlp_apply(p, x, self.cfg, dcfg), {}
+
+    def _ffn_decode(self, p, x, dcfg):
+        # the reference's decode FFN differs from its train FFN only by a
+        # psum over the TP ranks, the identity at tp = 1
+        return self._ffn_apply(p, x, dcfg)[0]
+
     def _mlp_half(self, p, x, dcfg):
-        """FFN residual branch (ln2 + mlp.*)."""
+        """FFN residual branch (ln2 + mlp.*): (x + h, aux)."""
         h = LY.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
-        return x + LY.mlp_apply(p["mlp"], h, self.cfg, dcfg)
+        h, aux = self._ffn_apply(p["mlp"], h, dcfg)
+        return x + h, aux
 
     def block_fn(self, p, consts, x, dcfg: DistConfig):
         rope = (consts["rope_cos"], consts["rope_sin"])
         x, _ = self._attn_half(p, rope, x, dcfg)
-        return self._mlp_half(p, x, dcfg), {}
+        return self._mlp_half(p, x, dcfg)
 
     def block_segments(self, dcfg: DistConfig) -> BlockSegments:
         """Segmented block contract (attn / mlp residual branches)."""
@@ -153,7 +177,7 @@ class DenseLM:
                                        consts["rope_sin"]), x, dcfg)[0]
 
         def seg_mlp(p, consts, x):
-            return self._mlp_half(p, x, dcfg), {}
+            return self._mlp_half(p, x, dcfg)
 
         return BlockSegments(
             names=("attn", "mlp"),
@@ -213,10 +237,18 @@ class DenseLM:
             key, cfg, dcfg.storage_dtype)
         return LY.logits_f32(x, coll.replicate(storage[key], meta, dcfg), cfg)
 
+    def _aux0(self) -> dict:
+        """Zero-valued aux accumulator matching the stack's aux keys."""
+        return {}
+
+    def _loss_aux(self, aux):
+        """Scalar added to the cross-entropy loss from the summed aux."""
+        return 0.0
+
     # -- the stage-partition contract; composes to loss_local at pp=1
     def stage_pre(self, storage, mb, dcfg: DistConfig):
         """tokens -> embeddings (+ zero aux)."""
-        return self._embed_in(storage, mb["tokens"], dcfg), {}
+        return self._embed_in(storage, mb["tokens"], dcfg), self._aux0()
 
     def stage_blocks(self, storage, state, dcfg: DistConfig, plan=None):
         """The layer stack under the SimpleFSDP schedule (core/stack) with
@@ -233,15 +265,15 @@ class DenseLM:
         return x, {k: aux.get(k, 0) + v for k, v in aux2.items()}
 
     def stage_loss(self, storage, state, mb, dcfg: DistConfig):
-        """Final norm, LM head, masked cross-entropy."""
+        """Final norm, LM head, masked cross-entropy (+ the summed aux)."""
         cfg = self.cfg
-        x, _ = state
+        x, aux = state
         fn_meta = LY.norm_meta("final_norm", cfg.d_model, dcfg.storage_dtype)
         w_fn = coll.replicate(storage["final_norm"], fn_meta, dcfg)
         x = LY.rmsnorm(x, w_fn, cfg.norm_eps)
         logits = self._lm_head(storage, x, dcfg)
         loss, _ = LY.vocab_parallel_xent(logits, mb["targets"], mb["valid"])
-        return loss
+        return loss + self._loss_aux(aux)
 
     def loss_local(self, storage, batch, dcfg: DistConfig, plan=None):
         """batch: tokens/targets (B, S) int, valid (B, S) fp32.  Returns
@@ -256,7 +288,7 @@ class DenseLM:
     def _serve_sub(self, p, rope, x, dcfg):
         """Prefill block: returns the block output and this layer's (k, v)."""
         x, kv = self._attn_half(p, rope, x, dcfg)
-        return self._mlp_half(p, x, dcfg), kv
+        return self._mlp_half(p, x, dcfg)[0], kv
 
     def prefill_local(self, params, batch, dcfg: DistConfig, cache):
         """params: full params, blocks stacked (n_steps, ...); batch:
@@ -324,7 +356,7 @@ class DenseLM:
         x = x + torch.matmul(out.reshape(B, C, hl * cfg.head_dim),
                              p["attn"]["wo"])
         h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + LY.mlp_apply(p["mlp"], h, cfg, dcfg)
+        return x + self._ffn_decode(p["mlp"], h, dcfg)
 
     def _cached_forward(self, params, cache, toks, qpos, dcfg):
         """Embed toks (B,C) at positions qpos (B,C), run the stack against

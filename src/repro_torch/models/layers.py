@@ -163,6 +163,12 @@ def logits_f32(x, w, cfg: ArchConfig):
     return _softcap(out.view(B, S, -1), cfg.final_softcap)
 
 
+def matmul_f32(x, w):
+    """x (R, D) @ w (D, N) accumulated and returned in fp32 (the
+    reference's ``preferred_element_type=float32``; the moe router)."""
+    return _LogitsF32.apply(x, w, False)
+
+
 def vocab_parallel_xent(logits, targets, valid):
     """Masked mean cross-entropy over the valid tokens (the reference's
     `vocab_parallel_xent` at tp=1), per-row losses from the cross-entropy
@@ -274,8 +280,9 @@ def attn_apply(p, x, rope, cfg: ArchConfig, dcfg: DistConfig, window=None,
 # Gated MLP unit
 # ---------------------------------------------------------------------------
 def mlp_metas(cfg: ArchConfig, dcfg: DistConfig, dtype,
-              prefix: str = "") -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+              prefix: str = "", d_ff: int | None = None) -> dict:
+    """`d_ff` overrides cfg.d_ff (the moe family's shared expert)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "wu": ParamMeta(prefix + "wu", (d, f), tp_dim=1, dtype=dtype),
         "wd": ParamMeta(prefix + "wd", (f, d), tp_dim=0, dtype=dtype),
@@ -283,8 +290,9 @@ def mlp_metas(cfg: ArchConfig, dcfg: DistConfig, dtype,
     }
 
 
-def mlp_init(generator, cfg: ArchConfig, device, dtype) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(generator, cfg: ArchConfig, device, dtype,
+             d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     sd = 0.02
     return {
         "wu": _normal((d, f), sd, generator, device, dtype),

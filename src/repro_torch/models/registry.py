@@ -14,7 +14,8 @@ ARCH_IDS = (
     "seamless_m4t_large_v2", "zamba2_1_2b", "internvl2_26b",
     "llama3_8b",
 )
-PORTED = ("llama3_8b", "qwen3_1_7b", "zamba2_1_2b")
+PORTED = ("llama3_8b", "qwen3_1_7b", "zamba2_1_2b", "qwen3_moe_30b_a3b",
+          "qwen2_moe_a2_7b", "deepseek_coder_33b", "phi3_medium_14b")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
@@ -25,6 +26,9 @@ def build_model(cfg):
     if cfg.family == "dense":
         from repro_torch.models.dense import DenseLM
         return DenseLM(cfg)
+    if cfg.family == "moe":
+        from repro_torch.models.moe import MoELM
+        return MoELM(cfg)
     if cfg.family == "zamba":
         from repro_torch.models.zamba2 import Zamba2LM
         return Zamba2LM(cfg)

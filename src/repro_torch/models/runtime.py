@@ -11,11 +11,13 @@ reference's `shard_params` output.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from repro_torch.core.dist import DistConfig, resolve_device
-from repro_torch.core.meta import abstract_storage, tree_map
+from repro_torch.core.meta import abstract_storage, named_leaves, tree_map
 
 
 def stacked_keys(model) -> dict:
@@ -30,6 +32,15 @@ def stacked_keys(model) -> dict:
             "model contract requires a property mapping each layer-stacked "
             "param group to its stack length, e.g. {'blocks': n_steps}")
     return dict(sk)
+
+
+def n_params(model) -> int:
+    """Sum of the metas' global sizes, a layer-stacked group once per
+    layer."""
+    sk = stacked_keys(model)
+    return sum(math.prod(m.global_shape) * sk.get(k, 1)
+               for k, tree in model.metas(DistConfig()).items()
+               for _, m in named_leaves(tree))
 
 
 def model_abstract_storage(model, dcfg: DistConfig):

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import collectives as coll
 from repro_torch.core.dist import DistConfig
 from repro_torch.core.irgraph import BlockStats
-from repro_torch.core.meta import ParamMeta, leaves, named_leaves, tree_map
+from repro_torch.core.meta import ParamMeta, named_leaves, tree_map
 from repro_torch.core.remat import maybe_remat, whole_block_policy
 from repro_torch.core.stack import apply_stack
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -130,11 +130,8 @@ class Zamba2LM:
 
     def n_params(self) -> int:
         """Sum of the metas' global sizes (the blocks once per layer)."""
-        total = 0
-        for k, tree in self.metas(DistConfig()).items():
-            n = sum(math.prod(m.global_shape) for m in leaves(tree))
-            total += n * self.stacked_keys.get(k, 1)
-        return total
+        from repro_torch.models.runtime import n_params
+        return n_params(self)
 
     def input_specs(self, shape: ShapeConfig, dcfg: DistConfig) -> dict:
         B, S = shape.global_batch, shape.seq_len

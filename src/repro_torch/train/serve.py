@@ -83,6 +83,10 @@ def alloc_cache(model, shape: ShapeConfig, dcfg: DistConfig, device="cuda"):
     check_world_size_one(dcfg)
     dev = resolve_device(device)
     cfg = model.cfg
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: serving the {cfg.family} family is not yet ported "
+            "to repro_torch")
     dims = (model.n_steps, shape.global_batch, shape.seq_len,
             cfg.gqa_layout(dcfg.tp_size)["kvp"], cfg.head_dim)
     return tuple(torch.zeros(dims, dtype=dcfg.param_dtype, device=dev)

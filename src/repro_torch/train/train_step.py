@@ -55,13 +55,17 @@ def step_wire_metrics(model, plan) -> dict:
 
 
 def _loss_and_grads(par, storage, batch):
-    """(loss, grads) of the model's local loss w.r.t. every storage leaf."""
+    """(loss, grads, aux) of the model's local loss w.r.t. every storage
+    leaf; `aux` holds the model's aux sums apart, detached (moe: the
+    router's load-balance term, which the loss includes, and the drop
+    count)."""
     dcfg = par.plan.exec_dcfg
     params = [a.detach().requires_grad_() for a in leaves(storage)]
-    loss = par.model.loss_local(unflatten_like(storage, params), batch,
-                                dcfg, par.plan.bucket_plan("blocks"))[0]
+    loss, aux = par.model.loss_local(unflatten_like(storage, params), batch,
+                                     dcfg, par.plan.bucket_plan("blocks"))
     grads = torch.autograd.grad(loss, params)
-    return loss.detach(), unflatten_like(storage, grads)
+    return (loss.detach(), unflatten_like(storage, grads),
+            {k: v.detach() for k, v in aux.items()})
 
 
 def _rank_mean(x: torch.Tensor, par) -> torch.Tensor:
@@ -75,7 +79,8 @@ def _rank_mean(x: torch.Tensor, par) -> torch.Tensor:
 def make_loss_step(par):
     """step(storage, batch) -> (loss, grads)."""
     def step(storage, batch):
-        loss, grads = _loss_and_grads(par, storage, par.local_batch(batch))
+        loss, grads, _ = _loss_and_grads(par, storage,
+                                         par.local_batch(batch))
         return _rank_mean(loss, par), grads
     return step
 
@@ -101,7 +106,9 @@ def make_train_step(par, ocfg: AdamWConfig,
                     schedule: Callable | None = None):
     """step(storage, opt_state, batch) -> (storage, opt_state, metrics),
     updating storage and opt_state in place.  metrics: loss, grad_norm and
-    lr as device scalars."""
+    lr as device scalars, and the model's aux terms on their own (moe:
+    `moe_aux`, the load-balance term the loss includes, and `moe_drops`,
+    the (token, choice) pairs dropped over capacity in all layers)."""
     dcfg = par.plan.exec_dcfg
     mask = ef_mask(par) if dcfg.needs_ef else None
     sched = schedule or (lambda t: torch.full((), ocfg.lr,
@@ -114,20 +121,23 @@ def make_train_step(par, ocfg: AdamWConfig,
             rows = next(iter(b.values())).shape[0] // k
             mbs = [{n: a[i * rows:(i + 1) * rows] for n, a in b.items()}
                    for i in range(k)]
-            loss, grads = _loss_and_grads(par, storage, mbs[0])
+            loss, grads, aux = _loss_and_grads(par, storage, mbs[0])
             for mb in mbs[1:]:
-                l, g = _loss_and_grads(par, storage, mb)
+                l, g, a = _loss_and_grads(par, storage, mb)
                 loss = loss + l
+                aux = {n: aux[n] + a[n] for n in aux}
                 tree_map(lambda acc, x: acc.add_(x), grads, g)
             loss = loss * (1.0 / k)
+            aux = {n: v * (1.0 / k) for n, v in aux.items()}
             tree_map(lambda acc: acc.mul_(1.0 / k), grads)
         else:
-            loss, grads = _loss_and_grads(par, storage, b)
+            loss, grads, aux = _loss_and_grads(par, storage, b)
         lr = sched(opt_state["step"])
         gnorm = apply_adamw(storage, grads, opt_state, dcfg, ocfg, lr,
                             ef_mask=mask)
         metrics = {"loss": _rank_mean(loss, par), "grad_norm": gnorm,
-                   "lr": lr.to(torch.float32)}
+                   "lr": lr.to(torch.float32),
+                   **{n: _rank_mean(v, par) for n, v in aux.items()}}
         return storage, opt_state, metrics
 
     return step

@@ -183,6 +183,9 @@ class Trainer:
             self.shape.seq_len * self.shape.global_batch / max(1e-9, dt))
         r.gauge("train/grad_norm").set(metrics["grad_norm"])
         r.gauge("train/loss").set(metrics["loss"])
+        for k in ("moe_aux", "moe_drops"):     # the moe family's aux terms
+            if k in metrics:
+                r.gauge(f"train/{k}").set(metrics[k])
         for prec, nbytes in self._wire["by_precision"].items():
             r.counter(f"train/wire_bytes/{prec}").inc(nbytes)
         if self._modeled_step_s is not None:

@@ -95,9 +95,11 @@ def test_rmsnorm_kernel_rejects_what_it_does_not_take(dev):
         rms_ops.rmsnorm(x, _randn(dev, 64, dtype=torch.bfloat16))
 
 
+# (130, 32, 4, 128): qwen3-moe-30b-a3b's heads, a GQA group of 8
 @pytest.mark.parametrize("S,H,Kh,hd", [(64, 2, 2, 16), (200, 4, 2, 64),
                                        (130, 8, 2, 128), (1, 4, 1, 64),
-                                       (24, 4, 4, 32), (100, 4, 2, 32)])
+                                       (24, 4, 4, 32), (100, 4, 2, 32),
+                                       (130, 32, 4, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=33, softcap=30.0)])

@@ -14,7 +14,8 @@ math, on the CPU.
     at pp = cp = 1, on the port: the remat grammar and its pointed errors,
     the segment_prefetch collapse, offload, the budget respected, a
     non-uniform vector that beats every uniform policy, exec_dcfg;
-  * the llama3-8b rows of `benchmarks/results/BENCH_memory.json` (16x16,
+  * every row of `benchmarks/results/BENCH_memory.json` (llama3-8b,
+    deepseek-coder-33b, qwen3-moe-30b-a3b; 16x16,
     (1, 4096)): policy_spec, peak_bytes and the offload flags exact;
     cost_s exactly the reference's current `plan_memory`, and within a
     relative 1e-12 of the file (the file's last bits predate a reordering
@@ -307,13 +308,18 @@ def test_plan_parallel_resolves_auto_into_exec_dcfg():
     assert fixed.exec_dcfg == small
 
 
-def test_bench_memory_llama3_rows_reproduced_under_the_tpu_profile():
+@pytest.mark.parametrize("arch", ("llama3_8b", "deepseek_coder_33b",
+                                  "qwen3_moe_30b_a3b"))
+def test_bench_memory_llama3_rows_reproduced_under_the_tpu_profile(arch):
+    """Each arch's rows of benchmarks/results/BENCH_memory.json (16x16,
+    analytic stats at (1, 4096)): policy, peak and offload EXACT, cost_s
+    equal to the reference's code and to the file within 1e-12."""
     doc = json.loads((ROOT / "benchmarks/results/BENCH_memory.json")
                      .read_text())
     assert doc["mesh"] == "16x16"
-    want = doc["archs"]["llama3_8b"]["modes"]
-    _, model = get_arch("llama3_8b")
-    _, jmodel = jax_get_arch("llama3_8b")
+    want = doc["archs"][arch]["modes"]
+    _, model = get_arch(arch)
+    _, jmodel = jax_get_arch(arch)
     jd = JDistConfig(mesh_axes=("data", "model"), mesh_shape=(16, 16))
     jstats = jmodel.block_stats(jd, BSHAPE)
     for mode in ("none", "save_dots", "fsdp_only", "full",

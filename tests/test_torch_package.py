@@ -108,10 +108,15 @@ def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
-    """Each ported arch builds its family's model class; the other eight
+    """Each ported arch builds its family's model class; the other four
     raise "not yet ported"."""
+    from repro_torch.models.moe import MoELM
     from repro_torch.models.zamba2 import Zamba2LM
     want = {"llama3_8b": ("dense", DenseLM), "qwen3_1_7b": ("dense", DenseLM),
+            "deepseek_coder_33b": ("dense", DenseLM),
+            "phi3_medium_14b": ("dense", DenseLM),
+            "qwen3_moe_30b_a3b": ("moe", MoELM),
+            "qwen2_moe_a2_7b": ("moe", MoELM),
             "zamba2_1_2b": ("zamba", Zamba2LM)}
     assert set(PORTED) == set(want)
     for arch in PORTED:
@@ -119,7 +124,7 @@ def test_registry_ports_two_archs_and_names_the_rest():
             cfg, model = get_arch(arch, smoke=smoke)
             family, cls = want[arch]
             assert cfg.family == family and type(model) is cls, arch
-    assert len(set(ARCH_IDS) - set(PORTED)) == 8
+    assert len(set(ARCH_IDS) - set(PORTED)) == 4
     for arch in set(ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_arch(arch)

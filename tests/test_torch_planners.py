@@ -14,9 +14,10 @@ only, on the CPU.
     `auto_layer_group`'s single-counted memory cap, plan memoization, the
     joint precision DP never worse than all-bf16, precisions carried across
     a segment split;
-  * the llama3-8b rows of `benchmarks/results/BENCH_overlap.json` (16x16
-    mesh, analytic stats at (1, 4096)) reproduced exactly under the TPU
-    profile (the file is read, never written);
+  * every row of `benchmarks/results/BENCH_overlap.json` (llama3-8b,
+    deepseek-coder-33b, qwen3-moe-30b-a3b; 16x16 mesh, analytic stats at
+    (1, 4096)) reproduced exactly under the TPU profile (the file is read,
+    never written);
   * the H100 profile is the default and prices differently;
   * the steps run the plan `plan_parallel` reports: the stack is handed
     it, and a memory-plan override without precisions (the per-param
@@ -59,6 +60,8 @@ DP_SIZES = (1, 8, 64, 256)
 PRECISIONS = ("bf16", "fp8_ef", "auto")
 MODES = ("none", "block", "auto", "auto_dp")
 CFG2D = DistConfig(mesh_axes=("data", "model"), mesh_shape=(4, 2))
+# the archs of benchmarks/results/BENCH_{overlap,memory}.json
+BENCH_ARCHS = ("llama3_8b", "deepseek_coder_33b", "qwen3_moe_30b_a3b")
 EXPOSURE_KEYS = ("exposed_s", "exposed_comm_s", "quant_overhead_s",
                  "total_comm_s", "compute_s", "n_buckets",
                  "comm_wire_bytes", "precisions")
@@ -317,17 +320,20 @@ def test_manual_plan_and_wire_bytes_equal_reference():
     assert wire_bytes(1 << 20, 2) == 2 << 20
 
 
-def test_bench_overlap_llama3_rows_reproduced_under_the_tpu_profile():
-    """benchmarks/results/BENCH_overlap.json's llama3_8b rows (16x16 mesh,
-    fsdp over data, analytic stats at (1, 4096)): exposed_s, total_comm_s,
+@pytest.mark.parametrize("arch", BENCH_ARCHS)
+def test_bench_overlap_llama3_rows_reproduced_under_the_tpu_profile(arch):
+    """benchmarks/results/BENCH_overlap.json's rows of each of its archs
+    (llama3-8b, deepseek-coder-33b, qwen3-moe-30b-a3b; 16x16 mesh, fsdp
+    over data, analytic stats at (1, 4096)): exposed_s, total_comm_s,
     compute_s and n_buckets per mode, and every comm_precision row, EXACT.
     The port plans the tp = 16 metas as host math (its runtime still
     raises at tp > 1)."""
     doc = json.loads((ROOT / "benchmarks/results/BENCH_overlap.json")
                      .read_text())
     assert doc["mesh"] == "16x16"
-    want = doc["archs"]["llama3_8b"]
-    _, model = get_arch("llama3_8b")
+    assert set(doc["archs"]) == set(BENCH_ARCHS)
+    want = doc["archs"][arch]
+    _, model = get_arch(arch)
     d = DistConfig(mesh_shape=(16, 16))
     metas, segs = model.block_metas(d), model.block_segments(d)
     stats = model.block_stats(d, (1, 4096))
@@ -441,7 +447,11 @@ def test_runtime_plans_with_the_stats_plan_parallel_reports(arch):
 # budgets at which the search keeps the per-param partition (and takes
 # optimizer offload) at 8 ranks, B8, under the TPU profile
 OVERRIDE_BUDGETS = {"qwen3_1_7b": "auto:0.00035", "llama3_8b": "auto:0.0004",
-                    "zamba2_1_2b": "auto:0.00089"}
+                    "zamba2_1_2b": "auto:0.00089",
+                    "qwen3_moe_30b_a3b": "auto:0.00058",
+                    "qwen2_moe_a2_7b": "auto:0.00076",
+                    "deepseek_coder_33b": "auto:0.00048",
+                    "phi3_medium_14b": "auto:0.00054"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)

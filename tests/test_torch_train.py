@@ -1,6 +1,7 @@
 """Training parity at pp = 1: the PyTorch port's FSDP loss step against the
-JAX reference's `parallelize(...).loss_step()` on the CPU, both smoke
-configs (llama3 and qwen3: GQA, qk-norm, tied embeddings).
+JAX reference's `parallelize(...).loss_step()` on the CPU, the dense smoke
+configs (llama3 and qwen3: GQA, qk-norm, tied embeddings; deepseek-coder
+and phi3-medium: padded heads, masked).
 
   * storage: the port's `shard_params` is byte-equal to the reference's on
     the reference's own seeded full params;
@@ -43,7 +44,8 @@ from repro_torch.models.registry import get_arch
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 TOL = dict(rtol=2e-2, atol=2e-2)
 B, S = 4, 16
-ARCHS = ("llama3_8b", "qwen3_1_7b")
+# deepseek pads its SMOKE q heads 6 -> 8, phi3 its q and kv heads 5 -> 8
+ARCHS = ("llama3_8b", "qwen3_1_7b", "deepseek_coder_33b", "phi3_medium_14b")
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -122,6 +124,30 @@ def test_loss_and_grads_match_reference(arch, remat, bucket_mode):
     for (n, a), (_, b) in zip(got, want):
         assert a.dtype == torch.float32, n
         np.testing.assert_allclose(a.numpy(), b, err_msg=n, **TOL32)
+
+
+def test_padded_head_layouts_are_masked():
+    """deepseek's SMOKE pads its 6 q heads to 8 (kv 2, groups of 3 padded
+    to 4), phi3's its 5 q and 5 kv heads to 8 each; the padded heads are
+    masked out, so their weights get no gradient."""
+    from repro_torch.models import layers as LY
+    want = {"deepseek_coder_33b": (8, 2, 4, 3, 6), "phi3_medium_14b":
+            (8, 8, 1, 1, 5)}
+    storage_np, batch, _, _ = _reference("phi3_medium_14b")
+    for arch, (hq, kvp, g, g_real, real) in want.items():
+        cfg, _ = get_arch(arch, smoke=True)
+        lay = cfg.gqa_layout(1)
+        assert (lay["mode"], lay["hq"], lay["kvp"], lay["g"],
+                lay["g_real"]) == ("grouped", hq, kvp, g, g_real)
+        mask = LY.head_mask(cfg, DistConfig(), "cpu", torch.float32)
+        assert int(mask.sum()) == real == cfg.n_heads
+    model, dcfg, par = _port("phi3_medium_14b")
+    storage = RT.storage_from_jax(storage_np, model, dcfg, device="cpu")
+    _, grads = par.loss_step()(storage, batch)
+    hd = model.cfg.head_dim
+    wk = grads["blocks"]["attn"]["wk"][..., :8 * hd * 64].reshape(
+        2, 8, hd, 64)
+    assert float(wk[:, 5:].abs().max()) == 0.0 < float(wk[:, :5].abs().max())
 
 
 def test_bf16_logits_accumulate_in_fp32_like_the_reference():
@@ -211,6 +237,45 @@ def test_bucket_plans_match_reference(bucket_mode):
         assert par.plan.bucket_plan("blocks").groups == \
             jplan.bucket_plan("blocks").groups
         assert par.plan.describe() == jplan.describe()
+
+
+@pytest.mark.parametrize("arch", ["qwen3_1_7b", "qwen3_moe_30b_a3b"])
+@pytest.mark.parametrize("reorder", [False, True])
+def test_a_step_and_a_restore_leave_no_reference_cycle(arch, reorder,
+                                                       tmp_path):
+    """A train step and a checkpoint restore free every tensor and array
+    they made when they return: none waits in a reference cycle for
+    Python's cycle collector.  (A recursive closure in `unflatten_like`
+    held each step's gradient tree in a cycle, so a step could start with
+    the previous step's gradients still allocated.)"""
+    import gc
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state
+    cfg, model = get_arch(arch, smoke=True)
+    dcfg = DistConfig(param_dtype=torch.float32, reorder=reorder)
+    par = api.parallelize(model, dcfg, ShapeConfig("t", S, B, "train"),
+                          device="cpu")
+    storage, opt = init_train_state(par, torch.Generator().manual_seed(0))
+    step = par.train_step(AdamWConfig())
+    batch = _batch(cfg.vocab)
+    step(storage, opt, batch)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(1, storage, opt, model, dcfg)
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        step(storage, opt, batch)
+        ckpt.restore(1, model, dcfg)
+        gc.collect()
+        held = [type(o).__name__ for o in gc.garbage
+                if isinstance(o, (torch.Tensor, np.ndarray))]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert held == []
 
 
 def test_unported_layouts_raise_pointedly():
