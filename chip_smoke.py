@@ -165,13 +165,42 @@ without printing the final line):
      bound (every routed expert is read: the capacity dispatch at T = B),
      the prefill's drop share (held to MOE_PREFILL_DROP_BAND) by layer,
      device time a decode step.
+ 10m. gemma2 kernels vs plain (the main path of the eleventh slice,
+     gemma2-27b): bf16 flash at the training (B 1) and prefill (B 2)
+     shapes, T 8192, H 32 on Kh 16, hd 128, q_scale 1/16, for the local
+     layer (window 4096, softcap 50) and the global one (softcap 50),
+     against its plain version (evaluated two kv heads at a time) at TOL
+     and FLASH_BF16_RMS_REL with its two planted faults, beside the bound
+     (the pairs inside the window) and SDPA without the softcap (it takes
+     none); the local layer's training gradient; rmsnorm with unit offset
+     at (8192, 4608) with a planted missing offset; xent at (8192, 256000)
+     on softcapped logits; AdamW on the tied embedding's
+     1,179,648,000-element leaf.
+ 10n. gemma2 smoke, card vs CPU: SMOKE (one pair, window 8), fp32, 3 steps
+     of the launcher's trainer at T 32 on the vanilla and the prefetch
+     stack from one CPU-made checkpoint (losses, grad norms, storage at
+     TOL32; launch counters); prefill and 4 decode steps of a 12-token
+     prompt across the window, logits and both caches card vs CPU; prefill
+     over p+1 tokens against prefill over p + one decode step on the card.
+ 10o. full-width gemma2-27b training: every published width, one
+     local/global pair (GEMMA2_TRAIN_LAYERS), B 1, T 8192 (above the
+     window), bf16 compute, fp32 storage, the prefetch stack at a bf16
+     wire: the readings of 8, the windows flash was launched with, the
+     modeled peak and step (H100 profile) beside the measured.
+ 10p. full-width gemma2-27b serving at all 46 layers: bf16 weights made on
+     the card, B 2, prompt 8128 padded to T 8192, 64 generated tokens;
+     prefill ms, decode ms/token beside its byte bound, device time a
+     decode step, the windows flash was launched with; the consistency
+     check of 7 at p = 8191, past the window, in bf16 and at TOL32 on the
+     first GEMMA2_F32_LAYERS layers widened to fp32.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
 fp32.  Tolerances: TOL32 (rtol 2e-4, atol 2e-5) for fp32 and TOL (rtol 2e-2,
 atol 2e-2) for bf16, those of tests/test_kernels.py; the full-width bf16
-consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY) and an
-equal argmax; the bf16 flash outputs are also held to an RMS error of
+consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY; 2e-1
+for gemma2-27b's 46 layers, TOL_GEMMA2_BF16_CONSISTENCY) and an equal
+argmax; the bf16 flash outputs are also held to an RMS error of
 FLASH_BF16_RMS_REL of the plain output's RMS, the bf16 ssd outputs to
 SSD_BF16_RMS_REL and its bf16 gradients to SSD_BF16_GRAD_RMS_REL; the fp32
 ssd check at zamba2's layer shape applies TOL32's rtol to the summed |terms|
@@ -207,6 +236,15 @@ TOL32 = dict(rtol=2e-4, atol=2e-5)
 # bf16 prefill is 3.9e-2 from the fp32 one on the same weights); the
 # limit sits above that with room for run-to-run order changes
 TOL_BF16_CONSISTENCY = dict(rtol=0.0, atol=6e-2)
+# the same check on gemma2-27b at 46 layers, p = 8191 past its window,
+# seeded weights: a sound build read 1.432e-1 and 1.380e-1 on two inputs,
+# and 8.41e-2 on the first 12 layers, where the bf16 prefill is 7.78e-2
+# from the fp32 one on the same weights (the fp32 paths agree to 2.2e-5):
+# bf16 rounding through 46 layers with embeddings scaled by sqrt(4608).
+# The limit keeps llama3's room above the readings; the decode step with
+# its local layers unwindowed, a planted fault, reads 3.42 (NVIDIA H100
+# 80GB HBM3, 700 W)
+TOL_GEMMA2_BF16_CONSISTENCY = dict(rtol=0.0, atol=2e-1)
 # bf16 flash attention, besides TOL: RMS of the error over RMS of the plain
 # output.  A kernel that differs from the plain version only in the order of
 # its fp32 sums rounds to the same bf16 almost everywhere: the tensor-core
@@ -388,13 +426,15 @@ def check_plant_rejected(what, planted, want, limit):
         f"{'within' if within else 'outside'} TOL)")
 
 
-def flash_plants(q, k, v, causal=True, window=None, softcap=None):
+def flash_plants(q, k, v, causal=True, window=None, softcap=None,
+                 q_scale=None):
     """The plain attention with a planted fault: P rounded to one bf16 part
     before P V, and (where T > 256) the keys of one 128-key tile in the
     middle left out."""
     B, S, H, hd = q.shape
     T, Kh = k.shape[1], k.shape[2]
-    qg = q.float().reshape(B, S, Kh, H // Kh, hd) / hd ** 0.5
+    scale = q_scale if q_scale is not None else hd ** -0.5
+    qg = q.float().reshape(B, S, Kh, H // Kh, hd) * scale
     s = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
     if softcap:
         s = softcap * torch.tanh(s / softcap)
@@ -1789,19 +1829,32 @@ def _ssd_flops(b, t, h, p, n, lc):
                     + (n_c - 1) * 2 * lc * p * n)
 
 
+def _attn_pairs(seq, window=None):
+    """(query, key) pairs a causal attention over seq tokens scores: inside
+    the sliding window where one is given."""
+    if window is None or window >= seq:
+        return seq * (seq + 1) / 2
+    return window * (window + 1) / 2 + (seq - window) * window
+
+
 def _model_flops(cfg, model, batch, seq):
     """Model FLOPs of one training step (forward and backward, 3 x the
     forward; remat's recompute not counted): 6 x the matmul parameters
     applied per token x tokens (for moe the active ones), plus causal
-    attention (4*hd a pair) and, for zamba, the SSD's own products."""
+    attention (4*hd a pair, inside the window on gemma2's local layers)
+    and, for zamba, the SSD's own products."""
     tokens = batch * seq
     lay = cfg.gqa_layout(1)
     hd = cfg.head_dim
     pairs = seq * (seq + 1) / 2
     if cfg.family in ("dense", "moe"):
         d = cfg.d_model
+        if cfg.local_global_alternate:   # half the layers are windowed
+            pairs = (_attn_pairs(seq, cfg.sliding_window) + pairs) / 2
+        elif cfg.sliding_window:
+            pairs = _attn_pairs(seq, cfg.sliding_window)
         if cfg.family == "dense":
-            ffn = 3 * d * cfg.d_ff
+            ffn = (2 if cfg.gated_mlp == "gelu" else 3) * d * cfg.d_ff
         else:
             # the k routed experts a token visits, the router over the
             # padded experts and the gated shared expert; the capacity
@@ -1828,13 +1881,15 @@ def _model_flops(cfg, model, batch, seq):
 
 
 def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
-                step=None, first_loss=None, layers=None):
+                step=None, first_loss=None, layers=None, batch=TRAIN_B,
+                seq=TRAIN_T):
     """Trains `arch` at full width (at `layers` layers where given, else
-    its published depth): 1 warm-up step, TRAIN_STEPS timed steps and a
-    profiled one, through `par` / `step` when given (else
-    `parallelize(dcfg)` and its train step).  `first_loss(storage, batch)`,
-    when given, runs before the warm-up step on its storage and batch and
-    returns a loss the warm-up step's must equal bit for bit.  Returns
+    its published depth) on (batch, seq) batches: 1 warm-up step,
+    TRAIN_STEPS timed steps and a profiled one, through `par` / `step`
+    when given (else `parallelize(dcfg)` and its train step).
+    `first_loss(storage, batch)`, when given, runs before the warm-up step
+    on its storage and batch and returns a loss the warm-up step's must
+    equal bit for bit.  Returns
     (par, storage, opt_state)."""
     import dataclasses
     from repro_torch.core.api import parallelize
@@ -1848,7 +1903,7 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
         model = build_model(cfg)
-    shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
+    shape = ShapeConfig("train", seq, batch, "train")
     if par is None:
         par = parallelize(model, dcfg, shape, device="cuda")
     model = par.model
@@ -1864,8 +1919,8 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     if step is None:
         ocfg = AdamWConfig()
         step = par.train_step(ocfg, default_schedule(ocfg, 100, 10))
-    data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_T,
-                                  global_batch=TRAIN_B, seed=0))
+    data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0))
     batches = [data.batch(i) for i in range(TRAIN_STEPS + 3)]
     want_first = first_loss(storage, batches[0]) if first_loss else None
     torch.cuda.reset_peak_memory_stats()
@@ -1899,11 +1954,11 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     counts = _train_counts()
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_B * TRAIN_T
+    tokens = batch * seq
     step_s = sorted(times)[len(times) // 2]
-    flops = _model_flops(cfg, model, TRAIN_B, TRAIN_T)
+    flops = _model_flops(cfg, model, batch, seq)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
-    say(f"train B={TRAIN_B} T={TRAIN_T}: warm-up step {warm * 1e3:.1f} ms; "
+    say(f"train B={batch} T={seq}: warm-up step {warm * 1e3:.1f} ms; "
         f"steps {[round(t * 1e3, 2) for t in times]} ms, median "
         f"{step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s, "
         f"{flops / 1e12:.2f} model TFLOP/step, MFU {100 * mfu:.2f}% of "
@@ -2380,6 +2435,7 @@ def phase_full_width(state):
 def _consistency(params, prefill, decode, x, label):
     """Last logits of prefill over x (B, T) and of prefill over x with a pad
     at T-1 followed by one decode step of x[:, -1] at position T-1."""
+    b, t = x.shape
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
@@ -2392,7 +2448,7 @@ def _consistency(params, prefill, decode, x, label):
     _, cache = prefill(params, {"tokens": xp})
     rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
     got, _ = decode(params, cache, x[:, -1],
-                    torch.full((B,), T - 1, dtype=torch.int64,
+                    torch.full((b,), t - 1, dtype=torch.int64,
                                device=x.device))
     per_call["decode"] = dict(rmsnorm=rms_ops.launches,
                               flash=flash_ops.launches,
@@ -2799,9 +2855,9 @@ def _route_reading(par, storage, batch, label):
     model, cfg = par.model, par.model.cfg
     seen, attn, route = {}, model._attn_half, model._route
 
-    def attn_spy(p, rope, x, dcfg):
+    def attn_spy(p, rope, x, dcfg, window):
         seen.setdefault("emb", x.detach())
-        return attn(p, rope, x, dcfg)
+        return attn(p, rope, x, dcfg, window)
 
     def route_spy(x2d, router):
         w, ids, aux = route(x2d, router)
@@ -3015,6 +3071,619 @@ def phase_full_moe_serve(state):
                              f"outside {MOE_PREFILL_DROP_BAND}")
 
 
+# ---------------------------------------------------------------------------
+# gemma2-27b (the main path of the eleventh slice)
+# ---------------------------------------------------------------------------
+GEMMA2 = "gemma2_27b"
+# full-width gemma2 training keeps every published width and cuts the depth
+# (46 layers) to one local/global pair: fp32 storage, grads and AdamW
+# moments take 16 bytes a parameter, 37.0 GB for the pair's 2,312,151,552
+# (1,179,648,000 of them the tied 256000 x 4608 embedding).  T is above
+# the 4096-token window, so the local layer's window masks keys
+GEMMA2_TRAIN_LAYERS = 2
+GEMMA2_TRAIN_B, GEMMA2_TRAIN_T = 1, 8192
+# served at all 46 layers: a prompt above the window, T = 8192
+GEMMA2_SERVE_B, GEMMA2_PROMPT, GEMMA2_GEN = 2, 8128, 64
+# the fp32 consistency check runs the served weights' first layers widened
+# to fp32: 46 layers of fp32 weights (109 GB) do not fit the card
+GEMMA2_F32_LAYERS = 12
+
+
+def _by_kv_heads(fn, q, k, v, *q_like, n=2):
+    """fn(q, k, v, *q_like) evaluated n kv heads (and the q heads that read
+    them) at a time, joined on the head dim: the plain attention's scores
+    for every head at once do not fit the card at T 8192.  fn returns a
+    tensor, a tuple of tensors or a dict of them."""
+    g = q.shape[2] // k.shape[2]
+    parts = [fn(q[:, :, j * g:(j + n) * g], k[:, :, j:j + n],
+                v[:, :, j:j + n], *(a[:, :, j * g:(j + n) * g]
+                                    for a in q_like))
+             for j in range(0, k.shape[2], n)]
+    if isinstance(parts[0], dict):
+        return {key: torch.cat([p[key] for p in parts], 2)
+                for key in parts[0]}
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(ts, 2) for ts in zip(*parts))
+    return torch.cat(parts, 2)
+
+
+def _spy_flash_calls():
+    """Records (window, softcap, q_scale) of every flash kernel launch until
+    the returned restore() is called."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    seen, launch = set(), flash_ops.flash_attention_cuda
+
+    def spy(q, k, v, causal, window, softcap, q_scale, **kw):
+        seen.add((window, softcap, q_scale))
+        return launch(q, k, v, causal, window, softcap, q_scale, **kw)
+
+    def restore():
+        flash_ops.flash_attention_cuda = launch
+
+    flash_ops.flash_attention_cuda = spy
+    return seen, restore
+
+
+def _check_gemma2_flash_calls(seen, cfg, q_scale, what):
+    """gemma2's layers launched flash with the window on the local layer,
+    none on the global one, the softcap and query_pre_attn scale on
+    both."""
+    want = {(cfg.sliding_window, cfg.attn_softcap, q_scale),
+            (None, cfg.attn_softcap, q_scale)}
+    say(f"  {what}: flash launched with (window, softcap, q_scale) "
+        f"{sorted(seen, key=str)}")
+    if seen != want:
+        raise AssertionError(f"{what}: flash calls {seen}, want {want}")
+
+
+def _sdpa_fn(q, k, v, window, q_scale):
+    """SDPA on the same inputs, without the softcap (SDPA takes none):
+    causal, and under a window an explicit boolean mask over kv heads
+    repeated to the q heads (SDPA's GQA path takes no mask)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True, scale=q_scale)
+    g = q.shape[2] // k.shape[2]
+    kt, vt = (a.repeat_interleave(g, dim=1) for a in (kt, vt))
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=q_scale)
+
+
+def phase_gemma2_kernels(state):
+    """The kernels at gemma2-27b's shapes: bf16 flash at the training
+    (B1) and prefill (B2) shapes, T 8192, H32 on Kh16, hd 128, local
+    (window 4096 + softcap 50) and global (softcap 50), q_scale 1/16, each
+    with its two plants, beside SDPA without the softcap; the local
+    layer's training gradient (kernel forward, plain backward) against
+    autograd through the plain version; rmsnorm with unit offset at d
+    4608; xent at (8192, 256000) on softcapped logits; AdamW on the tied
+    embedding's leaf."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw import ref as adamw_ref
+    from repro_torch.kernels.cross_entropy import ops as xent_ops
+    from repro_torch.kernels.cross_entropy import ref as xent_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.models.registry import build_model, get_arch
+    from repro_torch.models.runtime import model_abstract_storage
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    cfg, model = get_arch(GEMMA2)
+    h, kh, hd, t = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, GEMMA2_TRAIN_T
+    qs, cap = model._q_scale, cfg.attn_softcap
+    say("flash kernel vs plain at gemma2-27b's shapes (ms: kernel / plain, "
+        "by 2 kv heads / SDPA without the softcap / bound):")
+    flash = {}
+    for b, path in ((GEMMA2_TRAIN_B, "training"),
+                    (GEMMA2_SERVE_B, "prefill")):
+        q = randn(b, t, h, hd, dtype=torch.bfloat16)
+        k = randn(b, t, kh, hd, dtype=torch.bfloat16)
+        v = randn(b, t, kh, hd, dtype=torch.bfloat16)
+        for layer, window in (("local", cfg.sliding_window),
+                              ("global", None)):
+            kw = dict(causal=True, window=window, softcap=cap, q_scale=qs)
+            shape = (f"B{b} T{t} H{h} Kh{kh} hd{hd} causal "
+                     + (f"window {window} " if window else "")
+                     + f"softcap {cap:g} q_scale 1/16 bf16")
+            name = f"flash {shape} ({path}, {layer} layer)"
+            plain = lambda: _by_kv_heads(
+                lambda *a: flash_ref.attention(*a, **kw), q, k, v)
+            want = plain()
+            n = flash_ops.launches
+            got = flash_ops.flash_attention(q, k, v, **kw)
+            if flash_ops.launches != n + 1:
+                raise AssertionError("the bf16 flash kernel did not launch")
+            err = check_rms(name, got, want, FLASH_BF16_RMS_REL)
+            del got
+            for pname, planted in _by_kv_heads(
+                    lambda *a: flash_plants(*a, **kw), q, k, v).items():
+                check_plant_rejected(f"{name}, {pname}", planted, want,
+                                     FLASH_BF16_RMS_REL)
+                del planted
+            del want
+            torch.cuda.empty_cache()
+            # the pairs inside the causal window, 4*hd flops each
+            flops = 4.0 * hd * b * h * _attn_pairs(t, window)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+            bound, by = _bound(nbytes, flops, torch.bfloat16, products=True)
+            fwd = lambda: flash_ops.flash_attention(q, k, v, **kw)
+            ms, on_card = time_ms(fwd), device_ms(fwd, bound)
+            plain_ms = time_ms(plain)
+            sdpa = _sdpa_fn(q, k, v, window, qs)
+            lib, lib_dev = time_ms(sdpa), device_ms(sdpa, bound)
+            del sdpa
+            torch.cuda.empty_cache()
+            say(f"    {ms:.4f} / {plain_ms:.4f} / {lib:.4f} / {bound:.4f} "
+                f"({by}; {flops / ms / 1e9:.1f} TFLOP/s); device "
+                f"{on_card:.4f}, SDPA (no softcap) device {lib_dev:.4f}")
+            flash[f"{path}_{layer}"] = dict(
+                shape=shape, max_abs_err=err, ms=ms, device_ms=on_card,
+                plain_ms=plain_ms, library_ms=lib, library_device_ms=lib_dev,
+                library="SDPA, no softcap", bound_ms=bound, bound_by=by)
+        if path == "training":
+            kw = dict(causal=True, window=cfg.sliding_window, softcap=cap,
+                      q_scale=qs)
+            gname = f"flash B{b} T{t} H{h} Kh{kh} hd{hd} local layer bf16"
+            say("gradients of the local layer at the training shape: kernel "
+                "forward + plain fp32 backward vs autograd through the plain "
+                "version, by 2 kv heads (ms fwd+bwd: op / plain / SDPA "
+                "without the softcap / bound):")
+            ct = randn(b, t, h, hd, dtype=torch.bfloat16)
+            op = lambda: _grads(
+                lambda *a: flash_ops.flash_attention(*a, **kw), (q, k, v), ct)
+            plain = lambda: _by_kv_heads(
+                lambda qq, kk, vv, cc: _grads(
+                    lambda *a: flash_ref.attention(*a, **kw), (qq, kk, vv),
+                    cc), q, k, v, ct)
+            got, want = op(), plain()
+            err = max(check_rms(f"{gname} o", got[0], want[0],
+                                FLASH_BF16_RMS_REL),
+                      *(check_close(f"{gname} {n_}", a, b_, TOL)
+                        for n_, a, b_ in zip(("dq", "dk", "dv"), got[1:],
+                                             want[1:])))
+            del got, want
+            torch.cuda.empty_cache()
+            ms, plain_ms = time_ms(op), time_ms(plain)
+            bound, _ = _bound(0, 3.5 * 4.0 * hd * b * h * _attn_pairs(
+                t, cfg.sliding_window), torch.bfloat16, products=True)
+
+            sdpa = _sdpa_fn(*(a.detach().requires_grad_() for a in (q, k, v)),
+                            cfg.sliding_window, qs)
+            lib = time_ms(lambda: sdpa().backward(ct.transpose(1, 2)))
+            del sdpa
+            torch.cuda.empty_cache()
+            say(f"    {ms:.4f} / {plain_ms:.4f} / {lib:.4f} / {bound:.4f}")
+            state["gemma2_flash_grad"] = dict(
+                shape=gname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib, library="SDPA, no softcap", bound_ms=bound)
+            del ct
+        del q, k, v
+        torch.cuda.empty_cache()
+    state["gemma2_flash"] = flash
+
+    R, d = GEMMA2_TRAIN_B * GEMMA2_TRAIN_T, cfg.d_model
+    say(f"rmsnorm kernel vs plain with unit offset at ({R}, {d}) bf16 (ms: "
+        "kernel / plain / F.rms_norm / bound):")
+    x = randn(R, d, dtype=torch.bfloat16) * 2
+    w = randn(d, dtype=torch.bfloat16) * 0.1      # stores w - 1
+    ct = randn(R, d, dtype=torch.bfloat16)
+    name = f"rmsnorm ({R}, {d}) bf16 unit_offset"
+    n = rms_ops.launches
+    got = _grads(lambda a, b_: rms_ops.rmsnorm(a, b_, cfg.norm_eps, True),
+                 (x, w), ct)
+    if rms_ops.launches != n + 1:
+        raise AssertionError("the rmsnorm kernel did not launch")
+    want = _grads(lambda a, b_: rms_ref.rmsnorm(a, b_, cfg.norm_eps, True),
+                  (x, w), ct)
+    err = max(check_close(f"{name} {k_}", a, b_, TOL)
+              for k_, a, b_ in zip(("y", "dx", "dw"), got, want))
+    check_rejects(f"{name} planted: no unit offset",
+                  rms_ref.rmsnorm(x, w, cfg.norm_eps, False), want[0], TOL)
+    del got, want
+    fwd = lambda: rms_ops.rmsnorm(x, w, cfg.norm_eps, True)
+    nbytes = 2 * x.numel() * 2 + d * 2
+    bound, by = _bound(nbytes, 4.0 * x.numel())
+    ms, on_card = time_ms(fwd), device_ms(fwd, bound)
+    plain = time_ms(lambda: rms_ref.rmsnorm(x, w, cfg.norm_eps, True))
+    w_lib = (w.float() + 1).to(torch.bfloat16)
+    lib = time_ms(lambda: F.rms_norm(x, (d,), w_lib, cfg.norm_eps))
+    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
+        f"({nbytes / ms / 1e6:.0f} GB/s); device {on_card:.4f}")
+    state["gemma2_rmsnorm"] = dict(
+        shape=f"({R}, {d}) bf16 unit_offset", max_abs_err=err, ms=ms,
+        device_ms=on_card, plain_ms=plain, library_ms=lib, bound_ms=bound,
+        bound_by=by)
+    del x, w, ct, w_lib
+
+    V = cfg.vocab
+    say(f"xent kernels vs plain at ({R}, {V}) fp32, logits softcapped at "
+        f"{cfg.final_softcap:g} (ms: kernel / plain / F.cross_entropy / "
+        "bound):")
+    x = randn(R, V)
+    x.mul_(3.0 / cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
+    tg = torch.randint(0, V, (R,), device=dev, generator=g)
+    gr = randn(R) / R
+    name = f"xent ({R}, {V}) fp32"
+    loss, lse = xent_ops.xent_fwd_cuda(x, tg)
+    want_loss, want_lse = xent_ref.xent(x, tg)
+    err_f = max(check_close(f"{name} loss", loss, want_loss, TOL32),
+                check_close(f"{name} lse", lse, want_lse, TOL32))
+    want_dx = per_g(xent_ref.dlogits(x, tg, want_lse, gr), gr)
+    del want_loss, want_lse
+    nbytes = x.numel() * 4 + 16 * R
+    bound_f, by_f = _bound(nbytes, 4.0 * x.numel())
+    ms_f = time_ms(lambda: xent_ops.xent_fwd_cuda(x, tg))
+    plain_f = time_ms(lambda: xent_ref.xent(x, tg))
+    torch.cuda.empty_cache()
+    lib_f = time_ms(lambda: F.cross_entropy(x, tg, reduction="none"))
+    torch.cuda.empty_cache()
+    say(f"    fwd {ms_f:.4f} / {plain_f:.4f} / {lib_f:.4f} / {bound_f:.4f} "
+        f"({nbytes / ms_f / 1e6:.0f} GB/s)")
+    got_dx = per_g(xent_ops.xent_bwd_cuda(x, tg, lse, gr), gr)
+    err_b = check_close(f"{name} dlogits / |g|", got_dx, want_dx, TOL32)
+    del got_dx
+    onehot_only = torch.zeros_like(x).scatter_(1, tg[:, None],
+                                               -gr[:, None])
+    check_rejects(f"{name} planted -onehot*g", per_g(onehot_only, gr),
+                  want_dx, TOL32)
+    del want_dx, onehot_only
+    torch.cuda.empty_cache()
+    bound_b, by_b = _bound(2 * x.numel() * 4 + 16 * R, 5.0 * x.numel())
+    ms_b = time_ms(lambda: xent_ops.xent_bwd_cuda(x, tg, lse, gr))
+    plain_b = time_ms(lambda: xent_ref.dlogits(x, tg, lse, gr))
+    say(f"    bwd {ms_b:.4f} / {plain_b:.4f} / n/a / {bound_b:.4f} "
+        f"({2 * x.numel() * 4 / ms_b / 1e6:.0f} GB/s)")
+    state["gemma2_xent_fwd"] = dict(
+        shape=f"({R}, {V}) fp32", max_abs_err=err_f, ms=ms_f,
+        plain_ms=plain_f, library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
+    state["gemma2_xent_bwd"] = dict(
+        shape=f"({R}, {V}) fp32", max_abs_err=err_b, ms=ms_b,
+        plain_ms=plain_b, library_ms=None, bound_ms=bound_b, bound_by=by_b)
+    del x, tg, gr, loss, lse
+    torch.cuda.empty_cache()
+
+    pair = build_model(dataclasses.replace(cfg,
+                                           n_layers=GEMMA2_TRAIN_LAYERS))
+    n = model_abstract_storage(pair, DistConfig())["embed"].numel()
+    say(f"adamw kernel vs plain at the tied embedding's leaf (n={n}; ms: "
+        "kernel / plain / bound):")
+    p, gd, m = randn(n), randn(n), randn(n) * 0.1
+    v = randn(n).abs() * 0.01
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+              lr=torch.tensor(3e-4, device=dev),
+              t=torch.tensor(7, dtype=torch.int32, device=dev),
+              scale=torch.tensor(0.5, device=dev))
+    want = adamw_ref.adamw_update(p, gd, m, v, **kw)
+    got = [a.clone() for a in (p, m, v)]
+    n_before = adamw_ops.launches
+    adamw_ops.adamw_update(got[0], gd, got[1], got[2], **kw)
+    if adamw_ops.launches != n_before + 1:
+        raise AssertionError("the adamw kernel did not launch")
+    err = max(check_close(f"adamw n={n} dp", got[0] - p, want[0] - p,
+                          TOL32),
+              *(check_close(f"adamw n={n} {k_}", a, b_, TOL32)
+                for k_, a, b_ in zip("mv", got[1:], want[1:])))
+    del want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: adamw_ops.adamw_update(got[0], gd, got[1], got[2],
+                                                **kw))
+    plain = time_ms(lambda: adamw_ref.adamw_update(p, gd, m, v, **kw))
+    bound, by = _bound(28 * n, 15.0 * n)
+    say(f"    {ms:.4f} / {plain:.4f} / {bound:.4f} ({28 * n / ms / 1e6:.0f}"
+        " GB/s)")
+    state["gemma2_adamw_leaf"] = dict(n=n, max_abs_err=err, ms=ms,
+                                      plain_ms=plain, bound_ms=bound,
+                                      bound_by=by)
+
+
+def phase_gemma2_smoke(state):
+    """gemma2 SMOKE (one pair, window 8), fp32, card vs CPU: 3 training
+    steps through the launcher's trainer at T 32 on the vanilla and the
+    prefetch stack from one CPU-made checkpoint (losses, grad norms,
+    storage at TOL32; the launch counters); serving with a 12-token prompt,
+    prefill and 4 decode steps that cross the window (logits and both
+    caches at TOL32); on the card, prefill over p+1 tokens against prefill
+    over p + one decode step past the window."""
+    import shutil
+    import tempfile
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.meta import named_leaves
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import serve as SV
+    from repro_torch.train.train_step import init_train_state
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gemma2_"))
+    need = ("rmsnorm", "flash_f32", "xent_fwd", "xent_bwd", "adamw")
+    try:
+        def trainer(dev, sub, reorder):
+            return launch_train.build_trainer(launch_train.parse_args([
+                "--arch", GEMMA2, "--smoke", "--steps", "3", "--seq", "32",
+                "--batch", "4", "--dtype", "float32", "--device", dev,
+                "--ckpt-dir", str(root / sub)]
+                + ([] if reorder else ["--no-reorder"])))
+
+        cpu = trainer("cpu", "seed", False)
+        storage, opt = init_train_state(
+            cpu.par, torch.Generator().manual_seed(0))
+        cpu.ckpt.save(0, cpu.par.unshard(storage), dict(
+            m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
+            step=opt["step"]), cpu.model, cpu.dcfg)
+        for reorder in (False, True):
+            label = f"gemma2 smoke {'prefetch' if reorder else 'vanilla'}"
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                sub = f"{dev}_{reorder}"
+                shutil.copytree(root / "seed", root / sub)
+                tr = trainer(dev, sub, reorder)
+                _reset_counts()
+                st, _, hist = tr.run()
+                runs[dev] = (st, hist, _train_counts())
+            counts = runs["cuda"][2]
+            state["gemma2_smoke_launches"] = counts
+            say(f"  {label}: launches on the card {counts}")
+            if min(counts[k] for k in need) <= 0 or counts["flash"] \
+                    or any(counts[k] for k in NOT_DENSE):
+                raise AssertionError(f"a kernel never launched, or one off "
+                                     f"the path did: {counts}")
+            if max(v for k, v in runs["cpu"][2].items()
+                   if k not in COLLECTIVES) > 0:
+                raise AssertionError("the CPU run launched a kernel")
+            for hc, hg in zip(runs["cpu"][1], runs["cuda"][1]):
+                for k in ("loss", "grad_norm"):
+                    check_close(f"{label} step {hc['step']} {k} cuda vs cpu",
+                                torch.tensor(hg[k]), torch.tensor(hc[k]),
+                                TOL32)
+            errs = [check_close(f"{label} storage {n}", a.cpu(), b_, TOL32)
+                    for (n, a), (_, b_) in zip(named_leaves(runs["cuda"][0]),
+                                               named_leaves(runs["cpu"][0]))]
+            say(f"  {label} storage cuda vs cpu after 3 steps: {len(errs)} "
+                f"leaves, max abs err {max(errs):.3e}")
+
+        cfg, model = get_arch(GEMMA2, smoke=True)
+        dcfg = single_device_config(param_dtype=torch.float32)
+        tree = _numpy_params(model, dcfg, seed=0)
+        b, prompt, gen = 2, 12, 4
+        t_len = prompt + gen
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(np.pad(
+            rng.integers(3, cfg.vocab, (b, prompt)), ((0, 0), (0, gen)),
+            constant_values=3))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = SV.serve_params_from_jax(tree, model, dcfg, device=dev)
+            pf = SV.make_prefill_step(model, dcfg,
+                                      ShapeConfig("p", t_len, b, "prefill"))
+            dec = SV.make_decode_step(model, dcfg,
+                                      ShapeConfig("d", t_len, b, "decode"))
+            logits, cache = pf(params, {"tokens": tokens.to(dev)})
+            runs[dev] = dict(params=params, pf=pf, dec=dec, cache=cache,
+                             logits=[logits.cpu()])
+        check_close("gemma2 smoke prefill logits cuda vs cpu",
+                    runs["cuda"]["logits"][0], runs["cpu"]["logits"][0],
+                    TOL32)
+        for i in range(gen):
+            tok = runs["cpu"]["logits"][-1].argmax(-1)
+            if not torch.equal(runs["cuda"]["logits"][-1].argmax(-1), tok):
+                raise AssertionError(f"gemma2: greedy tokens differ at {i}")
+            pos = torch.full((b,), prompt + i, dtype=torch.int64)
+            for dev, r in runs.items():
+                logits, r["cache"] = r["dec"](r["params"], r["cache"],
+                                              tok.to(dev), pos.to(dev))
+                r["logits"].append(logits.cpu())
+            check_close(f"gemma2 smoke decode {i} (position {prompt + i}, "
+                        f"window {cfg.sliding_window}) logits cuda vs cpu",
+                        runs["cuda"]["logits"][-1],
+                        runs["cpu"]["logits"][-1], TOL32)
+        for (layer, got), want in zip(
+                (("local", runs["cuda"]["cache"][0]),
+                 ("global", runs["cuda"]["cache"][1])),
+                runs["cpu"]["cache"]):
+            for kv, a, b_ in zip("kv", got, want):
+                check_close(f"gemma2 smoke {layer} {kv} cache cuda vs cpu",
+                            a.cpu(), b_, TOL32)
+        r = runs["cuda"]
+        x = torch.from_numpy(rng.integers(3, cfg.vocab, (b, t_len))) \
+            .to("cuda")
+        want, got, _ = _consistency(r["params"], r["pf"], r["dec"], x,
+                                    "gemma2 smoke fp32 on the card")
+        check_close("gemma2 smoke on the card: prefill over p+1 vs prefill "
+                    "over p + one decode step", got, want, TOL32)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_full_gemma2_train(state):
+    """gemma2-27b at every published width, one local/global pair
+    (GEMMA2_TRAIN_LAYERS), B 1, T 8192, bf16 compute, fp32 storage, the
+    prefetch stack at a bf16 wire, through `_full_train`; the flash
+    launches' windows; the modeled peak and step (H100 profile) beside
+    the measured."""
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.core.obs import drift
+    from repro_torch.models.common import ShapeConfig
+    key = "train_gemma2_27b"
+    seen, restore = _spy_flash_calls()
+    try:
+        par, _, _ = _full_train(state, key, DistConfig(), arch=GEMMA2,
+                                layers=GEMMA2_TRAIN_LAYERS,
+                                batch=GEMMA2_TRAIN_B, seq=GEMMA2_TRAIN_T)
+    finally:
+        restore()
+    cfg, r = par.model.cfg, state[key]
+    _check_gemma2_flash_calls(seen, cfg, par.model._q_scale,
+                              "full-width gemma2 training")
+    shape = ShapeConfig("train", GEMMA2_TRAIN_T, GEMMA2_TRAIN_B, "train")
+    modeled_s = drift.modeled_step_time(par.model, par.plan, shape)
+    say(f"  {cfg.name} x{cfg.n_layers} layers: {cfg.n_params() / 1e9:.4f}B "
+        f"params; modeled peak {par.plan.memory.peak / 2**30:.2f} GiB "
+        f"against max_memory_allocated "
+        f"{r['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"({par.plan.memory.peak / r['max_memory_allocated']:.3f}); modeled "
+        f"step (H100 profile, drift.modeled_step_time) "
+        f"{modeled_s * 1e3:.3f} ms against the measured "
+        f"{r['step_ms']:.2f} ms")
+    r.update(modeled_peak=par.plan.memory.peak,
+             modeled_step_ms=modeled_s * 1e3)
+
+
+def phase_full_gemma2_serve(state):
+    """gemma2-27b served at its published depth: bf16 weights made on the
+    card layer by layer, B 2, prompt GEMMA2_PROMPT padded to T 8192, 64
+    generated tokens through `repro_torch.launch.serve`; prefill ms and
+    decode ms/token beside the decode step's byte bound and its device
+    kernel time; the flash launches' windows; prefill over p+1 tokens
+    against prefill over p + one decode step at p = 8191, past the window,
+    in bf16 and, on the first GEMMA2_F32_LAYERS layers widened to fp32,
+    at TOL32."""
+    import dataclasses
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.meta import tree_map
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import serve as SV
+    dev = torch.device("cuda")
+    b, prompt, gen = GEMMA2_SERVE_B, GEMMA2_PROMPT, GEMMA2_GEN
+    t_len = prompt + gen
+    t0 = time.perf_counter()
+    cfg, model, dcfg, params, prefill, decode = launch.setup(
+        GEMMA2, False, b, prompt, gen, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    say(f"{cfg.name} bf16, {cfg.n_layers} layers: {n / 1e9:.3f}B params, "
+        f"{wbytes / 1e9:.2f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    padded = launch.make_prompts(cfg, b, prompt, gen, dev)
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _spy_flash_calls()
+    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
+    try:
+        tokens, t = launch.generate(params, prefill, decode, padded, prompt,
+                                    gen)
+    finally:
+        restore()
+    counts = dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
+                  flash_f32=flash_ops.launches_f32)
+    peak = torch.cuda.max_memory_allocated()
+    _check_gemma2_flash_calls(seen, cfg, model._q_scale, "46-layer prefill")
+    # a decode step reads every weight once (the tied table as the head;
+    # the lookup reads B rows of it) and, at the first decode position,
+    # the keys and values its attention needs: the window on local
+    # layers, every position on global ones
+    lay = cfg.gqa_layout(1)
+    kv_token = 2 * lay["kvp"] * cfg.head_dim * 2
+    kv_read = cfg.n_layers // 2 * b * kv_token * (
+        min(prompt + 1, cfg.sliding_window) + prompt + 1)
+    step_bytes = wbytes + b * cfg.d_model * 2 + kv_read
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    cache_bytes = cfg.n_layers * b * t_len * kv_token
+    say(f"serve B={b} prompt={prompt} gen={gen} T={t_len}: prefill "
+        f"{t['prefill_s'] * 1e3:.2f} ms (warm-up "
+        f"{t['prefill_warmup_s'] * 1e3:.2f}), decode "
+        f"{t['decode_step_s'] * 1e3:.3f} ms/token (warm-up "
+        f"{t['decode_warmup_s'] * 1e3:.2f}), {t['decode_tok_s']:.1f} "
+        f"tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB (KV cache "
+        f"{cache_bytes / 1e9:.2f} GB)")
+    say(f"  decode byte bound {bound:.3f} ms/token ({step_bytes / 1e9:.2f} "
+        f"GB a step, of it the keys and values {kv_read / 1e9:.2f} GB)")
+    say(f"launches in the serve run: {counts}")
+    state["serve_gemma2_launches"] = counts
+    if tokens.shape != (b, gen) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
+    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or counts["flash_f32"]:
+        raise AssertionError(f"a kernel of the path never launched, or bf16 "
+                             f"took flash's fp32 route: {counts}")
+    logits, cache = prefill(params, {"tokens": padded})
+    _profile("prefill", lambda: prefill(params, {"tokens": padded}), 1)
+    pos = torch.full((b,), prompt, dtype=torch.int64, device=dev)
+    busy, dev_s = _profile("decode step", lambda: decode(
+        params, cache, logits.argmax(-1), pos), 8, top=12)
+    state["serve_gemma2"] = dict(
+        t, max_memory_allocated=peak, decode_bound_ms=bound,
+        decode_device_ms=None if dev_s is None else dev_s * 1e3)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    del cache, logits
+
+    # prefill over p+1 tokens against prefill over p + one decode step at
+    # p = T - 1, past the window, on two inputs; the same check with the
+    # decode step's local layers unwindowed is a planted fault
+    xs = {seed: torch.randint(3, cfg.vocab, (b, t_len),
+                              generator=torch.Generator().manual_seed(seed))
+          .to(dev) for seed in (2, 3)}
+    bf16 = {seed: _consistency(params, prefill, decode, x,
+                               f"bf16, {cfg.n_layers} layers, input {seed}")
+            for seed, x in xs.items()}
+    say(f"launches per call: {bf16[2][2]}")
+    state["gemma2_per_call"] = bf16[2][2]
+    decode_nw = SV.make_decode_step(
+        build_model(dataclasses.replace(cfg, sliding_window=None)), dcfg,
+        ShapeConfig("d", t_len, b, "decode"))
+    _, planted, _ = _consistency(params, prefill, decode_nw, xs[2],
+                                 "planted: the decode step's local layers "
+                                 "without the window")
+    # the first layers, in bf16 and widened to fp32: in fp32 the two paths
+    # must agree to fp32 rounding, which separates a fault from bf16 noise
+    f32_layers = dataclasses.replace(cfg, n_layers=GEMMA2_F32_LAYERS)
+    kept = dict(embed=params["embed"], final_norm=params["final_norm"],
+                blocks=tree_map(lambda a: a[:GEMMA2_F32_LAYERS // 2].clone(),
+                                params["blocks"]))
+    del params
+    torch.cuda.empty_cache()
+    runs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        d = single_device_config(param_dtype=dt)
+        m = build_model(f32_layers)
+        runs[dt] = _consistency(
+            tree_map(lambda a: a.to(dt), kept),
+            SV.make_prefill_step(m, d, ShapeConfig("p", t_len, b, "prefill")),
+            SV.make_decode_step(m, d, ShapeConfig("d", t_len, b, "decode")),
+            xs[2], f"{str(dt)[6:]}, the first {GEMMA2_F32_LAYERS} layers")
+    del kept
+    want32, got32, _ = runs[torch.float32]
+    say(f"  bf16 prefill vs fp32 prefill, the first {GEMMA2_F32_LAYERS} "
+        f"layers, same weights: max_abs_err "
+        f"{max_err(runs[torch.bfloat16][0], want32):.4e} (for scale; not a "
+        "limit)")
+    check_close(f"fp32 ({GEMMA2_F32_LAYERS} layers): prefill vs prefill + "
+                "decode", got32, want32, TOL32)
+    if not torch.equal(got32.argmax(-1), want32.argmax(-1)):
+        raise AssertionError("fp32: argmax differs")
+    for seed, (want, got, _) in bf16.items():
+        what = f"bf16 ({cfg.n_layers} layers, input {seed})"
+        err = check_close(f"{what}: prefill vs prefill + decode", got, want,
+                          TOL_GEMMA2_BF16_CONSISTENCY)
+        # the argmax must agree where the top-2 gap is above twice the error
+        top2 = want.float().topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        same = got.argmax(-1) == want.argmax(-1)
+        say(f"  {what}: argmax equal {same.tolist()}, top-2 gap above "
+            f"2 x {err:.3e} {clear.tolist()}")
+        if not bool(same[clear].all()):
+            raise AssertionError(f"{what}: argmax differs where the gap is "
+                                 "clear")
+    check_rejects("planted: the decode step's local layers without the "
+                  "window", planted, bf16[2][0], TOL_GEMMA2_BF16_CONSISTENCY)
+
+
 # kernel families summed in every profiler window
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
@@ -3095,10 +3764,13 @@ def kernels_line(state):
     and the full-width zamba2 training for the ssd rows; `launches_by_path`
     adds the serving run's, the bf16 qwen3 training runs' (vanilla,
     prefetch, auto-planned, mixed precision, observability), the smoke
-    replan's, the zamba2 run's and the moe runs' (qwen3-moe and qwen2-moe
-    training, qwen3-moe serving) counts; the flash row carries its
-    readings at qwen3-moe's group-8 shape (`group8`), the adamw row at the
-    moe path's largest leaf (`moe_leaf`).  flash_attention_f32 and
+    replan's, the zamba2 run's, the moe runs' (qwen3-moe and qwen2-moe
+    training, qwen3-moe serving) and the gemma2 runs' (training, serving)
+    counts; the flash row carries its readings at qwen3-moe's group-8
+    shape (`group8`) and at gemma2's four shapes and its local gradient
+    (`gemma2`, `gemma2_grad`), the adamw row at the moe path's largest
+    leaf (`moe_leaf`) and at gemma2's embedding (`gemma2_leaf`), the
+    rmsnorm and xent rows at gemma2's shapes (`gemma2`).  flash_attention_f32 and
     ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
     smoke training runs' counts.  A count is one call of the kernel's
@@ -3121,10 +3793,13 @@ def kernels_line(state):
                        train_qwen3_moe=state[
                            "train_qwen3_moe_30b_a3b_launches"][key],
                        train_qwen2_moe=state[
-                           "train_qwen2_moe_a2_7b_launches"][key])
+                           "train_qwen2_moe_a2_7b_launches"][key],
+                       train_gemma2=state["train_gemma2_27b_launches"][key])
         if serve_key:
             by_path["serve"] = serve[serve_key]
             by_path["serve_qwen3_moe"] = state["serve_moe_launches"][
+                serve_key]
+            by_path["serve_gemma2"] = state["serve_gemma2_launches"][
                 serve_key]
         if key == "flash_f32":
             by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
@@ -3137,21 +3812,23 @@ def kernels_line(state):
 
     rows = [
         row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
-            "rmsnorm"),
+            "rmsnorm", gemma2=state["gemma2_rmsnorm"]),
         row("flash_attention", "flash", "flash_attention_sm90.cu",
             "flash_attention/kernel.py:77", "flash",
-            group8=state["flash_group8"]),
+            group8=state["flash_group8"], gemma2=state["gemma2_flash"],
+            gemma2_grad=state["gemma2_flash_grad"]),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_f32", "flash_f32", "flash_attention.cu",
             "flash_attention/kernel.py:77", "flash_f32",
             kernel="flash_fwd_tf32_kernel: mma.sync m16n8k8 TF32, "
                    "hi*hi + hi*lo + lo*hi"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
-            "cross_entropy/kernel.py:61"),
+            "cross_entropy/kernel.py:61", gemma2=state["gemma2_xent_fwd"]),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",
-            "cross_entropy/kernel.py:96"),
+            "cross_entropy/kernel.py:96", gemma2=state["gemma2_xent_bwd"]),
         row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40",
-            moe_leaf=state["adamw_moe_leaf"]),
+            moe_leaf=state["adamw_moe_leaf"],
+            gemma2_leaf=state["gemma2_adamw_leaf"]),
         row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46",
             kernel="quant_kernel (RTN); seed_kernel + quant_kernel (SR)"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
@@ -3209,7 +3886,13 @@ def main() -> int:
                         ("full-width qwen2-moe-a2.7b training",
                          phase_full_qwen2_moe_train),
                         ("full-width qwen3-moe-30b-a3b serve",
-                         phase_full_moe_serve)]:
+                         phase_full_moe_serve),
+                        ("gemma2 kernels vs plain", phase_gemma2_kernels),
+                        ("gemma2 smoke cuda vs cpu", phase_gemma2_smoke),
+                        ("full-width gemma2-27b training",
+                         phase_full_gemma2_train),
+                        ("full-width gemma2-27b serve",
+                         phase_full_gemma2_serve)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

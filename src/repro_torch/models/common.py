@@ -138,32 +138,18 @@ class ArchConfig:
     def q_heads_padded(self, tp: int) -> int:
         return self.gqa_layout(tp)["hq"]
 
-    def params_dense_block(self) -> int:
-        """Per-layer parameter count (logical, unpadded)."""
-        d, f = self.d_model, self.d_ff
-        attn = d * self.n_heads * self.head_dim * 2 \
-            + d * self.n_kv_heads * self.head_dim * 2
-        mlp = 3 * d * f if self.gated_mlp in ("swiglu", "geglu") else 2 * d * f
-        return attn + mlp + 2 * d
-
     def n_params(self) -> int:
-        """Parameter count.  For zamba and moe it is the sum of the model's
-        metas' global sizes.  The reference applies the dense formula to
-        zamba, which counts attention and MLP weights that the Mamba layers
-        do not have; for moe it counts the real experts, not the padded
-        ones the metas hold, and leaves out the q/k norms, the shared
-        expert's gate and the final norm (`repro/models/common.py`
-        `n_params`)."""
-        if self.family in ("zamba", "moe"):
-            from repro_torch.models.registry import build_model
-            from repro_torch.models.runtime import n_params
-            return n_params(build_model(self))
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"{self.family}: only the dense, moe and zamba families are "
-                "ported")
-        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
-        return emb + self.n_layers * self.params_dense_block()
+        """Parameter count: the sum of the model's metas' global sizes
+        (padded heads and experts included).  The reference's formula
+        (`repro/models/common.py` `n_params`) counts two norms a layer and
+        no final norm, so it leaves out gemma2's post norms; it applies the
+        dense formula to zamba, which counts attention and MLP weights
+        that the Mamba layers do not have; and for moe it counts the real
+        experts, not the padded ones the metas hold, and leaves out the q/k
+        norms and the shared expert's gate."""
+        from repro_torch.models.registry import build_model
+        from repro_torch.models.runtime import n_params
+        return n_params(build_model(self))
 
     def n_params_active(self) -> int:
         """Parameters applied to each token: `n_params` less, for moe, the

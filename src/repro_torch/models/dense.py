@@ -1,16 +1,19 @@
 """Dense decoder-only LM (port of `repro.models.dense`).
 
-Runs llama3-style blocks (RoPE, SwiGLU, GQA) with the qwen3 variants
-(qk-norm, tied embeddings) and the attention flags the kernels take
-(logit softcaps, a sliding window on every layer).  gemma2's local/global
-pairs and sandwich norms, and the gelu/geglu MLPs, are not ported yet.
-The FFN is a hook (`_ffn_metas` / `_ffn_init` / `_ffn_apply` /
-`_ffn_decode`) that the moe family overrides; its per-layer aux (the
-router's load-balance loss) rides the stack's aux channel and
-`_loss_aux` adds it to the loss.
+Runs llama3-style blocks (RoPE, SwiGLU, GQA) with the variants the configs
+set: qk-norm and tied embeddings (qwen3), and gemma2's local/global pairs
+(a sliding-window layer then a global one, stacked as ONE step of the
+layer stack so its leaves stay homogeneous), sandwich norms (pre and post,
+unit offset), the sqrt(d) embedding scale, query_pre_attn scaling, GeGLU
+and the attention and final logit softcaps.  A config with a sliding
+window and no pairs applies the window on every layer.  The FFN is a hook
+(`_ffn_metas` / `_ffn_init` / `_ffn_apply` / `_ffn_decode`) that the moe
+family overrides; its per-layer aux (the router's load-balance loss)
+rides the stack's aux channel and `_loss_aux` adds it to the loss.
 
 Parameters are plain dicts with the reference's tree and layouts; the
-block leaves are stacked on a leading (n_steps, ...) axis.  Entry points:
+block leaves are stacked on a leading (n_steps, ...) axis, and a gemma2
+step holds {"local": ..., "global": ...}.  Entry points:
   loss_local    — training forward + masked cross-entropy on the flat
                   ZeRO-3 storage shards (FSDP via core/stack), at pp=1;
                   composed of the stage contract stage_pre / stage_blocks /
@@ -26,6 +29,7 @@ import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.dist import DistConfig
@@ -37,34 +41,57 @@ from repro_torch.models import layers as LY
 from repro_torch.models.common import (ArchConfig, BlockSegments, InputSpec,
                                        ShapeConfig)
 
-_UNPORTED = ("local_global_alternate", "post_norms")
-
 
 class DenseLM:
     family = "dense"
 
     def __init__(self, cfg: ArchConfig):
-        unported = [f for f in _UNPORTED if getattr(cfg, f)]
-        if (cfg.family != self.family or cfg.gated_mlp != "swiglu"
-                or unported):
+        if cfg.family != self.family or cfg.gated_mlp not in LY.GATED_MLPS:
             raise NotImplementedError(
                 f"{cfg.name}: family={cfg.family} gated_mlp={cfg.gated_mlp} "
-                f"{unported} are not ported to repro_torch yet")
+                "is not ported to repro_torch")
         self.cfg = cfg
-        self.n_steps = cfg.n_layers
+        # gemma2 alternates (local, global): one stack step is the pair
+        self.layers_per_step = 2 if cfg.local_global_alternate else 1
+        if cfg.n_layers % self.layers_per_step:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             "make whole local/global pairs")
+        self.n_steps = cfg.n_layers // self.layers_per_step
         # a measured BlockStats override: when set, block_stats() returns
         # it instead of the analytic model
         self.measured_stats: BlockStats | None = None
 
+    @property
+    def _subs(self) -> tuple:
+        """(key into a step's params, attention window) of each layer of
+        one stack step: the key is None where a step is one layer."""
+        w = self.cfg.sliding_window
+        if self.layers_per_step == 1:
+            return ((None, w),)
+        return (("local", w), ("global", None))
+
+    def _sub_caches(self, cache) -> list:
+        """One step's (k, v) cache pair per layer of `_subs`."""
+        return [cache] if self.layers_per_step == 1 else list(cache)
+
     # ------------------------------------------------------------- metas --
-    def block_metas(self, dcfg: DistConfig) -> dict:
+    def _sub_metas(self, dcfg: DistConfig, tag: str) -> dict:
         cfg, dt = self.cfg, dcfg.storage_dtype
-        return {
-            "ln1": LY.norm_meta("ln1", cfg.d_model, dt),
-            "attn": LY.attn_metas(cfg, dcfg, dt, prefix="attn."),
-            "ln2": LY.norm_meta("ln2", cfg.d_model, dt),
-            "mlp": self._ffn_metas(dcfg, dt, prefix="mlp."),
+        m = {
+            "ln1": LY.norm_meta(f"{tag}ln1", cfg.d_model, dt),
+            "attn": LY.attn_metas(cfg, dcfg, dt, prefix=f"{tag}attn."),
+            "ln2": LY.norm_meta(f"{tag}ln2", cfg.d_model, dt),
+            "mlp": self._ffn_metas(dcfg, dt, prefix=f"{tag}mlp."),
         }
+        if cfg.post_norms:
+            m["pn1"] = LY.norm_meta(f"{tag}pn1", cfg.d_model, dt)
+            m["pn2"] = LY.norm_meta(f"{tag}pn2", cfg.d_model, dt)
+        return m
+
+    def block_metas(self, dcfg: DistConfig) -> dict:
+        if self.layers_per_step == 1:
+            return self._sub_metas(dcfg, "")
+        return {k: self._sub_metas(dcfg, f"{k}.") for k, _ in self._subs}
 
     def metas(self, dcfg: DistConfig) -> dict:
         cfg, dt = self.cfg, dcfg.storage_dtype
@@ -93,14 +120,25 @@ class DenseLM:
                 "valid": InputSpec((B, S), "float32")}
 
     # -------------------------------------------------------------- init --
-    def init_block_full(self, generator, dcfg, device, dtype) -> dict:
-        cfg = self.cfg
-        return {
-            "ln1": LY.norm_init(cfg.d_model, device, dtype),
+    def _sub_init(self, generator, dcfg, device, dtype) -> dict:
+        # gemma-style norms store (w - 1) and start at zeros
+        cfg, uo = self.cfg, self.cfg.post_norms
+        p = {
+            "ln1": LY.norm_init(cfg.d_model, device, dtype, uo),
             "attn": LY.attn_init(generator, cfg, dcfg, device, dtype),
-            "ln2": LY.norm_init(cfg.d_model, device, dtype),
+            "ln2": LY.norm_init(cfg.d_model, device, dtype, uo),
             "mlp": self._ffn_init(generator, dcfg, device, dtype),
         }
+        if uo:
+            p["pn1"] = LY.norm_init(cfg.d_model, device, dtype, True)
+            p["pn2"] = LY.norm_init(cfg.d_model, device, dtype, True)
+        return p
+
+    def init_block_full(self, generator, dcfg, device, dtype) -> dict:
+        if self.layers_per_step == 1:
+            return self._sub_init(generator, dcfg, device, dtype)
+        return {k: self._sub_init(generator, dcfg, device, dtype)
+                for k, _ in self._subs}
 
     def init_full(self, generator: torch.Generator, dcfg: DistConfig,
                   device, dtype: torch.dtype) -> dict:
@@ -118,7 +156,8 @@ class DenseLM:
         p = {
             "embed": LY.embed_init(generator, cfg, device, dtype),
             "blocks": blocks,
-            "final_norm": LY.norm_init(cfg.d_model, device, dtype),
+            "final_norm": LY.norm_init(cfg.d_model, device, dtype,
+                                       cfg.post_norms),
         }
         if not cfg.tie_embeddings:
             p["head"] = LY.head_init(generator, cfg, device, dtype)
@@ -132,15 +171,26 @@ class DenseLM:
     # ------------------------------------------------------------- block --
     @property
     def _q_scale(self):
+        if self.cfg.name.startswith("gemma2"):
+            return 256.0 ** -0.5      # query_pre_attn_scalar
         return 1.0 / math.sqrt(self.cfg.head_dim)
 
-    def _attn_half(self, p, rope, x, dcfg):
-        """Attention residual branch (ln1 + attn.*): (x + h, (k, v))."""
-        cfg = self.cfg
-        h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        h, kv = LY.attn_apply(p["attn"], h, rope, cfg, dcfg,
-                              window=cfg.sliding_window,
-                              q_scale=self._q_scale)
+    @property
+    def _embed_scale(self):
+        return math.sqrt(self.cfg.d_model) if self.cfg.post_norms else None
+
+    def _norm(self, x, w):
+        """The block norms: unit offset under gemma2's sandwich norms."""
+        return LY.rmsnorm(x, w, self.cfg.norm_eps, self.cfg.post_norms)
+
+    def _attn_half(self, p, rope, x, dcfg, window):
+        """Attention residual branch (ln1 + attn.* (+ pn1)): (x + h,
+        (k, v))."""
+        h = self._norm(x, p["ln1"])
+        h, kv = LY.attn_apply(p["attn"], h, rope, self.cfg, dcfg,
+                              window=window, q_scale=self._q_scale)
+        if self.cfg.post_norms:
+            h = self._norm(h, p["pn1"])
         return x + h, kv
 
     # FFN hooks: overridden by the moe family ------------------------------
@@ -160,29 +210,80 @@ class DenseLM:
         return self._ffn_apply(p, x, dcfg)[0]
 
     def _mlp_half(self, p, x, dcfg):
-        """FFN residual branch (ln2 + mlp.*): (x + h, aux)."""
-        h = LY.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
+        """FFN residual branch (ln2 + mlp.* (+ pn2)): (x + h, aux)."""
+        h = self._norm(x, p["ln2"])
         h, aux = self._ffn_apply(p["mlp"], h, dcfg)
+        if self.cfg.post_norms:
+            h = self._norm(h, p["pn2"])
         return x + h, aux
+
+    def _sub_block(self, p, rope, x, dcfg, window):
+        x, _ = self._attn_half(p, rope, x, dcfg, window)
+        return self._mlp_half(p, x, dcfg)
 
     def block_fn(self, p, consts, x, dcfg: DistConfig):
         rope = (consts["rope_cos"], consts["rope_sin"])
-        x, _ = self._attn_half(p, rope, x, dcfg)
-        return self._mlp_half(p, x, dcfg)
+        if self.layers_per_step == 1:
+            return self._sub_block(p, rope, x, dcfg, self.cfg.sliding_window)
+        # each half of the pair is checkpointed (its input kept, the rest
+        # recomputed in the backward), halving the pair's backward
+        # residency as the reference's `jax.checkpoint` does
+        aux = {}
+        for key, window in self._subs:
+            x, aux_l = checkpoint(self._sub_block, p[key], rope, x, dcfg,
+                                  window, use_reentrant=False)
+            aux = {k: aux.get(k, 0) + v for k, v in aux_l.items()}
+        return x, aux
 
     def block_segments(self, dcfg: DistConfig) -> BlockSegments:
-        """Segmented block contract (attn / mlp residual branches)."""
-        def seg_attn(p, consts, x):
-            return self._attn_half(p, (consts["rope_cos"],
-                                       consts["rope_sin"]), x, dcfg)[0]
+        """Segmented block contract: the attention and FFN residual
+        branches of each layer of a step, in order.  The state between two
+        segments of a pair is (x, aux): the local FFN's aux rides it into
+        the global layer.
 
-        def seg_mlp(p, consts, x):
-            return self._mlp_half(p, x, dcfg)
+        The reference also wraps each pair segment in `jax.checkpoint`.
+        The port's prefetch stack already recomputes every segment from its
+        input state in the backward, so a checkpoint there would recompute
+        each segment twice; the vanilla stack checkpoints per its remat
+        policy."""
+        if self.layers_per_step == 1:
+            w = self.cfg.sliding_window
 
-        return BlockSegments(
-            names=("attn", "mlp"),
-            param_globs=(("ln1", "attn/*", "pn1"), ("ln2", "mlp/*", "pn2")),
-            fns=(seg_attn, seg_mlp))
+            def seg_attn(p, consts, x):
+                return self._attn_half(p, (consts["rope_cos"],
+                                           consts["rope_sin"]), x, dcfg,
+                                       w)[0]
+
+            def seg_mlp(p, consts, x):
+                return self._mlp_half(p, x, dcfg)
+
+            return BlockSegments(
+                names=("attn", "mlp"),
+                param_globs=(("ln1", "attn/*", "pn1"),
+                             ("ln2", "mlp/*", "pn2")),
+                fns=(seg_attn, seg_mlp))
+
+        def attn(key, window, p, consts, st):
+            x, aux = st if isinstance(st, tuple) else (st, {})
+            x, _ = self._attn_half(p[key], (consts["rope_cos"],
+                                            consts["rope_sin"]), x, dcfg,
+                                   window)
+            return x, aux
+
+        def mlp(key, p, consts, st):
+            x, aux = st
+            y, aux2 = self._mlp_half(p[key], x, dcfg)
+            return y, {k: aux.get(k, 0) + v for k, v in aux2.items()}
+
+        names, globs, fns = [], [], []
+        for key, window in self._subs:
+            names += [f"{key}.attn", f"{key}.mlp"]
+            globs += [(f"{key}/ln1", f"{key}/attn/*", f"{key}/pn1"),
+                      (f"{key}/ln2", f"{key}/mlp/*", f"{key}/pn2")]
+            fns += [functools.partial(attn, key, window),
+                    functools.partial(mlp, key)]
+        return BlockSegments(names=tuple(names), param_globs=tuple(globs),
+                             fns=tuple(fns))
 
     # ----------------------------------------------------------- costing --
     def block_stats(self, dcfg: DistConfig, batch_shape) -> BlockStats:
@@ -225,7 +326,8 @@ class DenseLM:
 
         def embed_fn(emb_shard, ids):
             table = coll.replicate(emb_shard, emb_meta, dcfg)
-            return LY.embed_apply(table, ids, cfg, dcfg)
+            return LY.embed_apply(table, ids, cfg, dcfg,
+                                  scale=self._embed_scale)
 
         return maybe_remat(embed_fn, "fsdp_only" if dcfg.remat != "none"
                            else "none")(storage["embed"], tokens)
@@ -270,7 +372,7 @@ class DenseLM:
         x, aux = state
         fn_meta = LY.norm_meta("final_norm", cfg.d_model, dcfg.storage_dtype)
         w_fn = coll.replicate(storage["final_norm"], fn_meta, dcfg)
-        x = LY.rmsnorm(x, w_fn, cfg.norm_eps)
+        x = self._norm(x, w_fn)
         logits = self._lm_head(storage, x, dcfg)
         loss, _ = LY.vocab_parallel_xent(logits, mb["targets"], mb["valid"])
         return loss + self._loss_aux(aux)
@@ -285,32 +387,39 @@ class DenseLM:
         return self.stage_loss(storage, state, batch, dcfg), state[1]
 
     # ------------------------------------------------------------- serve --
-    def _serve_sub(self, p, rope, x, dcfg):
-        """Prefill block: returns the block output and this layer's (k, v)."""
-        x, kv = self._attn_half(p, rope, x, dcfg)
+    def _serve_sub(self, p, rope, x, dcfg, window):
+        """Prefill layer: returns the layer's output and its (k, v)."""
+        x, kv = self._attn_half(p, rope, x, dcfg, window)
         return self._mlp_half(p, x, dcfg)[0], kv
+
+    def _final_logits(self, params, x):
+        """Final norm and logits of the last position of x (B, C, D): the
+        norm is row-wise, so normalising only that position is exact."""
+        x = self._norm(x[:, -1:].contiguous(), params["final_norm"])
+        return self._logits(params, x)[:, 0]
 
     def prefill_local(self, params, batch, dcfg: DistConfig, cache):
         """params: full params, blocks stacked (n_steps, ...); batch:
-        {"tokens": (B, T) int64}; cache: (k, v) pair of (n_steps, B, T, Kl,
-        hd) buffers that this call fills.
+        {"tokens": (B, T) int64}; cache: `train.serve.alloc_cache`'s (k, v)
+        pair of (n_steps, B, T, Kl, hd) buffers, one pair a layer of a
+        step, that this call fills.
 
         Returns (last-position logits (B, V) fp32, cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         rope = LY.rope_cache(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
                              tokens.device)
-        x = LY.embed_apply(params["embed"], tokens, cfg, dcfg)
-        ck, cv = cache
+        x = LY.embed_apply(params["embed"], tokens, cfg, dcfg,
+                           scale=self._embed_scale)
         for i in range(self.n_steps):
             p = tree_map(lambda a: a[i], params["blocks"])
-            x, (k, v) = self._serve_sub(p, rope, x, dcfg)
-            ck[i].copy_(k)
-            cv[i].copy_(v)
-        # norm is row-wise: normalising only the last position is exact
-        x = LY.rmsnorm(x[:, -1:].contiguous(), params["final_norm"],
-                       cfg.norm_eps)
-        return self._logits(params, x)[:, 0], cache
+            for (key, window), (ck, cv) in zip(self._subs,
+                                               self._sub_caches(cache)):
+                x, (k, v) = self._serve_sub(p[key] if key else p, rope, x,
+                                            dcfg, window)
+                ck[i].copy_(k)
+                cv[i].copy_(v)
+        return self._final_logits(params, x), cache
 
     # decode -----------------------------------------------------------------
     def _dense_writer(self, ck, cv, k, v, qpos):
@@ -324,12 +433,13 @@ class DenseLM:
         ck.index_put_((ib, qpos), k.to(ck.dtype))
         cv.index_put_((ib, qpos), v.to(cv.dtype))
 
-    def _decode_sub(self, p, x, ck, cv, qpos, cos, sin, dcfg):
+    def _decode_sub(self, p, x, ck, cv, qpos, cos, sin, dcfg, window):
         """x: (B,C,D); ck/cv: this layer's (B,T,Kl,hd) cache, updated in
-        place; qpos: (B,C) absolute positions per query token.  Attention is
-        plain torch: the reference's einsums, with fp32 scores."""
+        place; qpos: (B,C) absolute positions per query token; `window`:
+        this layer's sliding window, or None.  Attention is plain torch: the
+        reference's einsums, with fp32 scores."""
         cfg = self.cfg
-        h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        h = self._norm(x, p["ln1"])
         q, k, v, head_mask = LY._local_qkv(p["attn"], h, cfg, dcfg)
         if cfg.qk_norm:
             q = LY.rmsnorm(q, p["attn"]["q_norm"], cfg.norm_eps)
@@ -346,34 +456,40 @@ class DenseLM:
         s = LY._softcap(s, cfg.attn_softcap)
         tpos = torch.arange(T, device=x.device)
         msk = tpos[None, None, :] <= qpos[:, :, None]
-        if cfg.sliding_window is not None:
-            msk &= tpos[None, None, :] > qpos[:, :, None] - cfg.sliding_window
+        if window is not None:
+            msk &= tpos[None, None, :] > qpos[:, :, None] - window
         s = s.masked_fill(~msk[:, None, None, :, :], -1e30)
         pr = torch.softmax(s, dim=-1)
         out = torch.einsum("bkgqt,btkh->bqkgh", pr.to(cv.dtype), cv)
         out = out.reshape(B, C, hl, cfg.head_dim)
         out = out * head_mask[None, None, :, None]
-        x = x + torch.matmul(out.reshape(B, C, hl * cfg.head_dim),
-                             p["attn"]["wo"])
-        h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + self._ffn_decode(p["mlp"], h, dcfg)
+        o = torch.matmul(out.reshape(B, C, hl * cfg.head_dim),
+                         p["attn"]["wo"])
+        if cfg.post_norms:
+            o = self._norm(o, p["pn1"])
+        x = x + o
+        o = self._ffn_decode(p["mlp"], self._norm(x, p["ln2"]), dcfg)
+        if cfg.post_norms:
+            o = self._norm(o, p["pn2"])
+        return x + o
 
     def _cached_forward(self, params, cache, toks, qpos, dcfg):
         """Embed toks (B,C) at positions qpos (B,C), run the stack against
         the cache (updated in place), return (last-position logits, cache)."""
         cfg = self.cfg
         cos, sin = LY.rope_pos(qpos, cfg.head_dim, cfg.rope_theta)
-        x = LY.embed_apply(params["embed"], toks, cfg, dcfg)
-        ck, cv = cache
+        x = LY.embed_apply(params["embed"], toks, cfg, dcfg,
+                           scale=self._embed_scale)
         for i in range(self.n_steps):
             p = tree_map(lambda a: a[i], params["blocks"])
-            x = self._decode_sub(p, x, ck[i], cv[i], qpos, cos, sin, dcfg)
-        x = LY.rmsnorm(x[:, -1:].contiguous(), params["final_norm"],
-                       cfg.norm_eps)
-        return self._logits(params, x)[:, 0], cache
+            for (key, window), (ck, cv) in zip(self._subs,
+                                               self._sub_caches(cache)):
+                x = self._decode_sub(p[key] if key else p, x, ck[i], cv[i],
+                                     qpos, cos, sin, dcfg, window)
+        return self._final_logits(params, x), cache
 
     def decode_local(self, params, cache, tok, pos, dcfg: DistConfig):
         """One decode step. tok: (B,) int64; pos: (B,) int64 PER-REQUEST
-        positions.  cache: (k, v) pair of (n_steps, B, T, Kl, hd)."""
+        positions.  cache: as `prefill_local`'s, updated in place."""
         return self._cached_forward(params, cache, tok[:, None],
                                     pos[:, None], dcfg)

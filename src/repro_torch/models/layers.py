@@ -118,12 +118,20 @@ def embed_init(generator, cfg: ArchConfig, device, dtype):
     return _normal((cfg.vocab, cfg.d_model), 0.02, generator, device, dtype)
 
 
-def embed_apply(table, ids, cfg: ArchConfig, dcfg: DistConfig):
-    """table: (V, D); ids: (B, S) -> (B, S, D) in param_dtype.  Ids outside
-    the vocab embed to zeros, as in the reference's vocab-parallel lookup."""
+def embed_apply(table, ids, cfg: ArchConfig, dcfg: DistConfig,
+                scale: float | None = None):
+    """table: (V, D); ids: (B, S) -> (B, S, D) in param_dtype, times
+    `scale` where given (gemma2's sqrt(d)).  Ids outside the vocab embed to
+    zeros, as in the reference's vocab-parallel lookup.  The scale is
+    rounded to param_dtype before it multiplies, as the reference's
+    ``jnp.asarray(scale, param_dtype)`` is: sqrt(4608) = 67.88 is 68.0 in
+    bf16."""
     hit = (ids >= 0) & (ids < cfg.vocab)
     x = F.embedding(ids.clamp(0, cfg.vocab - 1), table)
-    return torch.where(hit[..., None], x, 0).to(dcfg.param_dtype)
+    x = torch.where(hit[..., None], x, 0).to(dcfg.param_dtype)
+    if scale is not None:
+        x = x * torch.tensor(scale, dtype=dcfg.param_dtype).item()
+    return x
 
 
 class _LogitsF32(torch.autograd.Function):
@@ -277,33 +285,49 @@ def attn_apply(p, x, rope, cfg: ArchConfig, dcfg: DistConfig, window=None,
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP unit
+# MLP unit: SwiGLU, GeGLU, or a plain GELU FFN
 # ---------------------------------------------------------------------------
+GATED_MLPS = ("swiglu", "geglu", "gelu")
+
+
 def mlp_metas(cfg: ArchConfig, dcfg: DistConfig, dtype,
               prefix: str = "", d_ff: int | None = None) -> dict:
-    """`d_ff` overrides cfg.d_ff (the moe family's shared expert)."""
+    """`d_ff` overrides cfg.d_ff (the moe family's shared expert).  The
+    gated variants carry a gate matrix ``wg``; ``gelu`` does not."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {
+    m = {
         "wu": ParamMeta(prefix + "wu", (d, f), tp_dim=1, dtype=dtype),
         "wd": ParamMeta(prefix + "wd", (f, d), tp_dim=0, dtype=dtype),
-        "wg": ParamMeta(prefix + "wg", (d, f), tp_dim=1, dtype=dtype),
     }
+    if cfg.gated_mlp != "gelu":
+        m["wg"] = ParamMeta(prefix + "wg", (d, f), tp_dim=1, dtype=dtype)
+    return m
 
 
 def mlp_init(generator, cfg: ArchConfig, device, dtype,
              d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     sd = 0.02
-    return {
+    p = {
         "wu": _normal((d, f), sd, generator, device, dtype),
         "wd": _normal((f, d), sd / math.sqrt(2 * cfg.n_layers), generator,
                       device, dtype),
-        "wg": _normal((d, f), sd, generator, device, dtype),
     }
+    if cfg.gated_mlp != "gelu":
+        p["wg"] = _normal((d, f), sd, generator, device, dtype)
+    return p
 
 
 def mlp_apply(p, x, cfg: ArchConfig, dcfg: DistConfig):
-    """SwiGLU: (silu(x wg) * (x wu)) wd."""
+    """SwiGLU (silu(x wg) * (x wu)) wd, GeGLU (gelu(x wg) * (x wu)) wd, or
+    gelu(x wu) wd.  GELU is the tanh form, the reference's
+    ``jax.nn.gelu(approximate=True)``."""
     u = torch.matmul(x, p["wu"])
-    g = torch.matmul(x, p["wg"])
-    return torch.matmul(F.silu(g) * u, p["wd"])
+    if cfg.gated_mlp == "gelu":
+        h = F.gelu(u, approximate="tanh")
+    else:
+        g = torch.matmul(x, p["wg"])
+        act = F.gelu(g, approximate="tanh") if cfg.gated_mlp == "geglu" \
+            else F.silu(g)
+        h = act * u
+    return torch.matmul(h, p["wd"])

@@ -15,7 +15,8 @@ ARCH_IDS = (
     "llama3_8b",
 )
 PORTED = ("llama3_8b", "qwen3_1_7b", "zamba2_1_2b", "qwen3_moe_30b_a3b",
-          "qwen2_moe_a2_7b", "deepseek_coder_33b", "phi3_medium_14b")
+          "qwen2_moe_a2_7b", "deepseek_coder_33b", "phi3_medium_14b",
+          "gemma2_27b")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 

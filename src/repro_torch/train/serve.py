@@ -3,7 +3,8 @@
   * `serve_params_from_jax` — the weight carry-over: the reference's serve
     params, as numpy arrays in their exact layouts, become the port's;
   * `init_serve_params` — seeded weights made directly on the device;
-  * `alloc_cache` — the dense KV cache (the reference's `cache_abstract`);
+  * `alloc_cache` — the dense KV cache (the reference's `cache_abstract`),
+    one (k, v) pair a layer of a local/global pair;
   * `make_prefill_step` / `make_decode_step` — plain callables that run
     under `torch.inference_mode()`.
 """
@@ -64,7 +65,8 @@ def serve_params_from_jax(tree, model, dcfg: DistConfig, device="cuda"):
 def init_serve_params(model, dcfg: DistConfig, generator: torch.Generator,
                       device="cuda"):
     """Seeded weights with the reference's distributions (normal * 0.02,
-    wo/wd/head scaled by 1/sqrt(2 L), norms ones), allocated on `device` in
+    wo/wd/head scaled by 1/sqrt(2 L), norms ones, or zeros where they store
+    w - 1 under gemma2's unit offset), allocated on `device` in
     param_dtype layer by layer.  `generator` must live on `device`."""
     check_world_size_one(dcfg)
     dev = resolve_device(device)
@@ -78,8 +80,10 @@ def init_serve_params(model, dcfg: DistConfig, generator: torch.Generator,
 # KV cache
 # ---------------------------------------------------------------------------
 def alloc_cache(model, shape: ShapeConfig, dcfg: DistConfig, device="cuda"):
-    """Zeroed dense KV cache: a (k, v) pair of (n_steps, B, T, Kl, hd)
-    tensors in param_dtype on `device`."""
+    """Zeroed dense KV cache in param_dtype on `device`: a (k, v) pair of
+    (n_steps, B, T, Kl, hd) tensors, or for gemma2's local/global pairs one
+    such pair a layer of the pair, ((k, v), (k, v)), as the reference's
+    `cache_abstract` lays it out."""
     check_world_size_one(dcfg)
     dev = resolve_device(device)
     cfg = model.cfg
@@ -89,8 +93,13 @@ def alloc_cache(model, shape: ShapeConfig, dcfg: DistConfig, device="cuda"):
             "to repro_torch")
     dims = (model.n_steps, shape.global_batch, shape.seq_len,
             cfg.gqa_layout(dcfg.tp_size)["kvp"], cfg.head_dim)
-    return tuple(torch.zeros(dims, dtype=dcfg.param_dtype, device=dev)
-                 for _ in range(2))
+    def pair():
+        return tuple(torch.zeros(dims, dtype=dcfg.param_dtype, device=dev)
+                     for _ in range(2))
+
+    if cfg.local_global_alternate:
+        return pair(), pair()
+    return pair()
 
 
 # ---------------------------------------------------------------------------

@@ -451,7 +451,8 @@ OVERRIDE_BUDGETS = {"qwen3_1_7b": "auto:0.00035", "llama3_8b": "auto:0.0004",
                     "qwen3_moe_30b_a3b": "auto:0.00058",
                     "qwen2_moe_a2_7b": "auto:0.00076",
                     "deepseek_coder_33b": "auto:0.00048",
-                    "phi3_medium_14b": "auto:0.00054"}
+                    "phi3_medium_14b": "auto:0.00054",
+                    "gemma2_27b": "auto:0.00064"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
