@@ -193,6 +193,40 @@ without printing the final line):
      decode step, the windows flash was launched with; the consistency
      check of 7 at p = 8191, past the window, in bf16 and at TOL32 on the
      first GEMMA2_F32_LAYERS layers widened to fp32.
+ 10q. paged serving smoke, card vs CPU (the main path of the twelfth
+     slice, paged serving): qwen3 SMOKE with no KV codec, int8 and fp8,
+     gemma2 SMOKE (window 8, page 4) and qwen2-moe SMOKE, fp32: prefill,
+     `dense_to_pages`, 4 paged decode steps, the card's logits held to the
+     CPU's at TOL32 and on the card paged equal to dense bit for bit at
+     each step, the paged and the dense steps each in a launch-count
+     window of its own with the same counts; qwen3 at B 2: a ragged-position
+     step and chunked prefill (4 + 4, 3 + 4 + 1) against a full prefill at
+     2e-5.
+ 10r. full-width paged serve: llama3-8b bf16, 32 layers, B 4, prompt
+     2000, page 16, dense T = 129 pages x 16 = 2064: with the bf16, int8 and
+     fp8 caches, prefill, repage and 16 decode steps, paged equal to dense
+     bit for bit at each, the paged and the dense steps each in a
+     launch-count window of its own (65 rmsnorm a step; 64 quant_fwd and 64
+     dequant_fwd under a codec); decode ms/token paged and dense, each
+     codec's logits within PAGED_CODEC_DIFF of the bf16 cache's, and the
+     cache with its scales zeroed outside it; then a server answering
+     requests: `plan_serve` under the H100 profile with a 1 GiB arena (512
+     pages), max_batch 8, max_seq 2304, the plan's chunk; 16 synthetic
+     requests and 4 that share request 0's first 1024 tokens, a prefix
+     cache, the scheduler's contract driving one paged step an action with
+     the measured wall time; every request finishes, `pool.check()` after
+     every action, no page leaked, a preemption and a prefix hit, 65
+     rmsnorm launches a paged step and no other kernel; every finished
+     prefill (prefix hits and recomputes after a preemption included)
+     equal bit for bit to a standalone paged prefill with the same chunks
+     on a fresh arena, which a table with two pages swapped fails; the
+     first token's logits of the first 4 finished requests, a prefix hit
+     and a preempted one against a dense prefill of the prompt at
+     TOL_BF16_CONSISTENCY, the argmax equal where the top-2 gap is above
+     twice the error, and on the weights widened to fp32 at TOL32 with an
+     equal argmax; tokens/s, p50/p99 latency and time to first token, arena
+     use, decode steps, prefill chunks, the device time of one decode step
+     (after the run).
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -3684,6 +3718,745 @@ def phase_full_gemma2_serve(state):
                   "window", planted, bf16[2][0], TOL_GEMMA2_BF16_CONSISTENCY)
 
 
+# ---------------------------------------------------------------------------
+# Paged serving (the main path of the twelfth slice)
+# ---------------------------------------------------------------------------
+PAGED_SMOKE = (("qwen3_1_7b", None), ("qwen3_1_7b", "int8"),
+               ("qwen3_1_7b", "fp8"), ("gemma2_27b", None),
+               ("qwen2_moe_a2_7b", None))
+# full-width paged serving: llama3-8b at the phase-7 shape, 16 decode
+# steps a cache; the dense cache's T = PAGED_MAX_PAGES * PAGED_PAGE = 2064
+# so both reads have one shape and one stride (paged == dense bit for bit)
+PAGED_PAGE, PAGED_STEPS = 16, 16
+PAGED_MAX_PAGES = T // PAGED_PAGE
+PAGED_CODECS = (None, "int8", "fp8")
+# the batcher run: plan_serve under the H100 profile; 1 GiB at 131,072
+# bytes a token is 512 pages, fewer than 8 slots of up to 2064-token
+# requests need, so the trace preempts
+BATCH_ARENA_BYTES = 1 << 30
+# each KV codec's largest logit difference from the bf16 cache over the
+# paged steps of llama3-8b (B 4, T 2064, seeded weights): a sound build read
+# 7.02e-2 (int8) and 1.93e-1 (fp8) (NVIDIA H100 80GB HBM3, 700 W); each
+# limit keeps TOL_BF16_CONSISTENCY's room (1.5 times the reading), and
+# the cache with its scales zeroed, a planted codec fault, must fail it
+PAGED_CODEC_DIFF = {"int8": 1.1e-1, "fp8": 3e-1}
+BATCH_MAX_BATCH, BATCH_MAX_SEQ = 8, 2304
+BATCH_TRACE = dict(n=16, seed=0, prompt_lens=(256, 1024, 2000),
+                   gen_lens=(16, 32, 64))
+# 4 requests of request 0's first 1024 tokens + 256 of their own
+BATCH_SHARED, BATCH_SHARED_PREFIX, BATCH_SHARED_SUFFIX = 4, 1024, 256
+BATCH_SHARED_GEN = 16
+
+
+def _kv_clone(tree):
+    from repro_torch.core.serving import pages as PG
+    return PG.kv_map(lambda a: a.clone(), tree)
+
+
+def _repage(cache, lengths, page, n_pages_local, max_pages):
+    """dense_to_pages + the pages each row needs up to max_pages (the
+    decode steps' positions), as the reference's parity test does."""
+    from repro_torch.core.serving import dense_to_pages
+    arena, table, pools = dense_to_pages(cache, lengths, page,
+                                         n_pages_local, max_pages)
+    tbl = table.cpu().clone()
+    for b, n in enumerate(lengths):
+        filled = -(-int(n) // page)
+        ids = pools[0].alloc(max_pages - filled)
+        tbl[b, filled:filled + len(ids)] = torch.tensor(ids)
+    return arena, tbl.to(table.device)
+
+
+def _zero_counts():
+    return {k: 0 for k in _train_counts()}
+
+
+def _counted(into, fn):
+    """fn() in a launch-count window of its own: every count is set to 0
+    just before the call and read just after it, and added into `into`."""
+    _reset_counts()
+    out = fn()
+    for k, v in _train_counts().items():
+        into[k] += v
+    return out
+
+
+# kernels no serving step launches: the steps' attention is the reference's
+# einsum, and nothing trains
+NOT_IN_STEPS = ("flash", "flash_f32", "xent_fwd", "xent_bwd", "adamw", "ssd",
+                "ssd_f32", "ssd_bwd")
+
+
+def _check_step_counts(paged, dense, codec, steps, layers, what, norms=None):
+    """The launch-count windows of `steps` paged steps and of as many dense
+    decode steps over one cache: the same kernels the same number of times;
+    under a codec one quant_fwd and one dequant_fwd launch for the K and
+    the V leaf of each layer a step (the new token's encode, the read's
+    decode), none without; `norms` rmsnorm launches a step where given,
+    some in any case; none of NOT_IN_STEPS."""
+    for name, counts in (("paged", paged), ("dense", dense)):
+        want = 2 * layers * steps if codec else 0
+        if (counts["quant_fwd"], counts["dequant_fwd"]) != (want, want):
+            raise AssertionError(
+                f"{what}, {name} steps: {counts['quant_fwd']} quant and "
+                f"{counts['dequant_fwd']} dequant launches, {want} each "
+                f"expected ({codec or 'no codec'}): {counts}")
+        if counts["rmsnorm"] <= 0 or (norms is not None
+                                      and counts["rmsnorm"] != norms * steps):
+            raise AssertionError(f"{what}, {name} steps: rmsnorm launched "
+                                 f"{counts['rmsnorm']} times in {steps} "
+                                 f"steps ({norms} a step expected)")
+        if any(counts[k] for k in NOT_IN_STEPS):
+            raise AssertionError(f"{what}, {name} steps launched a kernel "
+                                 f"the steps do not run: {counts}")
+    if paged != dense:
+        raise AssertionError(f"{what}: paged steps launched {paged}, dense "
+                             f"decode steps {dense}")
+
+
+def phase_paged_smoke(state):
+    """Paged serving, card vs CPU, fp32 SMOKE configs: qwen3 with no codec,
+    int8 and fp8, gemma2 (window 8, page 4: decode crosses pages and the
+    window) and qwen2-moe.  Prefill of a 12-token prompt, `dense_to_pages`,
+    4 paged decode steps fed the CPU's greedy tokens: the card's logits
+    held to the CPU's at TOL32, and on the card paged equal to dense bit
+    for bit at each step; the paged and the dense steps each in
+    launch-count windows of their own (`_check_step_counts`).  Then on the card, qwen3 at B 2: a ragged-position
+    step and chunked prefill (chunk 4, and 3 + 4 + 1) against a full
+    prefill and dense decode at the reference test's 2e-5."""
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import serve as SV
+    b, prompt, gen, page = 4, 12, 4, 4
+    t_len = prompt + gen
+    max_pages = t_len // page
+    n_local = b * max_pages + 2
+    counts_by_case = {}
+    for arch, codec in PAGED_SMOKE:
+        what = f"{arch}/{codec or 'no codec'}"
+        cfg, model = get_arch(arch, smoke=True)
+        if arch == GEMMA2 and cfg.sliding_window != 8:
+            raise AssertionError(f"gemma2 SMOKE window {cfg.sliding_window}")
+        dcfg = single_device_config(param_dtype=torch.float32,
+                                    kv_cache_codec=codec)
+        tree = _numpy_params(model, dcfg, seed=0)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(np.pad(
+            rng.integers(3, cfg.vocab, (b, prompt)), ((0, 0), (0, gen)),
+            constant_values=3))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = SV.serve_params_from_jax(tree, model, dcfg, device=dev)
+            pf = SV.make_prefill_step(model, dcfg,
+                                      ShapeConfig("p", t_len, b, "prefill"))
+            dec = SV.make_decode_step(model, dcfg,
+                                      ShapeConfig("d", t_len, b, "decode"))
+            pstep = SV.make_paged_step(
+                model, dcfg, ShapeConfig("d", t_len, b, "decode"),
+                page=page, n_pages_local=n_local, max_pages=max_pages)
+            logits, cache = pf(params, {"tokens": tokens.to(dev)})
+            arena, table = _repage(cache, [prompt] * b, page, n_local,
+                                   max_pages)
+            runs[dev] = dict(params=params, dec=dec, pstep=pstep,
+                             cache=cache, arena=arena, table=table,
+                             logits=logits.cpu())
+        check_close(f"{what} smoke prefill logits cuda vs cpu",
+                    runs["cuda"]["logits"], runs["cpu"]["logits"], TOL32)
+        tok = runs["cpu"]["logits"].argmax(-1)
+        # a launch-count window around each step: the paged steps' and the
+        # dense steps' counts apart, the CPU's (plain versions, no launch)
+        # apart from the card's
+        paged_n = {dev: _zero_counts() for dev in runs}
+        dense_n = {dev: _zero_counts() for dev in runs}
+        for i in range(gen):
+            pos = torch.full((b,), prompt + i, dtype=torch.int64)
+            out = {}
+            for dev, r in runs.items():
+                ld, r["cache"] = _counted(dense_n[dev], lambda: r["dec"](
+                    r["params"], r["cache"], tok.to(dev), pos.to(dev)))
+                lp, r["arena"] = _counted(paged_n[dev], lambda: r["pstep"](
+                    r["params"], r["arena"], r["table"],
+                    tok.to(dev)[:, None], pos.to(dev)[:, None]))
+                if dev == "cuda" and not torch.equal(ld, lp):
+                    raise AssertionError(
+                        f"{what}: paged != dense on the card at step {i} "
+                        f"(max abs diff {max_err(lp, ld):.3e})")
+                out[dev] = lp.cpu()
+            check_close(f"{what} paged decode {i} cuda vs cpu", out["cuda"],
+                        out["cpu"], TOL32)
+            tok = out["cpu"].argmax(-1)
+        if any(paged_n["cpu"].values()) or any(dense_n["cpu"].values()):
+            raise AssertionError(f"{what}: a CPU step counted a launch: "
+                                 f"{paged_n['cpu']}, {dense_n['cpu']}")
+        counts = paged_n["cuda"]
+        _check_step_counts(counts, dense_n["cuda"], codec, gen, cfg.n_layers,
+                           what)
+        counts_by_case[what] = counts
+        say(f"  {what}: paged == dense bit for bit at {gen} steps on the "
+            f"card; launches in the {gen} paged steps (as many in the "
+            f"dense ones): rmsnorm {counts['rmsnorm']}, quant "
+            f"{counts['quant_fwd']}, dequant {counts['dequant_fwd']}")
+    state["serve_paged_smoke_launches"] = {
+        k: sum(c[k] for c in counts_by_case.values())
+        for k in _train_counts()}
+    _paged_ragged_and_chunked()
+
+
+def _paged_ragged_and_chunked():
+    """qwen3 SMOKE on the card at the reference tests' ragged and chunked
+    shapes (B 2, prompt 8, gen 8, page 4)."""
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import serve as SV
+    dev = torch.device("cuda")
+    b, prompt, gen, page = 2, 8, 8, 4
+    t_len = prompt + gen
+    max_pages = t_len // page
+    n_local = b * max_pages + 2
+    cfg, model = get_arch("qwen3_1_7b", smoke=True)
+    dcfg = single_device_config(param_dtype=torch.float32)
+    params = SV.serve_params_from_jax(_numpy_params(model, dcfg, seed=0),
+                                      model, dcfg, device=dev)
+    pf = SV.make_prefill_step(model, dcfg,
+                              ShapeConfig("p", t_len, b, "prefill"))
+    dec = SV.make_decode_step(model, dcfg,
+                              ShapeConfig("d", t_len, b, "decode"))
+    pstep = SV.make_paged_step(model, dcfg,
+                               ShapeConfig("d", t_len, b, "decode"),
+                               page=page, n_pages_local=n_local,
+                               max_pages=max_pages, chunk=4)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(3, cfg.vocab, (b, prompt), generator=g).to(dev)
+    logits, cache = pf(params, {"tokens": torch.nn.functional.pad(
+        toks, (0, gen), value=3)})
+    tol = dict(rtol=2e-5, atol=2e-5)
+    # ragged: row 0 two greedy steps ahead of row 1
+    cache_d = _kv_clone(cache)
+    tok = logits.argmax(-1)
+    by_step = [tok]
+    for i in range(2):
+        lg, cache_d = dec(params, cache_d, tok, torch.full(
+            (b,), prompt + i, dtype=torch.int64, device=dev))
+        tok = lg.argmax(-1)
+        by_step.append(tok)
+    lengths = [prompt + 2, prompt]
+    ragged = PG.kv_map(lambda adv, base: torch.cat([adv[:, :1], base[:, 1:]],
+                                                   1), cache_d, cache)
+    arena, table = _repage(ragged, lengths, page, n_local, max_pages)
+    rtok = torch.stack([by_step[2][0], by_step[0][1]])
+    rpos = torch.tensor(lengths, device=dev)
+    lp, _ = pstep(params, arena, table, rtok[:, None], rpos[:, None])
+    l0, _ = dec(params, _kv_clone(cache_d), by_step[2], torch.full(
+        (b,), prompt + 2, dtype=torch.int64, device=dev))
+    l1, _ = dec(params, _kv_clone(cache), by_step[0], torch.full(
+        (b,), prompt, dtype=torch.int64, device=dev))
+    check_close("ragged paged step, row 0 (pos p+2) vs dense", lp[0].cpu(),
+                l0[0].cpu(), tol)
+    check_close("ragged paged step, row 1 (pos p) vs dense", lp[1].cpu(),
+                l1[1].cpu(), tol)
+    # chunked prefill into an empty arena against a prompt-length prefill
+    pf2 = SV.make_prefill_step(model, dcfg,
+                               ShapeConfig("p2", prompt, b, "prefill"))
+    want, _ = pf2(params, {"tokens": toks})
+    for chunks in ((4, 4), (3, 4, 1)):
+        arena, table = _repage(PG.kv_map(torch.zeros_like, cache), [0] * b,
+                               page, n_local, max_pages)
+        s0 = 0
+        for n in chunks:
+            qpos = torch.arange(s0, s0 + n, device=dev)[None].repeat(b, 1)
+            lp, arena = pstep(params, arena, table, toks[:, s0:s0 + n], qpos)
+            s0 += n
+        check_close(f"chunked prefill {chunks} vs full prefill", lp.cpu(),
+                    want.cpu(), tol)
+        tok = want.argmax(-1)
+        pos = torch.full((b,), prompt, dtype=torch.int64, device=dev)
+        ld, _ = dec(params, _kv_clone(cache), tok, pos)
+        lp2, _ = pstep(params, arena, table, tok[:, None], pos[:, None])
+        check_close(f"chunked prefill {chunks}, next decode vs dense",
+                    lp2.cpu(), ld.cpu(), tol)
+
+
+def _zero_scales(tree):
+    """A copy of a codec cache or arena with every scale zeroed."""
+    if isinstance(tree, dict):
+        return {k: torch.zeros_like(v) if k in ("ks", "vs")
+                else _zero_scales(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zero_scales(t) for t in tree)
+    return tree.clone()
+
+
+def _timed_steps(step, n):
+    """Runs step(i) for i < n; returns (outputs, ms a step over steps
+    1..n-1: the first call is left out as the warm-up)."""
+    outs = [step(0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n):
+        outs.append(step(i))
+    torch.cuda.synchronize()
+    return outs, (time.perf_counter() - t0) / (n - 1) * 1e3
+
+
+def phase_full_paged_serve(state):
+    """llama3-8b bf16 at every published width, 32 layers, weights made on
+    the card: B 4, prompt 2000 padded to T 2064 = 129 pages of 16.
+    For the bf16, int8 and fp8 caches: prefill, repage, then 16 decode
+    steps of the paged arena and 16 of the dense cache fed the same
+    tokens (the bf16 paged run's greedy ones), paged equal to dense bit for
+    bit at each step, each run in a launch-count window of its own;
+    decode ms/token of each, each codec's logits held to PAGED_CODEC_DIFF
+    of the bf16 cache's and its zeroed-scales plant rejected; the device
+    time of one paged decode step.  Then the batcher: `_serve_batcher`."""
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train import serve as SV
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, model, dcfg, params, _, _ = launch.setup(
+        "llama3_8b", False, B, PROMPT, GEN, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    say(f"llama3-8b bf16 made on the card in {time.perf_counter() - t0:.1f}s")
+    if PAGED_MAX_PAGES * PAGED_PAGE != T:
+        raise AssertionError("the dense T must equal max_pages * page")
+    padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
+    n_local = B * PAGED_MAX_PAGES + 2
+    norms = 2 * cfg.n_layers + 1        # llama3: ln1, ln2 a layer, final
+    ref_logits, toks, readings = None, None, {}
+    counts_all = {k: 0 for k in _train_counts()}
+    for codec in PAGED_CODECS:
+        name = codec or "bf16"
+        d = dcfg.with_(kv_cache_codec=codec)
+        pf = SV.make_prefill_step(model, d, ShapeConfig("p", T, B,
+                                                        "prefill"))
+        dec = SV.make_decode_step(model, d, ShapeConfig("d", T, B, "decode"))
+        pstep = SV.make_paged_step(model, d, ShapeConfig("d", T, B, "decode"),
+                                   page=PAGED_PAGE, n_pages_local=n_local,
+                                   max_pages=PAGED_MAX_PAGES)
+        pre_n = _zero_counts()
+        logits, cache = _counted(pre_n, lambda: pf(params,
+                                                   {"tokens": padded}))
+        if (pre_n["rmsnorm"], pre_n["quant_fwd"], pre_n["dequant_fwd"]) != (
+                norms, 2 * cfg.n_layers if codec else 0, 0):
+            raise AssertionError(f"{name} cache: the prefill launched "
+                                 f"{pre_n}")
+        arena, table = _repage(cache, [PROMPT] * B, PAGED_PAGE, n_local,
+                               PAGED_MAX_PAGES)
+        pos = [torch.full((B,), PROMPT + i, dtype=torch.int64, device=dev)
+               for i in range(PAGED_STEPS)]
+        if toks is None:
+            # the bf16 paged run's greedy tokens feed every run
+            toks = [logits.argmax(-1)]
+
+        def paged_step(i):
+            lp = pstep(params, arena, table, toks[i][:, None],
+                       pos[i][:, None])[0]
+            if len(toks) == i + 1 < PAGED_STEPS:
+                toks.append(lp.argmax(-1))
+            return lp
+
+        # the paged steps and the dense steps each in a launch-count window
+        counts, dense_n = _zero_counts(), _zero_counts()
+        paged, paged_ms = _counted(
+            counts, lambda: _timed_steps(paged_step, PAGED_STEPS))
+        dense, dense_ms = _counted(dense_n, lambda: _timed_steps(
+            lambda i: dec(params, cache, toks[i], pos[i])[0], PAGED_STEPS))
+        _check_step_counts(counts, dense_n, codec, PAGED_STEPS, cfg.n_layers,
+                           f"llama3-8b {name} cache", norms=norms)
+        for k in counts_all:
+            counts_all[k] += counts[k]
+        for i, (ld, lp) in enumerate(zip(dense, paged)):
+            if not torch.equal(ld, lp):
+                raise AssertionError(
+                    f"{name}: paged != dense at step {i} (max abs diff "
+                    f"{max_err(lp, ld):.3e})")
+            if not torch.isfinite(lp).all():
+                raise AssertionError(f"{name}: non-finite logits at {i}")
+        diff = None
+        if ref_logits is None:
+            ref_logits = [lp.float() for lp in paged]
+        else:
+            diff = max(max_err(lp, r) for lp, r in zip(paged, ref_logits))
+        leaf_bytes = sum(a.numel() * a.element_size()
+                         for a in PG.kv_leaves(arena))
+        readings[name] = dict(dense_ms=dense_ms, paged_ms=paged_ms,
+                              max_diff_vs_bf16=diff, arena_bytes=leaf_bytes,
+                              launches=counts)
+        say(f"  {name} cache: paged == dense bit for bit at {PAGED_STEPS} "
+            f"steps; decode {paged_ms:.3f} ms/token paged, {dense_ms:.3f} "
+            f"dense (B {B}, T {T}); arena {leaf_bytes / 1e9:.3f} GB"
+            + ("" if diff is None else f"; largest logit difference from "
+               f"the bf16 cache {diff:.4e}")
+            + f"; launches in the {PAGED_STEPS} paged steps (as many in the "
+            f"dense ones) {dict((k, v) for k, v in counts.items() if v)}, "
+            f"in the prefill {dict((k, v) for k, v in pre_n.items() if v)}")
+        if codec is None:
+            _profile("paged decode step (bf16 cache)", lambda: pstep(
+                params, arena, table, toks[-1][:, None],
+                pos[-1][:, None]), 4)
+            _profile("dense decode step (bf16 cache)", lambda: dec(
+                params, cache, toks[-1], pos[-1]), 4)
+        else:
+            # the codec against the bf16 cache, and a planted codec fault
+            # (every page's scales zeroed) that the limit must reject
+            tol = dict(rtol=0.0, atol=PAGED_CODEC_DIFF[codec])
+            check_close(f"{name} cache: the {PAGED_STEPS} steps' logits vs "
+                        "the bf16 cache's", torch.stack(paged),
+                        torch.stack(ref_logits), tol)
+            planted = pstep(params, _zero_scales(arena), table,
+                            toks[-1][:, None], pos[-1][:, None])[0]
+            check_rejects(f"planted: the {name} cache with its scales "
+                          "zeroed", planted, ref_logits[-1], tol)
+        del dense, paged, cache, arena
+        torch.cuda.empty_cache()
+    state["serve_paged"] = readings
+    state["serve_paged_launches"] = counts_all
+    _serve_batcher(state, cfg, model, dcfg, params)
+
+
+def _serve_batcher(state, cfg, model, dcfg, params):
+    """A server answering requests: `plan_serve` (H100 profile) with a
+    BATCH_ARENA_BYTES arena, the synthetic trace plus BATCH_SHARED requests
+    that share request 0's first BATCH_SHARED_PREFIX tokens, a prefix
+    cache, and the scheduler's documented contract: each `next_action()`
+    is one paged-step call over the rows it names (a prefill chunk: its
+    sequence's row at the chunk's true length; a decode step: the live
+    rows), then `on_prefill` / `on_decode` with the measured wall time.
+    The run's launch counts are read right after the loop; then the device
+    time of one decode step and `_check_batcher_prefills`."""
+    import random
+    from repro_torch.core import hw
+    from repro_torch.core.serving import (ContinuousBatcher, PrefixCache,
+                                          Request, plan_serve,
+                                          synthetic_trace)
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train import serve as SV
+    dev = torch.device("cuda")
+    if hw.active() is not hw.H100:
+        raise AssertionError(f"active profile {hw.active().name}")
+    plan = plan_serve(model, dcfg, arena_bytes=BATCH_ARENA_BYTES,
+                      max_batch=BATCH_MAX_BATCH, max_seq=BATCH_MAX_SEQ,
+                      page=PAGED_PAGE)
+    say(f"  plan: {plan}")
+    reqs = synthetic_trace(mean_interarrival_s=plan.decode_step_s,
+                           vocab=cfg.vocab, **BATCH_TRACE)
+    r0 = reqs[0].prompt
+    if len(r0) < BATCH_SHARED_PREFIX:
+        raise AssertionError(f"request 0's prompt is {len(r0)} tokens")
+    rng = random.Random(1)
+    last = reqs[-1].arrival
+    for j in range(BATCH_SHARED):
+        suffix = tuple(rng.randrange(3, cfg.vocab)
+                       for _ in range(BATCH_SHARED_SUFFIX))
+        reqs.append(Request(rid=len(reqs),
+                            prompt=r0[:BATCH_SHARED_PREFIX] + suffix,
+                            max_new=BATCH_SHARED_GEN,
+                            arrival=last + 1e-3 * (j + 1)))
+    prompts = {r.rid: r.prompt for r in reqs}
+    prefix = PrefixCache()
+    batcher = ContinuousBatcher(plan, prefix_cache=prefix)
+    for r in reqs:
+        batcher.submit(r)
+    max_pages = plan.max_pages_per_seq
+    arena = SV.alloc_arena(model, dcfg, page=plan.page,
+                           n_pages_local=plan.n_pages, device=dev)
+    arena_bytes = sum(a.numel() * a.element_size()
+                      for a in PG.kv_leaves(arena))
+    pstep = SV.make_paged_step(
+        model, dcfg, ShapeConfig("d", max_pages * plan.page, plan.max_batch,
+                                 "decode"),
+        page=plan.page, n_pages_local=plan.n_pages, max_pages=max_pages,
+        chunk=plan.prefill_chunk)
+
+    def table(seqs):
+        t = torch.full((len(seqs), max_pages), -1, dtype=torch.int32)
+        for i, sq in enumerate(seqs):
+            t[i, :len(sq.table)] = torch.tensor(sq.table, dtype=torch.int32)
+        return t.to(dev)
+
+    page = plan.page
+    # each prefill attempt (a preempted request starts a new one, its prompt
+    # extended by the tokens it had generated), keyed by its sequence: its
+    # index among the request's attempts, the chunks it ran, the attempt
+    # that wrote each prefix page it shares, and its last chunk's logits;
+    # `writer` maps a page to the attempt whose prefill last wrote it
+    attempts, writer, first, nxt = {}, {}, {}, {}
+    batch_sizes, n_calls, prof_args = [], 0, None
+    _reset_counts()
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter()
+    idle = 0
+    while not batcher.finished():
+        act = batcher.next_action()
+        if act is None:
+            idle += 1
+            if idle > 100_000:
+                raise AssertionError("scheduler stalled")
+            continue
+        idle = 0
+        n_calls += 1
+        t0 = time.perf_counter()
+        if act[0] == "prefill":
+            _, seq, start, toks = act
+            n, rid = len(toks), seq.req.rid
+            if seq not in attempts:
+                attempts[seq] = dict(
+                    rid=rid, prompt=seq.req.prompt, shared=seq.pos,
+                    srcs=[writer[p] for p in seq.table[:seq.shared]],
+                    chunks=[], logits=None,
+                    n=sum(r["rid"] == rid for r in attempts.values()))
+            rec = attempts[seq]
+            rec["chunks"].append((start, n))
+            for j in range(start // page, (start + n - 1) // page + 1):
+                writer[seq.table[j]] = rec
+            logits, arena = pstep(
+                params, arena, table([seq]), torch.tensor([toks], device=dev),
+                torch.arange(start, start + n, device=dev)[None])
+            if start + n == seq.prompt_len:
+                rec["logits"] = logits[0].float().cpu()
+                nxt[rid] = int(rec["logits"].argmax())
+                first.setdefault(rid, rec)
+            else:
+                torch.cuda.synchronize()
+            batcher.on_prefill(seq, n, wall_s=time.perf_counter() - t0)
+        else:
+            _, seqs = act
+            toks = [nxt[sq.req.rid] for sq in seqs]
+            args = (table(seqs), torch.tensor(toks, device=dev)[:, None],
+                    torch.tensor([sq.pos for sq in seqs],
+                                 device=dev)[:, None])
+            logits, arena = pstep(params, arena, *args)
+            for i, sq in enumerate(logits.argmax(-1).tolist()):
+                nxt[seqs[i].req.rid] = sq
+            wall = time.perf_counter() - t0
+            batch_sizes.append(len(seqs))
+            if prof_args is None and len(seqs) >= plan.max_batch // 2:
+                prof_args = args
+            batcher.on_decode(seqs, toks, wall_s=wall)
+        batcher.pool.check()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    counts = _train_counts()
+    m = batcher.metrics()
+    say(f"  {m['requests']} requests, {m['gen_tokens']} tokens in "
+        f"{m['virtual_s']:.3f} s on the batcher's clock (measured walls; "
+        f"the loop {loop_s:.3f} s): {m['tok_s']:.2f} tokens/s; latency p50 "
+        f"{m['p50_s']:.3f} s, p99 {m['p99_s']:.3f} s; time to first token "
+        f"p50 {m['p50_first_s']:.3f} s, p99 {m['p99_first_s']:.3f} s")
+    say(f"  decode steps {m['decode_steps']} (mean batch "
+        f"{sum(batch_sizes) / max(1, len(batch_sizes)):.2f}), prefill "
+        f"chunks {m['prefill_chunks']}, preemptions {m['preemptions']}, "
+        f"prefix hit tokens {m['prefix_hit_tokens']} (rate "
+        f"{m['prefix_hit_rate']:.4f}), arena use {m['arena_util']:.4f} of "
+        f"{plan.n_pages} pages ({arena_bytes / 2**30:.3f} GiB), decode "
+        f"EWMA {batcher.decode_ewma * 1e3:.3f} ms against the plan's "
+        f"{plan.decode_step_s * 1e3:.3f} ms (ratio "
+        f"{batcher.decode_ratio:.2f})")
+    say(f"  launches in the batcher run ({n_calls} paged steps): "
+        f"{dict((k, v) for k, v in counts.items() if v)}")
+    if m["requests"] != len(reqs):
+        raise AssertionError(f"{m['requests']} of {len(reqs)} finished")
+    if m["preemptions"] < 1:
+        raise AssertionError("the trace did not preempt: lower "
+                             "BATCH_ARENA_BYTES")
+    if m["prefix_hit_tokens"] <= 0:
+        raise AssertionError("no prefix-cache hit")
+    if batcher.pool.used != len(prefix):
+        raise AssertionError(f"{batcher.pool.used} pages held, the prefix "
+                             f"cache holds {len(prefix)}")
+    # llama3: ln1 and ln2 a layer and the final norm, every paged step
+    norms = 2 * cfg.n_layers + 1
+    if counts["rmsnorm"] != norms * n_calls or any(
+            counts[k] for k in NOT_IN_STEPS + QUANT):
+        raise AssertionError(f"{n_calls} paged steps launched {counts} "
+                             f"({norms} rmsnorm a step and nothing else "
+                             "expected)")
+    # the device time of one decode step of at least half the slots, after
+    # the loop and outside its count window (the step rewrites its slots)
+    profiled, profiled_rows = (None, None), None
+    if prof_args is not None:
+        profiled_rows = prof_args[0].shape[0]
+        profiled = _profile(f"batcher decode step x{profiled_rows}",
+                            lambda: pstep(params, arena, *prof_args), 4)
+    del arena
+    torch.cuda.empty_cache()
+    _check_batcher_prefills(model, dcfg, params, plan, attempts,
+                            [first[sq.req.rid] for sq in batcher.done[:4]])
+    state["serve_batcher"] = dict(
+        m, loop_s=loop_s, arena_bytes=arena_bytes, plan=str(plan),
+        n_calls=n_calls, decode_device_ms=None if profiled[1] is None
+        else profiled[1] * 1e3, decode_device_rows=profiled_rows)
+    state["serve_batcher_launches"] = counts
+
+
+def _prefill_chunk(rec, step, weights, arena, start, n, table):
+    """One paged step over rec's prompt[start:start + n] on `table` (1,
+    max_pages); the logits (V,) of its last position."""
+    dev = table.device
+    return step(weights, arena, table, torch.tensor(
+        [rec["prompt"][start:start + n]], device=dev),
+        torch.arange(start, start + n, device=dev)[None])[0][0]
+
+
+def _replay_prefill(rec, step, weights, arena, upto, free, page, max_pages):
+    """Runs the chunks of the prefill attempt `rec` that start below
+    position `upto` on pages drawn from the iterator `free`; each page it
+    shares is the page that a replay of the attempt that wrote it (on
+    pages of its own, the same way) wrote.  Returns (rec's table, on the
+    arena's device, and the last chunk's logits)."""
+    from repro_torch.core.serving import pages as PG
+    dev = PG.kv_leaves(arena)[0].device
+    t = torch.full((1, max_pages), -1, dtype=torch.int32)
+    shared = min(len(rec["srcs"]), -(-upto // page))
+    for src in {id(w): w for w in rec["srcs"][:shared]}.values():
+        js = [j for j in range(shared) if rec["srcs"][j] is src]
+        ts, _ = _replay_prefill(src, step, weights, arena,
+                                (js[-1] + 1) * page, free, page, max_pages)
+        t[0, js] = ts[0, js].cpu()
+    runs = [(s, n) for s, n in rec["chunks"] if s < upto]
+    for j in range(shared, -(-max([s + n for s, n in runs], default=0)
+                             // page)):
+        t[0, j] = next(free)
+    t, lp = t.to(dev), None
+    for start, n in runs:
+        lp = _prefill_chunk(rec, step, weights, arena, start, n, t)
+    return t, lp
+
+
+def _check_batcher_prefills(model, dcfg, params, plan, attempts, firsts):
+    """The batcher run's prefill logits against standalone runs.
+
+    1. Every attempt that finished its prefill, prefix hits and recomputes
+       after a preemption included, against a standalone paged prefill of
+       its prompt on a fresh arena with the same chunk boundaries, its
+       shared pages written there by standalone runs of the attempts that
+       wrote them: the same arithmetic on the same shapes, so bit for bit.
+       A table that reads prefix page 0 from page 1, a planted fault, must
+       fail it.
+    2. The prefills `firsts` (those that gave the first finished requests
+       their first token), one with a prefix hit and one recomputed after a
+       preemption: the last chunk's logits against a dense (flash) prefill
+       of the attempt's prompt alone at TOL_BF16_CONSISTENCY, the
+       argmax equal where the top-2 gap is above twice the error; and, on
+       the same weights widened to fp32, the paged replay against the fp32
+       dense prefill at TOL32 with an equal argmax: in fp32 the two paths
+       must agree, which separates a fault from bf16 rounding in a near
+       tie."""
+    from repro_torch.core.meta import tree_map
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train import serve as SV
+    dev = torch.device("cuda")
+    page, max_pages = plan.page, plan.max_pages_per_seq
+    # a replay's pages: its own and its prefix sources', each run apart
+    n_fresh = 4 * max_pages
+
+    def fresh(d):
+        arena = SV.alloc_arena(model, d, page=page, n_pages_local=n_fresh,
+                               device=dev)
+        step = SV.make_paged_step(
+            model, d, ShapeConfig("d", max_pages * page, plan.max_batch,
+                                  "decode"),
+            page=page, n_pages_local=n_fresh, max_pages=max_pages,
+            chunk=plan.prefill_chunk)
+
+        def run(rec, weights):
+            for a in PG.kv_leaves(arena):
+                a.zero_()
+            return _replay_prefill(rec, step, weights, arena,
+                                   len(rec["prompt"]), iter(range(n_fresh)),
+                                   page, max_pages)
+        return arena, step, run
+
+    done = [r for r in attempts.values() if r["logits"] is not None]
+    for rec in done:
+        ends = [rec["shared"]] + [s + n for s, n in rec["chunks"]]
+        if [s for s, _ in rec["chunks"]] != ends[:-1] or ends[-1] != len(
+                rec["prompt"]):
+            raise AssertionError(f"request {rec['rid']}: chunks "
+                                 f"{rec['chunks']} from {rec['shared']}")
+    hits = [r for r in done if r["shared"]]
+    recomputed = [r for r in done if r["n"]]
+    if not hits or not recomputed:
+        raise AssertionError(f"{len(hits)} prefix hits and {len(recomputed)}"
+                             " recomputes among the finished prefills")
+    arena, step, run = fresh(dcfg)
+    worst = 0.0
+    for rec in done:
+        got = run(rec, params)[1].float().cpu()
+        worst = max(worst, max_err(got, rec["logits"]))
+        if not torch.equal(got, rec["logits"]):
+            raise AssertionError(
+                f"request {rec['rid']} (attempt {rec['n']}, {rec['shared']} "
+                f"shared tokens): the batcher's prefill logits differ from a "
+                f"standalone paged prefill (max abs err "
+                f"{max_err(got, rec['logits']):.3e})")
+    mixed = sum(len({id(w) for w in r["srcs"]}) > 1 for r in hits)
+    say(f"  {len(done)} finished prefills ({len(hits)} with a prefix hit, "
+        f"{mixed} of them on pages of more than one writer; {len(recomputed)}"
+        f" recomputed after a preemption) equal bit for bit to standalone "
+        f"paged prefills on a fresh arena (max abs err {worst:.1e})")
+    rec = hits[0]
+    tbl, good = run(rec, params)
+    # (a table with two pages swapped would not do: attention sums over
+    # its keys in any order, and the keys carry their rotary positions)
+    bad = tbl.clone()
+    bad[0, 0] = tbl[0, 1]
+    start, n = rec["chunks"][-1]
+    check_rejects_exact(f"planted: request {rec['rid']}'s last chunk with "
+                        "prefix page 0 read from page 1", _prefill_chunk(
+                            rec, step, params, arena, start, n, bad), good)
+    del arena, run
+    torch.cuda.empty_cache()
+
+    compared = firsts + [r for r in (hits[0], recomputed[0])
+                         if all(r is not f for f in firsts)]
+    dense = []
+    for rec in compared:
+        rid, prompt = rec["rid"], rec["prompt"]
+        pf = SV.make_prefill_step(model, dcfg, ShapeConfig(
+            "p", len(prompt), 1, "prefill"))
+        want, _ = pf(params, {"tokens": torch.tensor([prompt], device=dev)})
+        want, got = want.float().cpu(), rec["logits"][None]
+        what = (f"request {rid} ({len(prompt)} tokens, attempt {rec['n']}, "
+                f"{rec['shared']} shared): next token logits")
+        err = check_close(f"{what}, paged chunked prefill vs dense prefill",
+                          got, want, TOL_BF16_CONSISTENCY)
+        top2 = want.topk(2, dim=-1).values[0]
+        gap = (top2[0] - top2[1]).item()
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        say(f"  {what}: argmax equal {same}, top-2 gap {gap:.4e} "
+            f"(clear above 2 x {err:.3e}: {gap > 2 * err})")
+        if gap > 2 * err and not same:
+            raise AssertionError(f"{what}: argmax differs where the gap is "
+                                 "clear")
+        dense.append(want)
+    d32 = dcfg.with_(param_dtype=torch.float32)
+    params32 = tree_map(lambda a: a.float(), params)
+    arena, _, run = fresh(d32)
+    for rec, want in zip(compared, dense):
+        got32 = run(rec, params32)[1]
+        pf = SV.make_prefill_step(model, d32, ShapeConfig(
+            "p", len(rec["prompt"]), 1, "prefill"))
+        want32 = pf(params32, {"tokens": torch.tensor(
+            [rec["prompt"]], device=dev)})[0][0]
+        what = (f"request {rec['rid']} (attempt {rec['n']}), the same weights "
+                "widened to fp32")
+        check_close(f"{what}: paged chunked prefill vs dense prefill",
+                    got32, want32, TOL32)
+        if not torch.equal(got32.argmax(-1), want32.argmax(-1)):
+            raise AssertionError(f"{what}: argmax differs")
+        say(f"  {what}: argmax equal; bf16 dense prefill vs fp32 "
+            f"{max_err(want[0], want32.cpu()):.4e} (for scale; not a limit)")
+    del params32, arena, run
+    torch.cuda.empty_cache()
+
+
 # kernel families summed in every profiler window
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
@@ -3765,8 +4538,12 @@ def kernels_line(state):
     adds the serving run's, the bf16 qwen3 training runs' (vanilla,
     prefetch, auto-planned, mixed precision, observability), the smoke
     replan's, the zamba2 run's, the moe runs' (qwen3-moe and qwen2-moe
-    training, qwen3-moe serving) and the gemma2 runs' (training, serving)
-    counts; the flash row carries its readings at qwen3-moe's group-8
+    training, qwen3-moe serving), the gemma2 runs' (training, serving)
+    and the paged-serving runs' counts (`serve_paged`: the paged steps of
+    llama3-8b's three caches; `serve_batcher`: the batcher's paged steps;
+    `serve_paged_smoke`: the SMOKE cases' paged steps on the card; each
+    without the dense steps it is compared with); the flash row carries
+    its readings at qwen3-moe's group-8
     shape (`group8`) and at gemma2's four shapes and its local gradient
     (`gemma2`, `gemma2_grad`), the adamw row at the moe path's largest
     leaf (`moe_leaf`) and at gemma2's embedding (`gemma2_leaf`), the
@@ -3795,6 +4572,8 @@ def kernels_line(state):
                        train_qwen2_moe=state[
                            "train_qwen2_moe_a2_7b_launches"][key],
                        train_gemma2=state["train_gemma2_27b_launches"][key])
+        for path in ("serve_paged", "serve_batcher", "serve_paged_smoke"):
+            by_path[path] = state[f"{path}_launches"][key]
         if serve_key:
             by_path["serve"] = serve[serve_key]
             by_path["serve_qwen3_moe"] = state["serve_moe_launches"][
@@ -3892,7 +4671,11 @@ def main() -> int:
                         ("full-width gemma2-27b training",
                          phase_full_gemma2_train),
                         ("full-width gemma2-27b serve",
-                         phase_full_gemma2_serve)]:
+                         phase_full_gemma2_serve),
+                        ("paged serving smoke cuda vs cpu",
+                         phase_paged_smoke),
+                        ("full-width paged serve: llama3-8b",
+                         phase_full_paged_serve)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

@@ -5,10 +5,10 @@ One frozen `DistConfig` flows through the port, as in the reference.  It
 carries the fields the serving path and the pp=1 FSDP training path read:
 the (data, model) mesh, the ZeRO-3 domain, the mixed-precision dtypes, the
 SimpleFSDP schedule knobs (bucketing, the prefetch stack and its Table-6
-flags), the auto-wrap memory cap and the wire precision of the
-collectives.  What the port does not run yet raises a pointed "not yet
-ported" error (`check_trainable`): tp > 1, pipeline or context axes and
-HSDP replication axes.
+flags), the auto-wrap memory cap, the wire precision of the collectives
+and the storage codec of the serving KV cache.  What the port does not
+run yet raises a pointed "not yet ported" error (`check_trainable`):
+tp > 1, pipeline or context axes and HSDP replication axes.
 `make_mesh` checks (or, at world size 1, creates) the `torch.distributed`
 process group the FSDP collectives run on.
 """
@@ -84,12 +84,28 @@ class DistConfig:
     # reduce-scatter in bf16, accumulated in reduce_dtype afterwards
     grad_compression: bool = False
     comm_precision: str = "bf16"       # COMM_PRECISIONS
+    # Quantized KV cache: serving caches and pages store wire-codec values
+    # + per-128-chunk f32 scales (kernels/quant, the codec the quantized
+    # collectives use).  'int8' | 'fp8' | None; the bool `kv_cache_int8`
+    # is the reference's alias for 'int8'
+    kv_cache_codec: str | None = None
+    kv_cache_int8: bool = False
     microbatches: int = 1              # gradient accumulation
 
     def __post_init__(self):
         if self.comm_precision not in COMM_PRECISIONS:
             raise ValueError(f"comm_precision={self.comm_precision!r} not in "
                              f"{COMM_PRECISIONS}")
+        if self.kv_cache_codec not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"kv_cache_codec={self.kv_cache_codec!r} not in "
+                f"(None, 'int8', 'fp8')")
+
+    @property
+    def kv_codec(self) -> str | None:
+        """Resolved KV-cache wire codec (kernels/quant vocabulary)."""
+        return self.kv_cache_codec or ("int8" if self.kv_cache_int8
+                                       else None)
 
     @property
     def needs_ef(self) -> bool:

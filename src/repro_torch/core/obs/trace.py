@@ -16,8 +16,11 @@ as trace-event JSON (`chrome://tracing` / Perfetto "trace event format"):
   * ring lanes — per-hop exchange vs per-hop attention compute from a
     ring-cost dict (the reference's `core/context.ring_cost`; live hops
     hide an exchange, skipped hops expose theirs).
-  * pipeline and serving lanes need `core/pipeline`'s slot tables and the
-    `core/serving` batcher, which are not ported yet: both raise.
+  * serving lanes — a `core/serving` ContinuousBatcher's virtual-clock
+    event log (admission, prefill chunks, decode windows, preemptions,
+    finishes);
+  * pipeline lanes need `core/pipeline`'s slot tables, which are not
+    ported yet: they raise.
 
 Modeled lanes live under their own pid; measured spans (`measured_span`,
 `measured_overlay`) render under a second pid next to them, so overlap is
@@ -372,10 +375,45 @@ def ring_lanes(tb: TraceBuilder, ring: dict, pid: int = PID_MODELED,
 # ---------------------------------------------------------------------------
 def serving_lanes(tb: TraceBuilder, batcher, pid: int = PID_SERVING,
                   t0: float = 0.0) -> float:
-    """Lanes of a `ContinuousBatcher`'s virtual-clock event log."""
-    raise NotImplementedError(
-        "serving_lanes needs the core/serving batcher, which is not yet "
-        "ported to repro_torch")
+    """Render a `ContinuousBatcher`'s event log (`enable_trace()` before
+    driving it).  Virtual timestamps are already monotonic per lane, so
+    spans never overlap within a lane by construction."""
+    events = getattr(batcher, "events", None)
+    if events is None:
+        raise ValueError(
+            "batcher has no event log; call batcher.enable_trace() before "
+            "driving it (run_virtual(..., trace=True))")
+    tb.process(pid, "serving (virtual clock)")
+    tb.thread(pid, SERVE_TID_ADMIT, "admission")
+    tb.thread(pid, SERVE_TID_PREFILL, "prefill chunks")
+    tb.thread(pid, SERVE_TID_DECODE, "decode windows")
+    tb.thread(pid, SERVE_TID_PREEMPT, "preemption/finish")
+    end = t0
+    for ev in events:
+        kind = ev[0]
+        if kind == "admit":
+            _, t, rid = ev
+            tb.instant(pid, SERVE_TID_ADMIT, f"admit r{rid}", t0 + t,
+                       cat="serving")
+        elif kind == "prefill":
+            _, ts, te, rid, n = ev
+            tb.span(pid, SERVE_TID_PREFILL, f"prefill r{rid} +{n}", t0 + ts,
+                    te - ts, cat="serving", args={"rid": rid, "tokens": n})
+            end = max(end, t0 + te)
+        elif kind == "decode":
+            _, ts, te, nseq = ev
+            tb.span(pid, SERVE_TID_DECODE, f"decode x{nseq}", t0 + ts,
+                    te - ts, cat="serving", args={"batch": nseq})
+            end = max(end, t0 + te)
+        elif kind == "preempt":
+            _, t, rid = ev
+            tb.instant(pid, SERVE_TID_PREEMPT, f"preempt r{rid}", t0 + t,
+                       cat="serving")
+        elif kind == "finish":
+            _, t, rid = ev
+            tb.instant(pid, SERVE_TID_PREEMPT, f"finish r{rid}", t0 + t,
+                       cat="serving")
+    return end
 
 
 # ---------------------------------------------------------------------------
@@ -404,12 +442,13 @@ def plan_trace(model, plan, shape, *, repeats: int = 1, batcher=None,
                arch_cfg=None, profile=None,
                tb: TraceBuilder | None = None) -> TraceBuilder:
     """Full modeled timeline of a frozen `ParallelPlan`: collective
-    hiding windows (`repeats` steady-state layers).  Pass a frozen
+    hiding windows (`repeats` steady-state layers) and, optionally, a
+    traced serving batcher's lanes (`batcher`).  Pass a frozen
     `MeasuredProfile` as `profile` to also render the measured overlay
     (`measured_overlay`) under PID_MEASURED.  Pure host math:
     deterministic, no devices touched.  The reference's ring-attention
-    lanes (a ctx axis), pipeline lanes and serving lanes raise until
-    their modules are ported."""
+    lanes (a ctx axis) and pipeline lanes raise until their modules are
+    ported."""
     tb = tb or TraceBuilder()
     dcfg = plan.dcfg
     tb.process(PID_MODELED, f"modeled plan [{plan.describe()}]")

@@ -17,9 +17,13 @@ used to a device scalar, which the checks hold against `ref.buffer_seed`.
 
 There is no fallback: a CUDA input the kernels do not take, a failed build
 or a failed launch raises.  `quant_launches` / `dequant_launches` count
-calls that launch (an SR call's two launches count once).  The KV-cache
-codec of the reference (`encode_kv` / `decode_kv`) belongs to the serving
-slice that quantizes the cache and is not here yet.
+calls that launch (an SR call's two launches count once).
+
+`encode_kv` / `decode_kv` are the serving KV cache's codec (the paged arena
+and the dense cache store wire values + per-128-chunk scales): on a CUDA
+tensor they are one RTN quant launch and one dequant launch over the
+(rows, QCHUNK) view of the head vectors, zero-padded to whole QCHUNK
+groups when head_dim is not a multiple of QCHUNK.
 """
 
 from __future__ import annotations
@@ -57,6 +61,45 @@ def roundtrip(x: torch.Tensor, codec: str | None,
         return y if out is None else out.copy_(y)
     q, s = quantize_cuda(x, codec, stochastic)
     return dequantize_cuda(q, s, x.numel(), x.shape, x.dtype, out=out)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache codec (port of the reference's `encode_kv` / `decode_kv`)
+# ---------------------------------------------------------------------------
+kv_chunks = ref.kv_chunks
+
+
+def kv_wire_dtype(codec: str) -> torch.dtype:
+    return ref.WIRE_DTYPE[codec]
+
+
+def encode_kv(x: torch.Tensor, codec: str):
+    """x: (..., hd) -> (wire values (..., hd), f32 scales (..., nc)), RTN.
+    Equal bit for bit on both routes: the quant kernel on a CUDA tensor,
+    `ref.encode_kv` on a CPU one."""
+    if x.device.type == "cpu":
+        return ref.encode_kv(x, codec)
+    hd, nc = x.shape[-1], kv_chunks(x.shape[-1])
+    x2 = ref.kv_pad(x).contiguous()
+    q, s = quantize_cuda(x2, codec, stochastic=False)
+    q = q.reshape(*x.shape[:-1], nc * QCHUNK)
+    return q[..., :hd] if nc * QCHUNK != hd else q, \
+        s.reshape(*x.shape[:-1], nc)
+
+
+def decode_kv(q: torch.Tensor, scales: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of `encode_kv` back to `dtype`: the dequant kernel on a CUDA
+    tensor, `ref.decode_kv` on a CPU one."""
+    if q.device.type == "cpu":
+        return ref.decode_kv(q, scales, dtype)
+    hd, nc = q.shape[-1], kv_chunks(q.shape[-1])
+    # fp8 is padded through a byte view (0x00 is +0.0 in e4m3)
+    raw = q.view(torch.uint8) if q.dtype == torch.float8_e4m3fn else q
+    q2 = ref.kv_pad(raw).contiguous().view(q.dtype)
+    out = dequantize_cuda(q2.reshape(-1, QCHUNK), scales.reshape(-1, 1),
+                          q2.numel(), q2.shape, dtype)
+    return out[..., :hd] if nc * QCHUNK != hd else out
 
 
 @functools.cache

@@ -136,3 +136,40 @@ def roundtrip(x: torch.Tensor, codec: str | None = "fp8",
         return x
     q, s = quantize(x, codec, stochastic)
     return dequantize(q, s, x.numel(), x.shape, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache codec: the serving cache / paged-arena storage format.  Each
+# (..., head_dim) vector is zero-padded to whole QCHUNK groups and
+# quantized with the wire codec's chunk_scales / encode_chunks (RTN: a
+# cache read back must be reproducible); the scales ride alongside as
+# (..., kv_chunks(head_dim)) f32.
+# ---------------------------------------------------------------------------
+def kv_chunks(head_dim: int) -> int:
+    """Scale groups per head vector: ceil(head_dim / QCHUNK)."""
+    return -(-head_dim // QCHUNK)
+
+
+def kv_pad(x: torch.Tensor) -> torch.Tensor:
+    """x (..., hd) zero-padded to (..., kv_chunks(hd) * QCHUNK)."""
+    pad = kv_chunks(x.shape[-1]) * QCHUNK - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def encode_kv(x: torch.Tensor, codec: str):
+    """x: (..., hd) -> (wire values (..., hd), f32 scales (..., nc))."""
+    hd = x.shape[-1]
+    nc = kv_chunks(hd)
+    x2 = kv_pad(x.to(torch.float32)).reshape(-1, QCHUNK)
+    scale = chunk_scales(x2, codec)
+    q = encode_chunks(x2, scale, codec, stochastic=False)
+    q = q.reshape(*x.shape[:-1], nc * QCHUNK)[..., :hd]
+    return q, scale.reshape(*x.shape[:-1], nc)
+
+
+def decode_kv(q: torch.Tensor, scales: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of `encode_kv` back to `dtype` (same trailing hd)."""
+    hd = q.shape[-1]
+    s = torch.repeat_interleave(scales, QCHUNK, dim=-1)[..., :hd]
+    return (q.to(torch.float32) * s).to(dtype)

@@ -5,6 +5,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3_moe_30b_a3b --dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --int8-kv --metrics-jsonl serve.jsonl
 
 Serves the dense and moe families (`--arch` any of their ids in
 `models.registry.PORTED`).
@@ -14,7 +16,11 @@ random tokens padded with token 3 up to T = prompt_len + gen (so the first
 greedy token comes from the logits of position T-1, a pad, as in the
 reference), one untimed warm-up call of each step, then timed windows that
 end in a device synchronize.  The first call on the card also builds the
-kernels.
+kernels.  `--int8-kv` stores the KV cache as int8 with per-128-chunk
+scales (the quant kernels on the card); `--metrics-jsonl` appends one
+`MetricsRegistry` line of `serve/*` gauges with the reference launcher's
+keys (its `*_compile_s` are the port's warm-up calls, the kernel build
+included).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dist import resolve_device, single_device_config
+from repro_torch.core.obs import MetricsRegistry
 from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import get_arch
 from repro_torch.train import serve as SV
@@ -34,10 +41,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def setup(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
-          device="cuda", dtype="float32", seed: int = 0):
-    """(cfg, model, dcfg, params, prefill, decode) of one serving run."""
+          device="cuda", dtype="float32", seed: int = 0,
+          kv_codec: str | None = None):
+    """(cfg, model, dcfg, params, prefill, decode) of one serving run;
+    `kv_codec` ('int8' | 'fp8' | None) quantizes the KV cache."""
     dev = resolve_device(device)
-    dcfg = single_device_config(param_dtype=DTYPES[dtype])
+    dcfg = single_device_config(param_dtype=DTYPES[dtype],
+                                kv_cache_codec=kv_codec)
     cfg, model = get_arch(arch, smoke=smoke)
     T = prompt_len + gen
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -111,11 +121,16 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--int8-kv", action="store_true")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append a metrics-registry snapshot (warm-up and "
+                         "steady prefill/decode timings) here (core/obs)")
     args = ap.parse_args(argv)
 
     cfg, model, dcfg, params, prefill, decode = setup(
         args.arch, args.smoke, args.batch, args.prompt_len, args.gen,
-        device=args.device, dtype=args.dtype)
+        device=args.device, dtype=args.dtype,
+        kv_codec="int8" if args.int8_kv else None)
     padded = make_prompts(cfg, args.batch, args.prompt_len, args.gen,
                           resolve_device(args.device))
     tokens, t = generate(params, prefill, decode, padded, args.prompt_len,
@@ -125,7 +140,18 @@ def main(argv=None):
           f"first-decode {t['decode_warmup_s']*1e3:.1f}ms")
     print(f"steady:  prefill {t['prefill_s']*1e3:.1f}ms; "
           f"decode {t['decode_step_s']*1e3:.1f}ms/tok; "
-          f"tp={dcfg.tp_size} dtype={args.dtype} device={args.device}")
+          f"tp={dcfg.tp_size} dtype={args.dtype} device={args.device} "
+          f"int8_kv={args.int8_kv}")
+    if args.metrics_jsonl:
+        reg = MetricsRegistry()
+        reg.gauge("serve/prefill_compile_s").set(t["prefill_warmup_s"])
+        reg.gauge("serve/decode_compile_s").set(t["decode_warmup_s"])
+        reg.gauge("serve/prefill_s").set(t["prefill_s"])
+        reg.gauge("serve/decode_step_s").set(t["decode_step_s"])
+        reg.gauge("serve/decode_tok_s").set(t["decode_tok_s"])
+        reg.dump_jsonl(args.metrics_jsonl, arch=args.arch,
+                       batch=args.batch, gen=args.gen)
+        print(f"metrics: {args.metrics_jsonl}")
 
 
 if __name__ == "__main__":

@@ -20,7 +20,11 @@ step holds {"local": ..., "global": ...}.  Entry points:
                   stage_loss;
   prefill_local — serving: embed a (B, T) batch, run every block, write
                   the KV cache, return the last-position logits;
-  decode_local  — serving: one token per row at per-row positions.
+  decode_local  — serving: one token per row at per-row positions;
+  paged_step_local — serving from a paged arena (core/serving): a decode
+                  step or a prefill chunk, through the same cached core.
+A KV codec (`DistConfig.kv_codec`) stores the cache as int8 / fp8 wire
+values with per-128-chunk scales through the quant kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from repro_torch.core.dist import DistConfig
 from repro_torch.core.irgraph import BlockStats
 from repro_torch.core.meta import named_leaves, tree_map
 from repro_torch.core.remat import maybe_remat
+from repro_torch.core.serving import pages as PG
 from repro_torch.core.stack import apply_stack
 from repro_torch.models import layers as LY
 from repro_torch.models.common import (ArchConfig, BlockSegments, InputSpec,
@@ -398,10 +403,26 @@ class DenseLM:
         x = self._norm(x[:, -1:].contiguous(), params["final_norm"])
         return self._logits(params, x)[:, 0]
 
+    @staticmethod
+    def _store_kv(kv, i, k, v, dcfg):
+        """Write a prefill layer's (B, T, Kl, hd) k and v into layer i of
+        its cache: a (k, v) pair, or under a KV codec the {"k", "ks",
+        "v", "vs"} wire values and scales."""
+        codec = dcfg.kv_codec
+        if not codec:
+            kv[0][i].copy_(k)
+            kv[1][i].copy_(v)
+            return
+        for name, x in (("k", k), ("v", v)):
+            q, sc = LY.kv_quantize(x, codec)
+            PG.put_layer(kv[name], i, q)
+            kv[name + "s"][i].copy_(sc)
+
     def prefill_local(self, params, batch, dcfg: DistConfig, cache):
         """params: full params, blocks stacked (n_steps, ...); batch:
         {"tokens": (B, T) int64}; cache: `train.serve.alloc_cache`'s (k, v)
-        pair of (n_steps, B, T, Kl, hd) buffers, one pair a layer of a
+        pair of (n_steps, B, T, Kl, hd) buffers (under a KV codec, the
+        {"k", "ks", "v", "vs"} wire values and scales), one a layer of a
         step, that this call fills.
 
         Returns (last-position logits (B, V) fp32, cache)."""
@@ -413,31 +434,56 @@ class DenseLM:
                            scale=self._embed_scale)
         for i in range(self.n_steps):
             p = tree_map(lambda a: a[i], params["blocks"])
-            for (key, window), (ck, cv) in zip(self._subs,
-                                               self._sub_caches(cache)):
+            for (key, window), kv in zip(self._subs,
+                                         self._sub_caches(cache)):
                 x, (k, v) = self._serve_sub(p[key] if key else p, rope, x,
                                             dcfg, window)
-                ck[i].copy_(k)
-                cv[i].copy_(v)
+                self._store_kv(kv, i, k, v, dcfg)
         return self._final_logits(params, x), cache
 
     # decode -----------------------------------------------------------------
-    def _dense_writer(self, ck, cv, k, v, qpos):
-        """Commit new (B,C,Kl,hd) K/V into this layer's dense (B,T,Kl,hd)
-        cache views at per-request positions qpos (B,C).
+    # Paged-serving contract (core/serving): this family stores its cache
+    # as fixed-size KV pages in a pooled arena and decodes through the
+    # scatter / gather writer below.  The recurrent zamba2 family carries O(1)
+    # state and does not page.
+    paged_kv = True
+    # the reference's context-parallel contract flag, read by the serving
+    # plan's ring-attention prefill recommendation (`plan_serve`); the
+    # port runs no context parallelism yet (core/api raises on a ctx axis)
+    cp_supported = True
 
-        The write is IN PLACE (`index_put_` into views of the stacked
-        cache), where the reference builds a new cache functionally and
-        relies on XLA to alias it."""
-        ib = torch.arange(k.shape[0], device=k.device)[:, None]
-        ck.index_put_((ib, qpos), k.to(ck.dtype))
-        cv.index_put_((ib, qpos), v.to(cv.dtype))
+    @staticmethod
+    def _kv_writer(kv, k, v, *, index, read, dcfg):
+        """Commit new (B,C,Kl,hd) K/V IN PLACE into one layer's cache
+        leaves at `index` (rows, slots) of their two leading dims, then
+        return the dense read views (ck, cv) the attention consumes,
+        `read` of each leaf (dequantized under a KV codec).
 
-    def _decode_sub(self, p, x, ck, cv, qpos, cos, sin, dcfg, window):
-        """x: (B,C,D); ck/cv: this layer's (B,T,Kl,hd) cache, updated in
-        place; qpos: (B,C) absolute positions per query token; `window`:
-        this layer's sliding window, or None.  Attention is plain torch: the
-        reference's einsums, with fp32 scores."""
+        Dense cache: index (batch rows, qpos), read the identity.  Paged
+        arena: index (pool rows, slots) and read the table's gathered
+        window (`core/serving/pages`), exactly the dense cache contents for
+        every allocated position <= qpos.  The reference builds a new cache
+        functionally and relies on XLA to alias it."""
+        codec = dcfg.kv_codec
+        if not codec:
+            for leaf, val in zip(kv, (k, v)):
+                PG.put_tokens(leaf, *index, val)
+            return read(kv[0]), read(kv[1])
+        for name, x in (("k", k), ("v", v)):
+            q, sc = LY.kv_quantize(x, codec)
+            PG.put_tokens(kv[name], *index, q)
+            PG.put_tokens(kv[name + "s"], *index, sc)
+        view = {n: read(a) for n, a in kv.items()}
+        return tuple(LY.kv_dequantize(view[n], view[n + "s"],
+                                      dcfg.param_dtype) for n in ("k", "v"))
+
+    def _decode_sub(self, p, x, kv, qpos, cos, sin, dcfg, window, writer):
+        """x: (B,C,D); kv: this layer's cache (dense views or page pools);
+        qpos: (B,C) absolute positions per query token; `window`: this
+        layer's sliding window, or None; `writer(kv, k, v)` commits the new
+        K/V in place and returns the dense read views (B,T,Kl,hd).
+        Attention is plain torch: the reference's einsums, with fp32
+        scores."""
         cfg = self.cfg
         h = self._norm(x, p["ln1"])
         q, k, v, head_mask = LY._local_qkv(p["attn"], h, cfg, dcfg)
@@ -446,7 +492,7 @@ class DenseLM:
             k = LY.rmsnorm(k, p["attn"]["k_norm"], cfg.norm_eps)
         q = LY.apply_rope_pos(q, cos, sin)
         k = LY.apply_rope_pos(k, cos, sin)
-        self._dense_writer(ck, cv, k, v, qpos)
+        ck, cv = writer(kv, k, v)
         B, C = qpos.shape
         T, kl = ck.shape[1], ck.shape[2]
         hl = q.shape[2]
@@ -473,19 +519,26 @@ class DenseLM:
             o = self._norm(o, p["pn2"])
         return x + o
 
-    def _cached_forward(self, params, cache, toks, qpos, dcfg):
-        """Embed toks (B,C) at positions qpos (B,C), run the stack against
-        the cache (updated in place), return (last-position logits, cache)."""
+    def _cached_forward(self, params, cache, toks, qpos, dcfg, writer=None):
+        """Shared decode / chunked-prefill core: embed toks (B,C) at
+        positions qpos (B,C), run the stack against the cache (dense, or
+        paged through `writer`; updated in place), return (last-position
+        logits, cache)."""
         cfg = self.cfg
+        if writer is None:
+            ib = torch.arange(toks.shape[0], device=toks.device)[:, None]
+            writer = functools.partial(self._kv_writer, index=(ib, qpos),
+                                       read=lambda a: a, dcfg=dcfg)
         cos, sin = LY.rope_pos(qpos, cfg.head_dim, cfg.rope_theta)
         x = LY.embed_apply(params["embed"], toks, cfg, dcfg,
                            scale=self._embed_scale)
         for i in range(self.n_steps):
             p = tree_map(lambda a: a[i], params["blocks"])
-            for (key, window), (ck, cv) in zip(self._subs,
-                                               self._sub_caches(cache)):
-                x = self._decode_sub(p[key] if key else p, x, ck[i], cv[i],
-                                     qpos, cos, sin, dcfg, window)
+            for (key, window), kv in zip(self._subs,
+                                         self._sub_caches(cache)):
+                x = self._decode_sub(p[key] if key else p, x,
+                                     PG.kv_map(lambda a: a[i], kv), qpos,
+                                     cos, sin, dcfg, window, writer)
         return self._final_logits(params, x), cache
 
     def decode_local(self, params, cache, tok, pos, dcfg: DistConfig):
@@ -493,3 +546,19 @@ class DenseLM:
         positions.  cache: as `prefill_local`'s, updated in place."""
         return self._cached_forward(params, cache, tok[:, None],
                                     pos[:, None], dcfg)
+
+    def paged_step_local(self, params, arena, table, toks, qpos, dcfg,
+                         page: int):
+        """One paged serving step: decode (C=1) or a prefill chunk (C>1).
+
+        arena: tree of page pools, leaves (n_steps, n_pages+1, page, ...):
+        the last pool row is the scratch page that unallocated table
+        entries (-1) write to; table: (B, max_pages) int page ids;
+        toks/qpos: (B, C).  Returns (last-position logits (B, V) fp32,
+        arena), the arena updated in place."""
+        n_rows = PG.kv_leaves(arena)[0].shape[1]
+        gidx = PG.gather_index(table, page, n_rows)
+        writer = functools.partial(
+            self._kv_writer, index=PG.scatter_index(table, qpos, page, n_rows),
+            read=lambda a: PG.take_tokens(a, gidx, toks.shape[0]), dcfg=dcfg)
+        return self._cached_forward(params, arena, toks, qpos, dcfg, writer)

@@ -22,6 +22,7 @@ from repro_torch.core.dist import DistConfig
 from repro_torch.core.meta import ParamMeta
 from repro_torch.kernels.cross_entropy import ops as xent_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.common import ArchConfig
 
@@ -331,3 +332,16 @@ def mlp_apply(p, x, cfg: ArchConfig, dcfg: DistConfig):
             else F.silu(g)
         h = act * u
     return torch.matmul(h, p["wd"])
+
+
+# ---------------------------------------------------------------------------
+# Quantized KV cache (kernels/quant codec: per-128-chunk f32 scales over
+# each head vector, the path the wire collectives use)
+# ---------------------------------------------------------------------------
+def kv_quantize(x, codec="int8"):
+    """x: (..., hd) -> (wire values (..., hd), f32 scales (..., nc))."""
+    return quant_ops.encode_kv(x, codec)
+
+
+def kv_dequantize(q, s, dtype):
+    return quant_ops.decode_kv(q, s, dtype)

@@ -3,10 +3,17 @@
   * `serve_params_from_jax` — the weight carry-over: the reference's serve
     params, as numpy arrays in their exact layouts, become the port's;
   * `init_serve_params` — seeded weights made directly on the device;
-  * `alloc_cache` — the dense KV cache (the reference's `cache_abstract`),
-    one (k, v) pair a layer of a local/global pair;
-  * `make_prefill_step` / `make_decode_step` — plain callables that run
-    under `torch.inference_mode()`.
+  * `cache_abstract` — the dense KV cache's leaves on the meta device
+    (the reference's `cache_abstract` without the partition specs), at any
+    mesh: the serving plan prices them;
+  * `alloc_cache` — the dense KV cache, one (k, v) pair a layer of a
+    local/global pair; under a KV codec ({"k", "ks", "v", "vs"} leaves)
+    int8 / fp8 wire values and their per-128-chunk f32 scales;
+  * `paged_abstracts` / `alloc_arena` — the paged arena (core/serving) of
+    the same leaves, and its page table;
+  * `make_prefill_step` / `make_decode_step` / `make_paged_step` — plain
+    callables that run under `torch.inference_mode()` and update the cache
+    or the arena in place.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import torch
 from repro_torch.core.dist import (DistConfig, check_world_size_one,
                                    resolve_device)
 from repro_torch.core.meta import ParamMeta, tree_map
+from repro_torch.core.serving import pages as PG
+from repro_torch.kernels.quant import ops as QOPS
 from repro_torch.models import runtime as RT
 from repro_torch.models.common import ShapeConfig
 
@@ -79,27 +88,76 @@ def init_serve_params(model, dcfg: DistConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
-def alloc_cache(model, shape: ShapeConfig, dcfg: DistConfig, device="cuda"):
-    """Zeroed dense KV cache in param_dtype on `device`: a (k, v) pair of
-    (n_steps, B, T, Kl, hd) tensors, or for gemma2's local/global pairs one
-    such pair a layer of the pair, ((k, v), (k, v)), as the reference's
-    `cache_abstract` lays it out."""
-    check_world_size_one(dcfg)
-    dev = resolve_device(device)
+def _kl_total(cfg, tp: int) -> int:
+    """Global kv head count of the cache: per-rank kl x tp (grouped-kv
+    archs store each rank's contiguous slice explicitly)."""
+    lay = cfg.gqa_layout(tp)
+    if lay["mode"] == "sharded":
+        return cfg.n_kv_heads
+    return max(1, lay["kvp"] // tp) * tp
+
+
+def cache_abstract(model, shape: ShapeConfig, dcfg: DistConfig):
+    """The dense cache's leaves for one decode step, as tensors on the meta
+    device (shapes and dtypes): a (k, v) pair of (n_steps, B, T, kv heads,
+    hd) in param_dtype, or under a KV codec {"k", "ks", "v", "vs"} (wire
+    values in the codec's dtype, scales (..., kv_chunks(hd)) f32); gemma2's
+    local/global pairs hold one such pair a layer of the pair.  Global
+    head counts, as the reference's: any mesh."""
     cfg = model.cfg
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: serving the {cfg.family} family is not yet ported "
             "to repro_torch")
     dims = (model.n_steps, shape.global_batch, shape.seq_len,
-            cfg.gqa_layout(dcfg.tp_size)["kvp"], cfg.head_dim)
-    def pair():
-        return tuple(torch.zeros(dims, dtype=dcfg.param_dtype, device=dev)
-                     for _ in range(2))
+            _kl_total(cfg, dcfg.tp_size), cfg.head_dim)
+    codec = dcfg.kv_codec
 
-    if cfg.local_global_alternate:
-        return pair(), pair()
-    return pair()
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if codec:
+        q = meta(dims, QOPS.kv_wire_dtype(codec))
+        sc = meta((*dims[:-1], QOPS.kv_chunks(cfg.head_dim)), torch.float32)
+        pair = {"k": q, "ks": sc, "v": q, "vs": sc}
+    else:
+        pair = (meta(dims, dcfg.param_dtype), meta(dims, dcfg.param_dtype))
+    return (pair, pair) if cfg.local_global_alternate else pair
+
+
+def alloc_cache(model, shape: ShapeConfig, dcfg: DistConfig, device="cuda"):
+    """Zeroed dense KV cache on `device` with `cache_abstract`'s leaves: a
+    (k, v) pair of (n_steps, B, T, Kl, hd) tensors in param_dtype (under a
+    KV codec the wire values and scales), or for gemma2's local/global
+    pairs one such pair a layer of the pair, ((k, v), (k, v))."""
+    check_world_size_one(dcfg)
+    dev = resolve_device(device)
+    return PG.kv_map(lambda a: PG.zeros(a.shape, a.dtype, dev),
+                     cache_abstract(model, shape, dcfg))
+
+
+def paged_abstracts(model, shape: ShapeConfig, dcfg: DistConfig, *,
+                    page: int, n_pages_local: int, max_pages: int):
+    """(arena leaves, page table) of a paged step, on the meta device: each
+    cache leaf (L, B, T, *rest) becomes a pool (L, dp * (n_pages_local +
+    1), page, *rest), the +1 a scratch page a shard; the table is (B,
+    max_pages) int32."""
+    arena = PG.arena_abstract(cache_abstract(model, shape, dcfg),
+                              n_pages_local, page, dcfg.dp_total)
+    return arena, torch.empty((shape.global_batch, max_pages),
+                              dtype=torch.int32, device="meta")
+
+
+def alloc_arena(model, dcfg: DistConfig, *, page: int, n_pages_local: int,
+                device="cuda"):
+    """A zeroed paged arena on `device` (`paged_abstracts`' leaves)."""
+    check_world_size_one(dcfg)
+    dev = resolve_device(device)
+    arena, _ = paged_abstracts(model, ShapeConfig("arena", page, 1,
+                                                  "decode"), dcfg,
+                               page=page, n_pages_local=n_pages_local,
+                               max_pages=1)
+    return PG.kv_map(lambda a: PG.zeros(a.shape, a.dtype, dev), arena)
 
 
 # ---------------------------------------------------------------------------
@@ -134,5 +192,46 @@ def make_decode_step(model, dcfg: DistConfig, shape: ShapeConfig):
                              f"{tuple(pos.shape)}, step built for batch "
                              f"{shape.global_batch}")
         return model.decode_local(params, cache, tok, pos, dcfg)
+
+    return step
+
+
+def make_paged_step(model, dcfg: DistConfig, shape: ShapeConfig, *,
+                    page: int, n_pages_local: int, max_pages: int,
+                    chunk: int = 1):
+    """step(params, arena, table, toks, qpos) -> (logits (B, V), arena): a
+    paged serving step over the arena `paged_abstracts` lays out.
+
+    toks/qpos are (b, c) with b <= shape.global_batch rows (a caller may
+    pass the live rows only) and 1 <= c <= chunk tokens a row: c = 1 is a
+    decode step, c > 1 a chunked-prefill slab (its logits are position
+    c-1's, so a ragged last chunk runs at its true length).  table: (b,
+    max_pages) int page ids, -1 = unallocated (written to the scratch
+    page).  The arena is updated in place."""
+    if not getattr(model, "paged_kv", False):
+        raise ValueError(
+            f"{model.cfg.family}: no paged decode path (see plan_serve)")
+    check_world_size_one(dcfg)
+    arena_abs, _ = paged_abstracts(model, shape, dcfg, page=page,
+                                   n_pages_local=n_pages_local,
+                                   max_pages=max_pages)
+    want = [tuple(a.shape) for a in PG.kv_leaves(arena_abs)]
+
+    @torch.inference_mode()
+    def step(params, arena, table, toks, qpos):
+        b, c = toks.shape
+        if (tuple(qpos.shape) != (b, c) or tuple(table.shape) != (
+                b, max_pages) or not 1 <= b <= shape.global_batch
+                or not 1 <= c <= chunk):
+            raise ValueError(
+                f"toks {tuple(toks.shape)} / qpos {tuple(qpos.shape)} / "
+                f"table {tuple(table.shape)}: step built for <= "
+                f"{shape.global_batch} rows of <= {chunk} tokens and "
+                f"{max_pages} pages")
+        got = [tuple(a.shape) for a in PG.kv_leaves(arena)]
+        if got != want:
+            raise ValueError(f"arena leaves {got}, step built for {want}")
+        return model.paged_step_local(params, arena, table, toks, qpos,
+                                      dcfg, page=page)
 
     return step

@@ -12,9 +12,10 @@ against the JAX reference: host math only, on the CPU.
     1e-12 (the trace's microsecond timestamps round in the last bits; the
     reference's own test allows 1%);
   * `ring_lanes` on dicts from the reference's `core/context.ring_cost`;
-  * what the port does not run yet raises (pipeline and serving lanes,
-    a ctx axis), and a span named for a CUDA device synchronizes it at
-    both ends.
+  * what the port does not run yet raises (pipeline lanes, a ctx axis),
+    serving lanes of a batcher without an event log raise as the
+    reference's do (their parity is in tests/test_torch_serving_sched.py),
+    and a span named for a CUDA device synchronizes it at both ends.
 """
 
 import json
@@ -160,9 +161,11 @@ def test_unported_lanes_raise():
     tb = trace.TraceBuilder()
     with pytest.raises(NotImplementedError, match="core/pipeline"):
         trace.pipeline_lanes(tb, 4, 2, "1f1b")
-    with pytest.raises(NotImplementedError, match="core/serving"):
+    # serving lanes are ported: a batcher without an event log is the
+    # reference's ValueError, not a missing module
+    with pytest.raises(ValueError, match="enable_trace"):
         trace.serving_lanes(tb, object())
-    with pytest.raises(NotImplementedError, match="core/serving"):
+    with pytest.raises(ValueError, match="enable_trace"):
         trace.plan_trace(model, p, shape, batcher=object())
 
     class Pipelined:

@@ -59,7 +59,9 @@ def test_imports_neither_jax_nor_the_reference():
         "          'train.trainer', 'launch.train', 'checkpoint.checkpointer',\n"
         "          'core.obs', 'core.obs.metrics', 'core.obs.drift',\n"
         "          'core.obs.trace', 'core.obs.calibrate', 'core.obs.profile',\n"
-        "          'launch.dryrun',\n"
+        "          'launch.dryrun', 'core.serving', 'core.serving.pages',\n"
+        "          'core.serving.prefix', 'core.serving.scheduler',\n"
+        "          'core.serving.router',\n"
         "          'data.pipeline', 'ft.failures', 'optim.adamw'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
@@ -281,3 +283,39 @@ def test_train_launcher_obs_flags_write_their_files(tmp_path):
     assert any(l.startswith(f"profile: {out['p.json']}") for l in lines)
     assert any(l.startswith(f"trace: {out['t.json']}") and "overlay" in l
                for l in lines)
+
+
+def test_paged_codec_serving_on_cpu_never_touches_the_kernel_build(
+        monkeypatch):
+    """An int8 / fp8 KV cache on the CPU goes through the plain codec: a
+    paged decode step and the scheduler's plan never reach the kernel
+    build, and the quant launch counters do not move."""
+    from repro_torch.core.serving import dense_to_pages, plan_serve
+    from repro_torch.kernels.quant import ops as quant_ops
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel build was reached from the CPU")
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "build", refuse)
+    before = (quant_ops.quant_launches, quant_ops.dequant_launches,
+              rms_ops.launches)
+    cfg, model = get_arch("qwen3_1_7b", smoke=True)
+    for codec in ("int8", "fp8"):
+        dcfg = DistConfig(param_dtype=torch.float32, kv_cache_codec=codec)
+        plan = plan_serve(model, dcfg, arena_bytes=1 << 20, max_batch=2,
+                          max_seq=16, page=4)
+        assert plan.codec == codec
+        params = SV.init_serve_params(model, dcfg, torch.Generator(), "cpu")
+        pf = SV.make_prefill_step(model, dcfg,
+                                  ShapeConfig("p", 16, 2, "prefill"))
+        step = SV.make_paged_step(model, dcfg,
+                                  ShapeConfig("d", 16, 2, "decode"), page=4,
+                                  n_pages_local=8, max_pages=4)
+        tokens = torch.randint(3, cfg.vocab, (2, 16))
+        logits, cache = pf(params, {"tokens": tokens})
+        arena, table, _ = dense_to_pages(cache, [16, 15], 4, 8, 4)
+        logits, arena = step(params, arena, table, logits.argmax(-1)[:, None],
+                             torch.tensor([[15], [15]]))
+        assert torch.isfinite(logits).all()
+    assert (quant_ops.quant_launches, quant_ops.dequant_launches,
+            rms_ops.launches) == before

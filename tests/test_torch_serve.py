@@ -9,6 +9,11 @@ in summation order.
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +34,7 @@ from repro_torch.models.registry import get_arch
 from repro_torch.train import serve as TSV
 
 TOL32 = dict(rtol=2e-4, atol=2e-5)
+SRC = Path(__file__).resolve().parents[1] / "src"
 B, PROMPT, GEN = 2, 12, 4
 T = PROMPT + GEN
 # The attention flags the port's dense model threads through to the
@@ -134,3 +140,107 @@ def test_init_serve_params_follows_the_reference_distributions(arch):
     assert abs(std(params["blocks"]["mlp"]["wd"]) - scaled) < 0.1 * scaled
     if not cfg.tie_embeddings:
         assert abs(std(params["head"]) - scaled) < 0.1 * scaled
+
+
+def _launch(args, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, "-m", *args], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_launcher_int8_kv_and_metrics_jsonl_match_reference(tmp_path):
+    """`--int8-kv` and `--metrics-jsonl` on the CPU: the port's launcher
+    serves with the int8 cache and writes one registry line whose keys,
+    `serve/*` gauges and their kinds are the reference launcher's."""
+    mine, ref = tmp_path / "mine.jsonl", tmp_path / "ref.jsonl"
+    common = ["--smoke", "--gen", "3", "--int8-kv"]
+    r = _launch(["repro_torch.launch.serve", *common, "--device", "cpu",
+                 "--metrics-jsonl", str(mine)])
+    assert r.returncode == 0, r.stderr
+    assert "int8_kv=True" in r.stdout and f"metrics: {mine}" in r.stdout
+    r = _launch(["repro.launch.serve", *common, "--devices", "1", "--mesh",
+                 "1,1", "--metrics-jsonl", str(ref)])
+    assert r.returncode == 0, r.stderr
+    rows = [json.loads(p.read_text()) for p in (mine, ref)]
+    assert all(len(p.read_text().splitlines()) == 1 for p in (mine, ref))
+    got, want = rows
+    assert set(got) == set(want)
+    assert {k: got[k] for k in ("arch", "batch", "gen", "step")} == \
+        {k: want[k] for k in ("arch", "batch", "gen", "step")}
+    kinds = lambda row: {k: v["kind"] for k, v in row["metrics"].items()}
+    assert kinds(got) == kinds(want)
+    assert set(kinds(got)) == {"serve/prefill_compile_s",
+                               "serve/decode_compile_s", "serve/prefill_s",
+                               "serve/decode_step_s", "serve/decode_tok_s"}
+    assert all(v["value"] > 0 for v in got["metrics"].values())
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_codec_prefill_and_decode_match_reference(codec):
+    """The dense serving path under a KV codec: prefill logits, the
+    dequantized cache and 4 decode steps against the reference, both fed
+    the reference's greedy tokens.  Both quantize K/V that agree to fp32
+    rounding, so a code may sit one step apart: logits held to 1e-3
+    (the paged parity tests' TOL_CODEC_LOGITS), dequantized caches to one
+    code step."""
+    from repro_torch.core.serving import pages as PG
+    tol = dict(rtol=1e-3, atol=1e-3)
+    jmodel, tmodel = _configs("qwen3_1_7b", False)
+    rng = np.random.default_rng(0)
+    tokens = np.pad(rng.integers(3, jmodel.cfg.vocab, (B, PROMPT)),
+                    ((0, 0), (0, GEN)), constant_values=3)
+    jd = jax_single_device_config(param_dtype=jnp.float32,
+                                  reduce_dtype=jnp.float32,
+                                  kv_cache_codec=codec)
+    storage = RT.init_storage(jmodel, jax.random.PRNGKey(0), jd)
+    jparams = SV.serve_params_from_storage(jmodel, storage, jd)
+    jpf, mesh = SV.make_prefill_step(jmodel, jd,
+                                     JShapeConfig("p", T, B, "prefill"))
+    jdec, _ = SV.make_decode_step(jmodel, jd,
+                                  JShapeConfig("d", T, B, "decode"),
+                                  mesh=mesh)
+    jlogits, jcache = jpf(jparams, {"tokens": jnp.asarray(tokens,
+                                                          jnp.int32)})
+    dcfg = single_device_config(param_dtype=torch.float32,
+                                kv_cache_codec=codec)
+    params = TSV.serve_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                       tmodel, dcfg, device="cpu")
+    pf = TSV.make_prefill_step(tmodel, dcfg, ShapeConfig("p", T, B,
+                                                         "prefill"))
+    dec = TSV.make_decode_step(tmodel, dcfg, ShapeConfig("d", T, B,
+                                                         "decode"))
+    logits, cache = pf(params, {"tokens": torch.from_numpy(tokens)})
+    assert sorted(cache) == ["k", "ks", "v", "vs"]
+    assert cache["k"].dtype == QCODEC_DTYPES[codec]
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **tol)
+
+    def check_cache():
+        for n in ("k", "v"):
+            step = torch.repeat_interleave(cache[n + "s"], 128, -1)[
+                ..., :cache[n].shape[-1]]
+            got = cache[n].float() * step
+            q = np.asarray(jcache[n]).astype(np.float32)
+            want = torch.from_numpy(q) * torch.repeat_interleave(
+                torch.from_numpy(np.array(jcache[n + "s"])), 128,
+                -1)[..., :q.shape[-1]]
+            assert bool(((got - want).abs() <= step * (1 + 1e-6)
+                         + 2e-5).all()), n
+
+    check_cache()
+    jtok = jnp.argmax(jlogits, -1).astype(jnp.int32)
+    for i in range(GEN):
+        pos = torch.full((B,), PROMPT + i, dtype=torch.int64)
+        logits, cache = dec(params, cache,
+                            torch.from_numpy(np.array(jtok)).long(), pos)
+        jlogits, jcache = jdec(jparams, jcache, jtok,
+                               jnp.asarray(pos.numpy(), jnp.int32))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   **tol, err_msg=f"step {i}")
+        jtok = jnp.argmax(jlogits, -1).astype(jnp.int32)
+    check_cache()
+    assert PG.kv_leaves(cache)[0].shape == (tmodel.n_steps, B, T,
+                                            tmodel.cfg.n_kv_heads,
+                                            tmodel.cfg.head_dim)
+
+
+QCODEC_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
