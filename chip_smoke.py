@@ -21,8 +21,18 @@ without printing the final line):
      bf16 flash output also held to FLASH_BF16_RMS_REL, which a P rounded
      to one bf16 part and a dropped 128-key tile, planted in the plain
      version, must fail; the rmsnorm
-     and flash gradients (kernel forward, plain backward) against autograd
-     through the plain versions.
+     gradient (kernel forward, plain backward) against autograd through
+     the plain version; the flash gradient (`flash_grad_case`: kernel
+     forward + the backward kernels, bf16 at qwen3-1.7b's layer shape B4
+     T2048 H16 Kh8 hd128 causal, fp32 at B2 T777 H8 Kh8 hd64 non-causal)
+     against autograd through the plain version (TOL / TOL32), the
+     forward's lse against `ref.attention_lse` (TOL32), the backward alone
+     against the plain reverse pass `ref.attention_bwd` (bf16 also to
+     FLASH_BF16_GRAD_RMS_REL, which P or dS in one bf16 part, a query head
+     left out of dK/dV and D = 0, planted there, must fail; fp32 at TOL32,
+     which one TF32 product must miss), two backward calls bit-identical,
+     and the ms of fwd + bwd and of the backward alone (wall, device) beside
+     SDPA's backward and the bound.
   3. quant kernels vs plain: the wire codec's quant and dequant kernels,
      fp8 / int8 x RTN / SR x f32 / bf16 inputs at 129, 5000, the largest
      bucket of the full-width path, one pass of the SR seed kernel's grid
@@ -84,7 +94,10 @@ without printing the final line):
      T 2048, remat fsdp_only, block buckets, reorder off, through
      `parallelize(...).train_step` on `SyntheticC4` batches: 1 warm-up
      step, 6 timed steps; step ms, tokens/s, MFU, peak memory, a profiler
-     window's device busy share, launches per step, finite losses.
+     window's device busy share, launches per step (every training phase:
+     one flash backward launch a differentiated attention call on the bf16
+     route, none on the fp32 route; the fp32 smoke phases the reverse;
+     serving windows none), finite losses.
   9. full-width prefetch training: the same with reorder on (the
      bucket+reorder prefetch stack, the reference launcher's default
      schedule), bf16 wire: the reorder on / off comparison in one call.
@@ -135,8 +148,8 @@ without printing the final line):
      family): bf16 flash at qwen3-moe-30b-a3b's attention (B 4, T 2048,
      H 32 on Kh 4: a GQA group of 8) against its plain version at TOL and
      FLASH_BF16_RMS_REL with its two planted faults, beside SDPA and the
-     bound; its training gradient (kernel forward, plain fp32 backward)
-     against autograd through the plain version; AdamW at the path's
+     bound; its training gradient (`flash_grad_case`: dK and dV summed
+     over a group of 8); AdamW at the path's
      largest leaf (4 layers of a 128-expert stack, 805,306,368 elements).
  10i. moe smoke, card vs CPU: both moe SMOKE configs, fp32, 3 steps of the
      launcher's trainer on the vanilla and the prefetch stack from one
@@ -172,7 +185,8 @@ without printing the final line):
      against its plain version (evaluated two kv heads at a time) at TOL
      and FLASH_BF16_RMS_REL with its two planted faults, beside the bound
      (the pairs inside the window) and SDPA without the softcap (it takes
-     none); the local layer's training gradient; rmsnorm with unit offset
+     none); the local layer's training gradient (`flash_grad_case`, the
+     plain versions by 2 kv heads); rmsnorm with unit offset
      at (8192, 4608) with a planted missing offset; xent at (8192, 256000)
      on softcapped logits; AdamW on the tied embedding's
      1,179,648,000-element leaf.
@@ -236,7 +250,8 @@ consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY; 2e-1
 for gemma2-27b's 46 layers, TOL_GEMMA2_BF16_CONSISTENCY) and an equal
 argmax; the bf16 flash outputs are also held to an RMS error of
 FLASH_BF16_RMS_REL of the plain output's RMS, the bf16 ssd outputs to
-SSD_BF16_RMS_REL and its bf16 gradients to SSD_BF16_GRAD_RMS_REL; the fp32
+SSD_BF16_RMS_REL and its bf16 gradients to SSD_BF16_GRAD_RMS_REL, the
+bf16 flash gradients to FLASH_BF16_GRAD_RMS_REL; the fp32
 ssd check at zamba2's layer shape applies TOL32's rtol to the summed |terms|
 of each element (`check_terms`: 33.5M outputs of 128-term fp32 sums, some
 cancelling), as do its fp32 gradients but dA and dD, per-head sums over B*T
@@ -305,6 +320,17 @@ SSD_BF16_RMS_REL = 2e-4
 # in one bf16 part 6.0e-4 (dx) to 2.6e-3 (dC), and TOL passes its dx
 # (NVIDIA H100 80GB HBM3).
 SSD_BF16_GRAD_RMS_REL = 3e-4
+# bf16 flash gradients dq, dk and dv, besides TOL against autograd: RMS of
+# the error over RMS of the plain reverse pass's (`ref.attention_bwd` on
+# the forward's o and lse, fp32 inside, one rounding to bf16).  Autograd
+# through the plain version rounds its bf16 output before the cotangent
+# meets it, so it is no yardstick at this grain.  The backward kernels read
+# 1.1e-4 (dq) to 4.4e-4 (dk, dv at qwen3-moe's group of 8: the longest
+# sums) at this script's three training shapes; P in one bf16 part reads
+# 2.48e-3 to 2.51e-3 (dv), dS in one bf16 part 2.56e-3 to 2.63e-3 (dq,
+# dk), and TOL passes both (NVIDIA H100 80GB HBM3, 700 W).  The limit sits
+# between, ~2.3x above the kernels' highest reading.
+FLASH_BF16_GRAD_RMS_REL = 1e-3
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 rate and peak rates;
 # PEAK_FLOPS for elementwise work (fp32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -740,6 +766,161 @@ def _grads(fn, inputs, ct):
     return (out, *torch.autograd.grad(out, inputs, ct))
 
 
+def flash_grad_case(state, key, what, b, s, h, kh, hd, kw, dtype, g,
+                    by_heads=False):
+    """The flash backward kernels at one shape of a training path, inputs
+    from generator `g`:
+      * kernel forward + kernel backward (one launch each, counted) against
+        autograd through the plain version: TOL (fp32: TOL32), the bf16
+        output also to FLASH_BF16_RMS_REL;
+      * the forward's row lse against `ref.attention_lse` at TOL32;
+      * the backward alone on the forward's o and lse, two calls
+        bit-identical, against the plain reverse pass `ref.attention_bwd`:
+        bf16 at TOL and FLASH_BF16_GRAD_RMS_REL, which each of
+        `ref.PLANTS` must fail; fp32 at TOL32, which the kernel with one
+        TF32 product must miss;
+      * ms: fwd + bwd (op / plain / SDPA / bound, as before this kernel),
+        and the backward alone (wall, device behind the sleep kernel, the
+        plain reverse pass, SDPA's backward, the bound: 2.5 forward
+        products' FLOPs).
+    `by_heads`: the plain versions two kv heads at a time (T 8192).  SDPA
+    takes no softcap: under one it is timed without.  Stores state[key]."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, k, v, ct = randn(b, s, h, hd), randn(b, s, kh, hd), \
+        randn(b, s, kh, hd), randn(b, s, h, hd)
+    bf16 = dtype == torch.bfloat16
+    tol = TOL if bf16 else TOL32
+
+    def plain(fn, *q_like):
+        return _by_kv_heads(fn, q, k, v, *q_like) if by_heads \
+            else fn(q, k, v, *q_like)
+
+    n = (flash_ops.launches, flash_ops.launches_f32, flash_ops.bwd_launches,
+         flash_ops.bwd_launches_f32)
+    op = lambda: _grads(lambda *a: flash_ops.flash_attention(*a, **kw),
+                        (q, k, v), ct)
+    got = op()
+    routes = (flash_ops.launches - n[0], flash_ops.launches_f32 - n[1],
+              flash_ops.bwd_launches - n[2],
+              flash_ops.bwd_launches_f32 - n[3])
+    if routes != ((1, 0, 1, 0) if bf16 else (0, 1, 0, 1)):
+        raise AssertionError(f"{what}: launches (fwd, fwd_f32, bwd, bwd_f32)"
+                             f" {routes}, want one of each on the "
+                             f"{dtype} route")
+    plain_grads = lambda: plain(lambda qq, kk, vv, cc: _grads(
+        lambda *a: flash_ref.attention(*a, **kw), (qq, kk, vv), cc), ct)
+    want = plain_grads()
+    err = max((check_rms if bf16 else check_close)(
+        f"{what} o", got[0], want[0],
+        FLASH_BF16_RMS_REL if bf16 else TOL32),
+        *(check_close(f"{what} {n_} vs autograd through the plain version",
+                      a, b_, tol)
+          for n_, a, b_ in zip(("dq", "dk", "dv"), got[1:], want[1:])))
+    del got
+    o, lse = flash_ops.flash_attention_cuda(
+        q, k, v, kw.get("causal", True), kw.get("window"), kw.get("softcap"),
+        kw.get("q_scale"), with_lse=True)
+    check_close(f"{what} lse", lse, plain(
+        lambda qq, kk, vv: flash_ref.attention_lse(qq, kk, **kw)
+        .transpose(1, 2)).transpose(1, 2), TOL32)
+
+    bwd = lambda: flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct,
+                                                     **kw)
+    got, again = bwd(), bwd()
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+        raise AssertionError(f"{what}: two backward calls differ")
+    say(f"  {what}: two backward calls bit-identical")
+    del again
+    oracle = lambda plant=None: plain(
+        lambda qq, kk, vv, oo, ll, cc: flash_ref.attention_bwd(
+            qq, kk, vv, oo, ll.transpose(1, 2), cc, plant=plant, **kw),
+        o, lse.transpose(1, 2), ct)
+    ref_bwd = oracle()
+    names = ("dq", "dk", "dv")
+    if bf16:
+        err_ref = max(check_rms(f"{what} {n_} vs the plain reverse pass", a,
+                                b_, FLASH_BF16_GRAD_RMS_REL)
+                      for n_, a, b_ in zip(names, got, ref_bwd))
+        for plant in flash_ref.PLANTS:
+            planted = oracle(plant)
+            out = [(n_, rms_rel(a, b_), torch.allclose(
+                a.float(), b_.float(), **TOL))
+                for n_, a, b_ in zip(names, planted, ref_bwd)]
+            caught = [n_ for n_, rel, within in out
+                      if rel > FLASH_BF16_GRAD_RMS_REL or not within]
+            say(f"    planted {plant}: RMS error / RMS "
+                + ", ".join(f"{n_} {rel:.3e}{'' if within else ' (outside TOL)'}"
+                            for n_, rel, within in out)
+                + (f"; rejected by {caught}" if caught else "; NOT rejected"))
+            if not caught:
+                raise AssertionError(f"{what}: the check cannot tell the "
+                                     f"plant {plant!r} apart")
+            del planted
+    else:
+        err_ref = max(check_close(f"{what} {n_} vs the plain reverse pass",
+                                  a, b_, TOL32)
+                      for n_, a, b_ in zip(names, got, ref_bwd))
+        one = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct,
+                                                 tf32_products=1, **kw)
+        if all(torch.allclose(a, b_, **TOL32)
+               for a, b_ in zip(one, want[1:])):
+            raise AssertionError(f"{what}: one TF32 product holds TOL32")
+        say(f"    planted one TF32 product: rejected (max abs err "
+            f"{max(max_err(a, b_) for a, b_ in zip(one, want[1:])):.3e})")
+        del one
+    del got, want, ref_bwd
+    torch.cuda.empty_cache()
+
+    if kw.get("causal", True):
+        pairs = _attn_pairs(s, kw.get("window"))
+    elif kw.get("window") is None:
+        pairs = s * s
+    else:
+        raise ValueError("no pair count for a non-causal window")
+    flops = 4.0 * hd * b * h * pairs
+    bound, by = _bound(0, 3.5 * flops, dtype, products=True)
+    ms, plain_ms = time_ms(op), time_ms(plain_grads)
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    sdpa = _sdpa_fn(*leaves, kw.get("window"), kw.get("q_scale"),
+                    causal=kw.get("causal", True))
+    ctt = ct.transpose(1, 2)
+    lib = time_ms(lambda: sdpa().backward(ctt))
+    say(f"  {what} fwd+bwd ms: op {ms:.4f} / plain {plain_ms:.4f} / SDPA "
+        f"{lib:.4f} / bound {bound:.4f} ({3.5 * flops / ms / 1e9:.1f} "
+        "TFLOP/s)")
+    bwd_bound, bwd_by = _bound(0, 2.5 * flops, dtype, products=True)
+    bwd_ms, bwd_dev = time_ms(bwd), device_ms(bwd, bwd_bound, n=10)
+    bwd_plain = time_ms(oracle)
+    so = sdpa()
+    sdpa_bwd = lambda: torch.autograd.grad(so, leaves, ctt,
+                                           retain_graph=True)
+    lib_bwd, lib_bwd_dev = time_ms(sdpa_bwd), device_ms(sdpa_bwd, bwd_bound,
+                                                         n=10)
+    say(f"  {what} backward alone ms: kernels {bwd_ms:.4f} (device "
+        f"{bwd_dev:.4f}, {2.5 * flops / bwd_dev / 1e9:.1f} TFLOP/s) / plain "
+        f"reverse pass {bwd_plain:.4f} / SDPA's backward {lib_bwd:.4f} "
+        f"(device {lib_bwd_dev:.4f}) / bound {bwd_bound:.4f} ({bwd_by}); "
+        f"device / SDPA's {bwd_dev / lib_bwd_dev:.2f}x")
+    state[key] = dict(
+        shape=f"B{b} T{s} H{h} Kh{kh} hd{hd} {kw} {dtype}".replace(
+            "torch.", ""),
+        max_abs_err=err_ref, max_abs_err_vs_autograd=err, ms=bwd_ms,
+        device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd,
+        library_device_ms=lib_bwd_dev, library="SDPA's backward"
+        + (", no softcap" if kw.get("softcap") else ""), bound_ms=bwd_bound,
+        bound_by=bwd_by, tflops=2.5 * flops / bwd_dev / 1e9,
+        fwd_bwd=dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                     bound_ms=bound))
+    del so, sdpa, leaves, o, lse, q, k, v, ct
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernels(state):
     import torch.nn.functional as F
     from repro_torch.core.dist import DistConfig
@@ -747,8 +928,6 @@ def phase_train_kernels(state):
     from repro_torch.kernels.adamw import ref as adamw_ref
     from repro_torch.kernels.cross_entropy import ops as xent_ops
     from repro_torch.kernels.cross_entropy import ref as xent_ref
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.models.registry import get_arch
@@ -868,8 +1047,9 @@ def phase_train_kernels(state):
         del p, gd, m, v, got, q, opt
         torch.cuda.empty_cache()
 
-    say("gradients: kernel forward + plain backward vs autograd through the "
-        "plain version (ms fwd+bwd: op / plain / library / bound):")
+    say("rmsnorm gradients: kernel forward + plain backward vs autograd "
+        "through the plain version (ms fwd+bwd: op / plain / library / "
+        "bound):")
     x = randn(R, 2048, dtype=torch.bfloat16) * 2
     w = randn(2048, dtype=torch.bfloat16)
     ct = randn(R, 2048, dtype=torch.bfloat16)
@@ -890,32 +1070,15 @@ def phase_train_kernels(state):
                                  library_ms=lib, bound_ms=bound)
     del x, w, ct, got, want
 
-    q = randn(TRAIN_B, TRAIN_T, 16, 128, dtype=torch.bfloat16)
-    k = randn(TRAIN_B, TRAIN_T, 8, 128, dtype=torch.bfloat16)
-    v = randn(TRAIN_B, TRAIN_T, 8, 128, dtype=torch.bfloat16)
-    ct = randn(TRAIN_B, TRAIN_T, 16, 128, dtype=torch.bfloat16)
-    name = f"flash B{TRAIN_B} T{TRAIN_T} H16 Kh8 hd128 causal bf16"
-    got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
-    want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
-    err = max(check_rms(f"{name} o", got[0], want[0], FLASH_BF16_RMS_REL),
-              *(check_close(f"{name} {n}", a, b, TOL)
-                for n, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:])))
-    del got, want
-    ms = time_ms(lambda: _grads(lambda *a: flash_ops.flash_attention(*a),
-                                (q, k, v), ct))
-    plain = time_ms(lambda: _grads(lambda *a: flash_ref.attention(*a),
-                                   (q, k, v), ct))
-    qt, kt, vt, ctt = (a.transpose(1, 2) for a in (q, k, v, ct))
-    lib = time_ms(lambda: _grads(
-        lambda *a: F.scaled_dot_product_attention(*a, is_causal=True,
-                                                  enable_gqa=True),
-        (qt, kt, vt), ctt))
-    # causal pairs x 4 hd FLOPs forward, 2.5x that backward
-    flops = 3.5 * 4.0 * 128 * TRAIN_B * 16 * TRAIN_T * (TRAIN_T + 1) / 2
-    bound, _ = _bound(0, flops, torch.bfloat16, products=True)
-    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f}")
-    state["flash_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               library_ms=lib, bound_ms=bound)
+    say("flash backward kernels (kernel forward + kernel backward) at "
+        "qwen3-1.7b's layer shape, and the fp32 route at the main fp32 "
+        "shape:")
+    flash_grad_case(state, "flash_bwd", f"flash B{TRAIN_B} T{TRAIN_T} H16 "
+                    "Kh8 hd128 causal bf16", TRAIN_B, TRAIN_T, 16, 8, 128,
+                    dict(causal=True), torch.bfloat16, g)
+    flash_grad_case(state, "flash_bwd_f32", "flash B2 T777 H8 Kh8 hd64 "
+                    "non-causal fp32", 2, 777, 8, 8, 64, dict(causal=False),
+                    torch.float32, g)
 
 
 def _codec_input(n, dtype, seed):
@@ -1190,6 +1353,8 @@ def _train_counts():
     from repro_torch.kernels.ssd import ops as ssd_ops
     return dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
                 flash_f32=flash_ops.launches_f32,
+                flash_bwd=flash_ops.bwd_launches,
+                flash_bwd_f32=flash_ops.bwd_launches_f32,
                 xent_fwd=xent_ops.fwd_launches,
                 xent_bwd=xent_ops.bwd_launches, adamw=adamw_ops.launches,
                 quant_fwd=quant_ops.quant_launches,
@@ -1209,20 +1374,29 @@ def _reset_counts():
     from repro_torch.kernels.ssd import ops as ssd_ops
     rms_ops.launches = flash_ops.launches = adamw_ops.launches = 0
     flash_ops.launches_f32 = ssd_ops.launches = 0
+    flash_ops.bwd_launches = flash_ops.bwd_launches_f32 = 0
     ssd_ops.launches_f32 = ssd_ops.bwd_launches = 0
     xent_ops.fwd_launches = xent_ops.bwd_launches = 0
     quant_ops.quant_launches = quant_ops.dequant_launches = 0
     coll.gathers = coll.reduce_scatters = 0
 
 
+def _serve_counts():
+    """The rmsnorm and flash counts of a serving window (opened by
+    _reset_counts): no backward runs there."""
+    c = _train_counts()
+    return {k: c[k] for k in ("rmsnorm", "flash", "flash_f32", "flash_bwd",
+                              "flash_bwd_f32")}
+
+
 COLLECTIVES = ("gathers", "reduce_scatters")
 QUANT = ("quant_fwd", "dequant_fwd")
 # kernels the dense paths do not run at a bf16 wire
 NOT_DENSE = QUANT + ("ssd", "ssd_f32", "ssd_bwd")
-# fp32 runs take flash's fp32 route, bf16 runs its bf16 route (the ssd's
+# fp32 runs take flash's fp32 routes, bf16 runs its bf16 routes (the ssd's
 # fp32 forwards count in both ssd and ssd_f32)
-NOT_F32 = ("flash",)
-NOT_BF16 = ("flash_f32", "ssd_f32")
+NOT_F32 = ("flash", "flash_bwd")
+NOT_BF16 = ("flash_f32", "flash_bwd_f32", "ssd_f32")
 
 
 def phase_smoke_train(state):
@@ -1260,9 +1434,11 @@ def phase_smoke_train(state):
         state["smoke_train_launches"] = counts
         say(f"  launches in the smoke run on the card: {counts}")
         if min(v for k, v in counts.items()
-               if k not in NOT_DENSE + NOT_F32) <= 0 or counts["flash"]:
+               if k not in NOT_DENSE + NOT_F32) <= 0 or any(
+                   counts[k] for k in NOT_F32):
             raise AssertionError(f"a kernel never launched, or fp32 took "
                                  f"flash's bf16 route: {counts}")
+        _check_bwd_calls(counts, tr.model, 3, "flash_bwd_f32")
         if max(v for k, v in runs["cpu"][2].items()
                if k not in COLLECTIVES) > 0:
             raise AssertionError("the CPU run launched a kernel")
@@ -1364,9 +1540,12 @@ def phase_smoke_quant_train(state):
                 runs[dev] = (st, opt_state, hist, _train_counts())
             counts = runs["cuda"][3]
             say(f"  {precision} launches on the card: {counts}")
-            if min(counts[k] for k in QUANT) <= 0:
-                raise AssertionError(f"{precision}: a quant kernel never "
-                                     f"launched: {counts}")
+            if min(counts[k] for k in QUANT + ("flash_bwd_f32",)) <= 0 \
+                    or any(counts[k] for k in NOT_F32):
+                raise AssertionError(f"{precision}: a quant kernel or the "
+                                     f"fp32 flash backward never launched, "
+                                     f"or fp32 took a bf16 route: {counts}")
+            _check_bwd_calls(counts, tr.model, steps, "flash_bwd_f32")
             if max(v for k, v in runs["cpu"][3].items()
                    if k not in COLLECTIVES) > 0:
                 raise AssertionError("the CPU run launched a kernel")
@@ -1732,10 +1911,14 @@ def phase_full_obs(state):
     state["train_obs_launches"] = counts
     say(f"  launches over {OBS_STEPS} steps and "
         f"{len(tr.replans)} profiles: {counts}")
-    if min(counts[k] for k in ("rmsnorm", "flash", "xent_fwd", "xent_bwd",
-                               "adamw", *QUANT)) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{counts}")
+    if min(counts[k] for k in ("rmsnorm", "flash", "flash_bwd", "xent_fwd",
+                               "xent_bwd", "adamw", *QUANT)) <= 0 \
+            or any(counts[k] for k in NOT_BF16):
+        raise AssertionError(f"a kernel of the path never launched, or one "
+                             f"off it did: {counts}")
+    # the profiles time segments without a gradient and take the loop's
+    # measured wall, so no step is differentiated outside the loop
+    _check_bwd_calls(counts, model, OBS_STEPS)
     say(tr.drift.report())
     r, prof = tr.registry, tr.profile
     steps = r.counter("train/steps").value
@@ -1846,10 +2029,13 @@ def phase_smoke_replan(state):
                              "replan")
     if tr.plan.describe() != applied[-1]["after"]:
         raise AssertionError("the trainer does not run the replanned plan")
-    if min(counts[k] for k in ("rmsnorm", "flash", "xent_fwd", "xent_bwd",
-                               "adamw")) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{counts}")
+    if min(counts[k] for k in ("rmsnorm", "flash", "flash_bwd", "xent_fwd",
+                               "xent_bwd", "adamw")) <= 0 \
+            or any(counts[k] for k in NOT_BF16):
+        raise AssertionError(f"a kernel of the path never launched, or one "
+                             f"off it did: {counts}")
+    # an applied replan restores at the step it was taken: none is repeated
+    _check_bwd_calls(counts, tr.model, REPLAN_STEPS)
 
 
 def _ssd_flops(b, t, h, p, n, lc):
@@ -1869,6 +2055,23 @@ def _attn_pairs(seq, window=None):
     if window is None or window >= seq:
         return seq * (seq + 1) / 2
     return window * (window + 1) / 2 + (seq - window) * window
+
+
+def _attn_calls(model):
+    """Attention calls a training step differentiates: one a layer, for
+    zamba one a shared-block invocation."""
+    return model.n_super if model.cfg.family == "zamba" else \
+        model.cfg.n_layers
+
+
+def _check_bwd_calls(counts, model, steps, key="flash_bwd"):
+    """One flash backward launch (`key`: the bf16 or the fp32 route) a
+    differentiated attention call in `steps` steps, however often remat
+    runs the forward."""
+    calls = _attn_calls(model) * steps
+    if counts[key] != calls:
+        raise AssertionError(f"{counts[key]} {key} launches in {steps} "
+                             f"steps, want {calls}")
 
 
 def _model_flops(cfg, model, batch, seq):
@@ -2005,11 +2208,13 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     state[f"{key}_launches"] = counts
     if not all(np.isfinite([warm_loss, *losses])):
         raise AssertionError(f"non-finite loss: {warm_loss}, {losses}")
-    need = ("rmsnorm", "flash", "xent_fwd", "xent_bwd", "adamw", *need)
+    need = ("rmsnorm", "flash", "flash_bwd", "xent_fwd", "xent_bwd", "adamw",
+            *need)
     unused = [k for k in NOT_DENSE + NOT_BF16 if k not in need and counts[k]]
     if min(counts[k] for k in need) <= 0 or unused:
         raise AssertionError(f"a kernel of the path never launched, or one "
                              f"off the path did: {counts}")
+    _check_bwd_calls(counts, model, TRAIN_STEPS)
     if "ef" in opt_state:
         # the hop applies to the leaves of *_ef buckets alone: every
         # non-zero leaf must be one, and some must be non-zero if any is
@@ -2283,8 +2488,8 @@ def phase_zamba_smoke_train(state):
         cpu.ckpt.save(0, cpu.par.unshard(storage), dict(
             m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
             step=opt["step"]), cpu.model, cpu.dcfg)
-        need = ("rmsnorm", "flash_f32", "xent_fwd", "xent_bwd", "adamw",
-                "ssd", "ssd_f32", "ssd_bwd")
+        need = ("rmsnorm", "flash_f32", "flash_bwd_f32", "xent_fwd",
+                "xent_bwd", "adamw", "ssd", "ssd_f32", "ssd_bwd")
         for reorder in (False, True):
             runs = {}
             for dev in ("cpu", "cuda"):
@@ -2298,10 +2503,12 @@ def phase_zamba_smoke_train(state):
             counts = runs["cuda"][2]
             state["zamba_smoke_launches"] = counts
             say(f"  zamba2 smoke {label}: launches on the card {counts}")
-            if (min(counts[k] for k in need) <= 0 or counts["flash"]
+            if (min(counts[k] for k in need) <= 0
+                    or any(counts[k] for k in NOT_F32)
                     or counts["ssd_f32"] != counts["ssd"]):
                 raise AssertionError(f"a kernel never launched, or fp32 "
                                      f"took a bf16 route: {counts}")
+            _check_bwd_calls(counts, tr.model, 3, "flash_bwd_f32")
             if max(v for k, v in runs["cpu"][2].items()
                    if k not in COLLECTIVES) > 0:
                 raise AssertionError("the CPU run launched a kernel")
@@ -2409,10 +2616,9 @@ def phase_full_width(state):
     padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
     torch.cuda.reset_peak_memory_stats()
 
-    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
+    _reset_counts()
     tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN)
-    counts = dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
-                  flash_f32=flash_ops.launches_f32)
+    counts = _serve_counts()
 
     peak = torch.cuda.max_memory_allocated()
     say(f"serve B={B} prompt={PROMPT} gen={GEN} T={T}: "
@@ -2427,9 +2633,11 @@ def phase_full_width(state):
     if tokens.shape != (B, GEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab)).all()):
         raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
-    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or counts["flash_f32"]:
-        raise AssertionError(f"a kernel of the path never launched, or bf16 "
-                             f"took flash's fp32 route: {counts}")
+    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or any(
+            counts[k] for k in ("flash_f32", "flash_bwd", "flash_bwd_f32")):
+        raise AssertionError(f"a kernel of the path never launched, bf16 "
+                             f"took flash's fp32 route, or a backward ran: "
+                             f"{counts}")
 
     # where the time goes: device kernel time against wall time
     pos = torch.full((B,), PROMPT, dtype=torch.int64, device=dev)
@@ -2472,21 +2680,17 @@ def _consistency(params, prefill, decode, x, label):
     b, t = x.shape
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
-    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
+    _reset_counts()
     want, _ = prefill(params, {"tokens": x})
-    per_call = dict(prefill=dict(rmsnorm=rms_ops.launches,
-                                 flash=flash_ops.launches,
-                                 flash_f32=flash_ops.launches_f32))
+    per_call = dict(prefill=_serve_counts())
     xp = x.clone()
     xp[:, -1] = 3
     _, cache = prefill(params, {"tokens": xp})
-    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
+    _reset_counts()
     got, _ = decode(params, cache, x[:, -1],
                     torch.full((b,), t - 1, dtype=torch.int64,
                                device=x.device))
-    per_call["decode"] = dict(rmsnorm=rms_ops.launches,
-                              flash=flash_ops.launches,
-                              flash_f32=flash_ops.launches_f32)
+    per_call["decode"] = _serve_counts()
     top2 = want.topk(2, dim=-1).values
     say(f"  {label}: max|logit| {want.abs().max().item():.4f}, max abs err "
         f"{max_err(got, want):.4e}, mean abs err "
@@ -2552,9 +2756,9 @@ def _spy_drops(model):
 def phase_moe_kernels(state):
     """The kernels at the moe path's new shapes: bf16 flash at
     qwen3-moe-30b-a3b's attention (a GQA group of 8), its training
-    gradient (kernel forward, plain fp32 backward) against autograd through
-    the plain version, and AdamW on the path's largest leaf (an expert
-    stack of MOE_TRAIN_LAYERS layers)."""
+    gradient (`flash_grad_case`: forward and backward kernels) against
+    autograd through the plain version, and AdamW on the path's largest
+    leaf (an expert stack of MOE_TRAIN_LAYERS layers)."""
     import torch.nn.functional as F
     from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.adamw import ref as adamw_ref
@@ -2600,34 +2804,13 @@ def phase_moe_kernels(state):
         ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib,
         library_device_ms=lib_dev, bound_ms=bound, bound_by=by)
 
-    say("gradients at the moe shape: kernel forward + plain fp32 backward vs "
-        "autograd through the plain version (ms fwd+bwd: op / plain / SDPA "
-        "/ bound):")
-    ct = randn(b, s, h, hd, dtype=torch.bfloat16)
-    gname = f"flash B{b} T{s} H{h} Kh{kh} hd{hd} causal bf16"
-    got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
-    want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
-    err = max(check_rms(f"{gname} o", got[0], want[0], FLASH_BF16_RMS_REL),
-              *(check_close(f"{gname} {n}", a, b_, TOL)
-                for n, a, b_ in zip(("dq", "dk", "dv"), got[1:], want[1:])))
-    del got, want
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    ms = time_ms(lambda: _grads(lambda *a: flash_ops.flash_attention(*a),
-                                (q, k, v), ct))
-    plain = time_ms(lambda: _grads(lambda *a: flash_ref.attention(*a),
-                                   (q, k, v), ct))
-    ctt = ct.transpose(1, 2)
-    lib = time_ms(lambda: _grads(
-        lambda *a: F.scaled_dot_product_attention(*a, is_causal=True,
-                                                  enable_gqa=True),
-        (qt, kt, vt), ctt))
-    bound, _ = _bound(0, 3.5 * flops, torch.bfloat16, products=True)
-    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f}")
-    state["flash_grad_group8"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain, library_ms=lib,
-                                      bound_ms=bound)
-    del q, k, v, ct, qt, kt, vt, ctt
-    torch.cuda.empty_cache()
+    say("flash backward kernels at the moe shape (a GQA group of 8: dK and "
+        "dV summed over 8 query heads):")
+    flash_grad_case(state, "flash_bwd_group8", f"flash B{b} T{s} H{h} "
+                    f"Kh{kh} hd{hd} causal bf16", b, s, h, kh, hd,
+                    dict(causal=True), torch.bfloat16, g)
 
     n = MOE_TRAIN_LAYERS * 128 * 2048 * 768
     say(f"adamw kernel vs plain at the moe path's largest leaf (n={n}; ms: "
@@ -2681,7 +2864,8 @@ def phase_moe_smoke(state):
         init_train_state
     from repro_torch.train.trainer import Trainer
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
-    need = ("rmsnorm", "flash_f32", "xent_fwd", "xent_bwd", "adamw")
+    need = ("rmsnorm", "flash_f32", "flash_bwd_f32", "xent_fwd", "xent_bwd",
+            "adamw")
     try:
         for arch in MOE_ARCHS:
             def trainer(dev, sub, reorder):
@@ -2711,10 +2895,11 @@ def phase_moe_smoke(state):
                 counts = runs["cuda"][2]
                 state[f"moe_smoke_{arch}_launches"] = counts
                 say(f"  {label}: launches on the card {counts}")
-                if min(counts[k] for k in need) <= 0 or counts["flash"] \
-                        or any(counts[k] for k in NOT_DENSE):
+                if min(counts[k] for k in need) <= 0 \
+                        or any(counts[k] for k in NOT_DENSE + NOT_F32):
                     raise AssertionError(f"a kernel never launched, or one "
                                          f"off the path did: {counts}")
+                _check_bwd_calls(counts, tr.model, 3, "flash_bwd_f32")
                 if max(v for k, v in runs["cpu"][2].items()
                        if k not in COLLECTIVES) > 0:
                     raise AssertionError("the CPU run launched a kernel")
@@ -3049,10 +3234,9 @@ def phase_full_moe_serve(state):
         f"{time.perf_counter() - t0:.1f}s")
     padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
     torch.cuda.reset_peak_memory_stats()
-    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
+    _reset_counts()
     tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN)
-    counts = dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
-                  flash_f32=flash_ops.launches_f32)
+    counts = _serve_counts()
     peak = torch.cuda.max_memory_allocated()
     # a decode step reads every weight but the embedding table (B rows of
     # it) and the whole KV cache once
@@ -3076,9 +3260,11 @@ def phase_full_moe_serve(state):
     if tokens.shape != (B, GEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab)).all()):
         raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
-    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or counts["flash_f32"]:
-        raise AssertionError(f"a kernel of the path never launched, or bf16 "
-                             f"took flash's fp32 route: {counts}")
+    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or any(
+            counts[k] for k in ("flash_f32", "flash_bwd", "flash_bwd_f32")):
+        raise AssertionError(f"a kernel of the path never launched, bf16 "
+                             f"took flash's fp32 route, or a backward ran: "
+                             f"{counts}")
     drops = _spy_drops(model)
     logits, cache = prefill(params, {"tokens": padded})
     by_layer = [d.item() / (B * T * cfg.n_experts_active) for d in drops]
@@ -3170,15 +3356,15 @@ def _check_gemma2_flash_calls(seen, cfg, q_scale, what):
         raise AssertionError(f"{what}: flash calls {seen}, want {want}")
 
 
-def _sdpa_fn(q, k, v, window, q_scale):
+def _sdpa_fn(q, k, v, window, q_scale, causal=True):
     """SDPA on the same inputs, without the softcap (SDPA takes none):
-    causal, and under a window an explicit boolean mask over kv heads
-    repeated to the q heads (SDPA's GQA path takes no mask)."""
+    causal (or not), and under a window an explicit boolean mask over kv
+    heads repeated to the q heads (SDPA's GQA path takes no mask)."""
     import torch.nn.functional as F
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     if window is None:
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True, scale=q_scale)
+            qt, kt, vt, is_causal=causal, enable_gqa=True, scale=q_scale)
     g = q.shape[2] // k.shape[2]
     kt, vt = (a.repeat_interleave(g, dim=1) for a in (kt, vt))
     pos = torch.arange(q.shape[1], device=q.device)
@@ -3192,8 +3378,7 @@ def phase_gemma2_kernels(state):
     (B1) and prefill (B2) shapes, T 8192, H32 on Kh16, hd 128, local
     (window 4096 + softcap 50) and global (softcap 50), q_scale 1/16, each
     with its two plants, beside SDPA without the softcap; the local
-    layer's training gradient (kernel forward, plain backward) against
-    autograd through the plain version; rmsnorm with unit offset at d
+    layer's training gradient (`flash_grad_case`); rmsnorm with unit offset at d
     4608; xent at (8192, 256000) on softcapped logits; AdamW on the tied
     embedding's leaf."""
     import dataclasses
@@ -3267,45 +3452,17 @@ def phase_gemma2_kernels(state):
                 shape=shape, max_abs_err=err, ms=ms, device_ms=on_card,
                 plain_ms=plain_ms, library_ms=lib, library_device_ms=lib_dev,
                 library="SDPA, no softcap", bound_ms=bound, bound_by=by)
-        if path == "training":
-            kw = dict(causal=True, window=cfg.sliding_window, softcap=cap,
-                      q_scale=qs)
-            gname = f"flash B{b} T{t} H{h} Kh{kh} hd{hd} local layer bf16"
-            say("gradients of the local layer at the training shape: kernel "
-                "forward + plain fp32 backward vs autograd through the plain "
-                "version, by 2 kv heads (ms fwd+bwd: op / plain / SDPA "
-                "without the softcap / bound):")
-            ct = randn(b, t, h, hd, dtype=torch.bfloat16)
-            op = lambda: _grads(
-                lambda *a: flash_ops.flash_attention(*a, **kw), (q, k, v), ct)
-            plain = lambda: _by_kv_heads(
-                lambda qq, kk, vv, cc: _grads(
-                    lambda *a: flash_ref.attention(*a, **kw), (qq, kk, vv),
-                    cc), q, k, v, ct)
-            got, want = op(), plain()
-            err = max(check_rms(f"{gname} o", got[0], want[0],
-                                FLASH_BF16_RMS_REL),
-                      *(check_close(f"{gname} {n_}", a, b_, TOL)
-                        for n_, a, b_ in zip(("dq", "dk", "dv"), got[1:],
-                                             want[1:])))
-            del got, want
-            torch.cuda.empty_cache()
-            ms, plain_ms = time_ms(op), time_ms(plain)
-            bound, _ = _bound(0, 3.5 * 4.0 * hd * b * h * _attn_pairs(
-                t, cfg.sliding_window), torch.bfloat16, products=True)
-
-            sdpa = _sdpa_fn(*(a.detach().requires_grad_() for a in (q, k, v)),
-                            cfg.sliding_window, qs)
-            lib = time_ms(lambda: sdpa().backward(ct.transpose(1, 2)))
-            del sdpa
-            torch.cuda.empty_cache()
-            say(f"    {ms:.4f} / {plain_ms:.4f} / {lib:.4f} / {bound:.4f}")
-            state["gemma2_flash_grad"] = dict(
-                shape=gname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib, library="SDPA, no softcap", bound_ms=bound)
-            del ct
         del q, k, v
         torch.cuda.empty_cache()
+        if path == "training":
+            say("flash backward kernels at the local layer's training shape "
+                "(the plain versions by 2 kv heads; SDPA without the "
+                "softcap):")
+            flash_grad_case(
+                state, "flash_bwd_gemma2", f"flash B{b} T{t} H{h} Kh{kh} "
+                f"hd{hd} local layer bf16", b, t, h, kh, hd,
+                dict(causal=True, window=cfg.sliding_window, softcap=cap,
+                     q_scale=qs), torch.bfloat16, g, by_heads=True)
     state["gemma2_flash"] = flash
 
     R, d = GEMMA2_TRAIN_B * GEMMA2_TRAIN_T, cfg.d_model
@@ -3441,7 +3598,8 @@ def phase_gemma2_smoke(state):
     from repro_torch.train import serve as SV
     from repro_torch.train.train_step import init_train_state
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_gemma2_"))
-    need = ("rmsnorm", "flash_f32", "xent_fwd", "xent_bwd", "adamw")
+    need = ("rmsnorm", "flash_f32", "flash_bwd_f32", "xent_fwd", "xent_bwd",
+            "adamw")
     try:
         def trainer(dev, sub, reorder):
             return launch_train.build_trainer(launch_train.parse_args([
@@ -3469,10 +3627,11 @@ def phase_gemma2_smoke(state):
             counts = runs["cuda"][2]
             state["gemma2_smoke_launches"] = counts
             say(f"  {label}: launches on the card {counts}")
-            if min(counts[k] for k in need) <= 0 or counts["flash"] \
-                    or any(counts[k] for k in NOT_DENSE):
+            if min(counts[k] for k in need) <= 0 \
+                    or any(counts[k] for k in NOT_DENSE + NOT_F32):
                 raise AssertionError(f"a kernel never launched, or one off "
                                      f"the path did: {counts}")
+            _check_bwd_calls(counts, tr.model, 3, "flash_bwd_f32")
             if max(v for k, v in runs["cpu"][2].items()
                    if k not in COLLECTIVES) > 0:
                 raise AssertionError("the CPU run launched a kernel")
@@ -3607,14 +3766,13 @@ def phase_full_gemma2_serve(state):
     padded = launch.make_prompts(cfg, b, prompt, gen, dev)
     torch.cuda.reset_peak_memory_stats()
     seen, restore = _spy_flash_calls()
-    rms_ops.launches = flash_ops.launches = flash_ops.launches_f32 = 0
+    _reset_counts()
     try:
         tokens, t = launch.generate(params, prefill, decode, padded, prompt,
                                     gen)
     finally:
         restore()
-    counts = dict(rmsnorm=rms_ops.launches, flash=flash_ops.launches,
-                  flash_f32=flash_ops.launches_f32)
+    counts = _serve_counts()
     peak = torch.cuda.max_memory_allocated()
     _check_gemma2_flash_calls(seen, cfg, model._q_scale, "46-layer prefill")
     # a decode step reads every weight once (the tied table as the head;
@@ -3642,9 +3800,11 @@ def phase_full_gemma2_serve(state):
     if tokens.shape != (b, gen) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab)).all()):
         raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
-    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or counts["flash_f32"]:
-        raise AssertionError(f"a kernel of the path never launched, or bf16 "
-                             f"took flash's fp32 route: {counts}")
+    if counts["rmsnorm"] <= 0 or counts["flash"] <= 0 or any(
+            counts[k] for k in ("flash_f32", "flash_bwd", "flash_bwd_f32")):
+        raise AssertionError(f"a kernel of the path never launched, bf16 "
+                             f"took flash's fp32 route, or a backward ran: "
+                             f"{counts}")
     logits, cache = prefill(params, {"tokens": padded})
     _profile("prefill", lambda: prefill(params, {"tokens": padded}), 1)
     pos = torch.full((b,), prompt, dtype=torch.int64, device=dev)
@@ -3783,7 +3943,8 @@ def _counted(into, fn):
 
 # kernels no serving step launches: the steps' attention is the reference's
 # einsum, and nothing trains
-NOT_IN_STEPS = ("flash", "flash_f32", "xent_fwd", "xent_bwd", "adamw", "ssd",
+NOT_IN_STEPS = ("flash", "flash_f32", "flash_bwd", "flash_bwd_f32",
+                "xent_fwd", "xent_bwd", "adamw", "ssd",
                 "ssd_f32", "ssd_bwd")
 
 
@@ -4544,11 +4705,13 @@ def kernels_line(state):
     `serve_paged_smoke`: the SMOKE cases' paged steps on the card; each
     without the dense steps it is compared with); the flash row carries
     its readings at qwen3-moe's group-8
-    shape (`group8`) and at gemma2's four shapes and its local gradient
-    (`gemma2`, `gemma2_grad`), the adamw row at the moe path's largest
+    shape (`group8`) and at gemma2's four shapes (`gemma2`), the
+    flash_attention_bwd row (the backward alone, at qwen3's layer shape;
+    `fwd_bwd` the gradient's forward + backward) its readings at the group-8
+    shape and gemma2's local layer, the adamw row at the moe path's largest
     leaf (`moe_leaf`) and at gemma2's embedding (`gemma2_leaf`), the
-    rmsnorm and xent rows at gemma2's shapes (`gemma2`).  flash_attention_f32 and
-    ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
+    rmsnorm and xent rows at gemma2's shapes (`gemma2`).  flash_attention_f32,
+    flash_attention_bwd_f32 and ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
     smoke training runs' counts.  A count is one call of the kernel's
     wrapper: the ssd forward is two launches a call, its backward three, an
@@ -4580,7 +4743,7 @@ def kernels_line(state):
                 serve_key]
             by_path["serve_gemma2"] = state["serve_gemma2_launches"][
                 serve_key]
-        if key == "flash_f32":
+        if key in ("flash_f32", "flash_bwd_f32"):
             by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
         if key.startswith("ssd"):
             by_path["zamba2_smoke_f32"] = state["zamba_smoke_launches"][key]
@@ -4594,13 +4757,23 @@ def kernels_line(state):
             "rmsnorm", gemma2=state["gemma2_rmsnorm"]),
         row("flash_attention", "flash", "flash_attention_sm90.cu",
             "flash_attention/kernel.py:77", "flash",
-            group8=state["flash_group8"], gemma2=state["gemma2_flash"],
-            gemma2_grad=state["gemma2_flash_grad"]),
+            group8=state["flash_group8"], gemma2=state["gemma2_flash"]),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_f32", "flash_f32", "flash_attention.cu",
             "flash_attention/kernel.py:77", "flash_f32",
             kernel="flash_fwd_tf32_kernel: mma.sync m16n8k8 TF32, "
                    "hi*hi + hi*lo + lo*hi"),
+        row("flash_attention_bwd", "flash_bwd", "flash_attention_bwd_sm90.cu",
+            "flash_attention/ops.py:62", "flash_bwd",
+            group8=state["flash_bwd_group8"],
+            gemma2=state["flash_bwd_gemma2"],
+            kernel="flash_bwd_dq_sm90_kernel (D, dQ), then "
+                   "flash_bwd_dkdv_sm90_kernel (dK, dV): wgmma, TMA"),
+        # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
+        row("flash_attention_bwd_f32", "flash_bwd_f32", "flash_attention.cu",
+            "flash_attention/ops.py:62", "flash_bwd_f32",
+            kernel="flash_bwd_dq_tf32_kernel, then "
+                   "flash_bwd_dkdv_tf32_kernel: mma.sync m16n8k8 TF32 x3"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:61", gemma2=state["gemma2_xent_fwd"]),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",

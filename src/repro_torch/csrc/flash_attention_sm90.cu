@@ -44,38 +44,29 @@
 //    while P V is on the tensor cores.
 //  * setmaxnreg moves registers from the producer (24) to the consumers
 //    (240).  The epilogue normalises in registers and stores bf16 pairs
-//    through the output strides.
-// CUtensorMap and its enums; the encoder is fetched through the runtime
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//    through the output strides; where the caller passes `lse` (a gradient
+//    is needed) it also writes each row's log-sum-exp, which the backward
+//    (flash_attention_bwd_sm90.cu) rebuilds P from.
+#include "sm90.cuh"
+
 #include <math_constants.h>
 
-#include <cstdint>
-
 namespace {
+
+using namespace sm90;
 
 constexpr int kBM = 128;       // query rows per block
 constexpr int kBN = 128;       // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // warpgroups 0, 1 consume; 2 produces
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory layout of one head dim: a tile of R rows x HD bf16 is kBlocks
-// column blocks of R rows x kSw bytes, each swizzled at kSw bytes.
+// Tile sizes of one head dim (the column blocks of sm90::Sw)
 template <int HD>
-struct Layout {
-  static constexpr int kSw = HD * 2 < 128 ? HD * 2 : 128;
-  static constexpr int kCols = kSw / 2;  // bf16 columns of a block
-  static constexpr int kBlocks = HD / kCols;
+struct Layout : Sw<HD> {
   static constexpr uint32_t kQBytes = kBM * HD * 2;
   static constexpr uint32_t kKVBytes = kBN * HD * 2;
-  // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
-  static constexpr uint64_t kDescLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;
-  static constexpr CUtensorMapSwizzle kTmaSwizzle =
-      kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                 : kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                             : CU_TENSOR_MAP_SWIZZLE_32B;
   // 1024 of slack to align the tiles to the 128B swizzle's 1 KB period,
   // Q, the K and V rings, then the mbarriers (Q full; K and V full, empty)
   static constexpr int kSmem =
@@ -84,6 +75,7 @@ struct Layout {
 
 struct Params {
   void* o;
+  float* lse;     // (B, H, S) row log-sum-exp, natural log; null: not written
   int S, T, H, Kh;
   long long sob, sos, soh;
   int causal;
@@ -91,225 +83,6 @@ struct Params {
   float softcap;  // <= 0: none
   float q_scale;
 };
-
-// ---- PTX wrappers ----------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-      ::"r"(bar)
-      : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.  A wait of more
-// than ~2^35 cycles (tens of seconds) is a fault in the protocol: it traps,
-// so that the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 35)) {
-      __trap();
-    }
-  }
-}
-
-// TMA: the box at (c0 = column, c1 = row, c2 = head, c3 = batch) of `map`
-// into shared memory at `dst`, completing `bytes` on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins the registers of `r` at this point of the program, so that the
-// compiler moves no access to them across an asynchronous wgmma's issue or
-// wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle layout.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
-}
-
-// K-major operand (Q or K): k-step `kk` (16 columns, 32 bytes) of a tile
-// whose column blocks hold `rows` rows.  8-row groups lie 8 * kSw apart.
-template <int HD>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows,
-                                                int kk) {
-  using L = Layout<HD>;
-  const uint32_t byte = kk * 32;
-  return make_desc(tile + (byte / L::kSw) * rows * L::kSw + byte % L::kSw, 16,
-                   8 * L::kSw, L::kDescLayout);
-}
-
-// MN-major operand (V, n = hd contiguous): k-step `kk` (16 keys).  The
-// leading offset steps between column blocks, the stride offset between
-// 8-key groups.
-template <int HD>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  using L = Layout<HD>;
-  return make_desc(tile + kk * 16 * L::kSw, kBN * L::kSw, 8 * L::kSw,
-                   L::kDescLayout);
-}
-
-#define R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define R16(i) R4(i), R4(i + 4), R4(i + 8), R4(i + 12)
-
-// S(64 x 128, fp32) (+)= A(64 x 16) B(128 x 16)^T, both K-major in shared
-// memory; scale_d = 0 overwrites.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : R16(0), R16(16), R16(32), R16(48)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O(64 x N, fp32) += A(64 x 16, bf16 in registers) B(16 x N), B MN-major in
-// shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "1;\n}\n"
-      : R4(0), R4(4)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : R16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : R16(0), R16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, "
-      "1;\n}\n"
-      : R16(0), R16(16), R16(32), R16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef R16
-#undef R4
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two probabilities (a, b: the lower column first) as bf16 pairs hi + lo
-// with a ~= hi.x + lo.x, b ~= hi.y + lo.y to ~16 bits: P V as P_hi V +
-// P_lo V keeps the reference's fp32 P to within fp32 accumulation, where
-// one bf16 P would carry 8 bits.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // ---- the kernel ------------------------------------------------------------
 // Accumulator fragment of wgmma m64nN (fp32): thread t of the warpgroup
@@ -361,9 +134,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 256) {
       const int kvh = h / (p.H / p.Kh);
       mbar_expect_tx(q_full, L::kQBytes);
-      for (int c = 0; c < L::kBlocks; ++c)
-        tma_load(s_q + c * kBM * L::kSw, &tm_q, q_full, c * L::kCols, m0, h,
-                 b);
+      tma_tile<HD, kBM>(s_q, &tm_q, q_full, m0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         const uint32_t parity = ((it / kStages) & 1) ^ 1;
@@ -372,14 +143,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t vt = s_v + st * L::kKVBytes;
         mbar_wait(k_empty(st), parity);
         mbar_expect_tx(k_full(st), L::kKVBytes);
-        for (int c = 0; c < L::kBlocks; ++c)
-          tma_load(kt + c * kBN * L::kSw, &tm_k, k_full(st), c * L::kCols,
-                   n0, kvh, b);
+        tma_tile<HD, kBN>(kt, &tm_k, k_full(st), n0, kvh, b);
         mbar_wait(v_empty(st), parity);
         mbar_expect_tx(v_full(st), L::kKVBytes);
-        for (int c = 0; c < L::kBlocks; ++c)
-          tma_load(vt + c * kBN * L::kSw, &tm_v, v_full(st), c * L::kCols,
-                   n0, kvh, b);
+        tma_tile<HD, kBN>(vt, &tm_v, v_full(st), n0, kvh, b);
       }
     }
   } else {
@@ -406,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t kt = s_k + st * L::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_n128(s, desc_kmajor<HD>(q_wg, kBM, kk),
+        wgmma_ss(s, desc_kmajor<HD>(q_wg, kBM, kk),
                       desc_kmajor<HD>(kt, kBN, kk), kk > 0);
       wgmma_commit();
     };
@@ -420,7 +187,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int part = 0; part < 2; ++part)
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
-          wgmma_rs(o, pa[part][kk], desc_mnmajor<HD>(vt, kk));
+          wgmma_rs(o, pa[part][kk], desc_mnmajor<HD>(vt, kBN, kk));
       wgmma_commit();
     };
 
@@ -471,15 +238,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_run[(r / 2) % 2] += s[r];
       }
     };
-    // P as A fragments, one per 16-key step: bf16 hi parts, then lo parts
-    auto to_a = [&](const float (&s)[64], uint32_t (&pa)[2][kBN / 16][4]) {
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], pa[0][kk][j],
-                     pa[1][kk][j]);
-    };
     // a K or V tile is released once the products that read it are done
     auto release_k = [&](int it) {
       if (lane == 0) mbar_arrive(k_empty(it % kStages));
@@ -507,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       pin(s);
       release_k(0);
       softmax(s, 0, corr);
-      to_a(s, pa);
+      to_a<kBN>(s, pa);
     }
     for (int it = 1; it < n_tiles; ++it) {
       pin(s);
@@ -524,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       release_v(it - 1);
 #pragma unroll
       for (int r = 0; r < HD / 2; ++r) o[r] *= corr[(r / 2) % 2];
-      to_a(s, pa);
+      to_a<kBN>(s, pa);
     }
     if (n_tiles > 0) {
       pin(o);
@@ -542,6 +300,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[i] = l > 0.f ? 1.f / l : 0.f;
+      // the row's log-sum-exp for the backward; a row that sees no key
+      // gets +inf, so that its probabilities there read 0
+      const int row = row0 + 8 * i;
+      if (p.lse != nullptr && lane % 4 == 0 && row < p.S)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.S + row] =
+            l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : CUDART_INF_F;
     }
     __nv_bfloat16* out =
         static_cast<__nv_bfloat16*>(p.o) + b * p.sob + h * p.soh;
@@ -558,78 +322,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- host ------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map over (hd, seq, heads, batch) of a bf16 tensor with element
-// strides (s_seq, s_head, s_batch) and unit stride on hd; boxes of `cols` x
-// 128 rows of one head and batch row.
-template <int HD>
-bool encode(CUtensorMap* map, const void* ptr, int seq, int heads, int batch,
-            long long s_seq, long long s_head, long long s_batch) {
-  using L = Layout<HD>;
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_seq) * 2,
-                                 static_cast<cuuint64_t>(s_head) * 2,
-                                 static_cast<cuuint64_t>(s_batch) * 2};
-  const cuuint32_t box[4] = {L::kCols, 128, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            L::kTmaSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, int B,
                    const long long* st, const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!encode<HD>(&tq, q, p.S, p.H, B, st[1], st[2], st[0]) ||
-      !encode<HD>(&tk, k, p.T, p.Kh, B, st[4], st[5], st[3]) ||
-      !encode<HD>(&tv, v, p.T, p.Kh, B, st[7], st[8], st[6]))
+  if (!encode<HD>(&tq, q, p.S, p.H, B, st[1], st[2], st[0], kBM) ||
+      !encode<HD>(&tk, k, p.T, p.Kh, B, st[4], st[5], st[3], kBN) ||
+      !encode<HD>(&tv, v, p.T, p.Kh, B, st[7], st[8], st[6], kBN))
     return cudaErrorInvalidValue;
   constexpr int smem = Layout<HD>::kSmem;
-  // the shared-memory opt-in, once per device (a benign race: setting it
-  // twice is harmless)
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e =
+      opt_in_smem(flash_fwd_sm90_kernel<HD>, smem, opted_in);
   if (e != cudaSuccess) return e;
-  if (dev >= 64 || !opted_in[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return e;
-    if (dev < 64) opted_in[dev] = true;
-  }
   const dim3 grid((p.S + kBM - 1) / kBM, B * p.H);
   flash_fwd_sm90_kernel<HD><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
@@ -642,19 +347,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, int B,
 // aligned q/k/v base pointers and strides that are multiples of 8 elements
 // (the wrapper checks).  Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported input or a
-// tensor map that cuTensorMapEncodeTiled refuses).
+// tensor map that cuTensorMapEncodeTiled refuses).  `lse`, where not null,
+// receives each row's log-sum-exp, (B, H, S) fp32, for the backward.
 extern "C" int flash_attention_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, int B, int S, int T,
     int H, int Kh, int hd, long long sqb, long long sqs, long long sqh,
     long long skb, long long skt, long long skh, long long svb, long long svt,
     long long svh, long long sob, long long sos, long long soh, int causal,
-    int window, float softcap, float q_scale, void* stream) {
+    int window, float softcap, float q_scale, void* lse, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || Kh <= 0 || H % Kh != 0 ||
       B * H > 65535)
     return cudaErrorInvalidValue;
   const long long st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
-  const Params p{o,   S,   T,      H,      Kh,      sob,
-                 sos, soh, causal, window, softcap, q_scale};
+  const Params p{o,   static_cast<float*>(lse), S,      T,
+                 H,   Kh,  sob,    sos,    soh,     causal,
+                 window, softcap, q_scale};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch<16>(q, k, v, B, st, p, s);

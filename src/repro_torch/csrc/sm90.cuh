@@ -1,0 +1,366 @@
+// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
+// (flash_attention_sm90.cu, the forward; flash_attention_bwd_sm90.cu, the
+// backward): mbarriers, TMA loads through tensor maps, wgmma with its
+// shared-memory descriptors, setmaxnreg, and the bf16 hi + lo split.
+#pragma once
+
+// CUtensorMap and its enums; the encoder is fetched through the runtime
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace sm90 {
+
+// Shared-memory layout of one head dim: a tile of R rows x HD bf16 is
+// kBlocks column blocks of R rows x kSw bytes, each swizzled at kSw bytes.
+template <int HD>
+struct Sw {
+  static constexpr int kSw = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int kCols = kSw / 2;  // bf16 columns of a block
+  static constexpr int kBlocks = HD / kCols;
+  // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
+  static constexpr uint64_t kDescLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kTmaSwizzle =
+      kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+// ---- PTX wrappers ----------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+      ::"r"(bar)
+      : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.  A wait of more
+// than ~2^35 cycles (tens of seconds) is a fault in the protocol: it traps,
+// so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
+    }
+  }
+}
+
+// TMA: the box at (c0 = column, c1 = row, c2 = head, c3 = batch) of `map`
+// into shared memory at `dst`, completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The R-row tile at (row, head, batch) of a tensor map whose boxes are R
+// rows of one column block, as Sw<HD>'s column blocks at `dst`.
+template <int HD, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head,
+                                         int batch) {
+  using L = Sw<HD>;
+#pragma unroll
+  for (int c = 0; c < L::kBlocks; ++c)
+    tma_load(dst + c * R * L::kSw, map, bar, c * L::kCols, row, head, batch);
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// A barrier over the 128 threads of one warpgroup (`id` 1..15; 0 is
+// __syncthreads')
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the registers of `r` at this point of the program, so that the
+// compiler moves no access to them across an asynchronous wgmma's issue or
+// wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+// K-major operand (hd contiguous, hd the contraction): k-step `kk` (16
+// columns, 32 bytes) of a tile whose column blocks hold `rows` rows.  8-row
+// groups lie 8 * kSw apart.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows,
+                                                int kk) {
+  using L = Sw<HD>;
+  const uint32_t byte = kk * 32;
+  return make_desc(tile + (byte / L::kSw) * rows * L::kSw + byte % L::kSw, 16,
+                   8 * L::kSw, L::kDescLayout);
+}
+
+// MN-major operand (n = hd contiguous, the rows the contraction): k-step
+// `kk` (16 rows) of a tile whose column blocks hold `rows` rows.  The
+// leading offset steps between column blocks, the stride offset between
+// 8-row groups.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows,
+                                                 int kk) {
+  using L = Sw<HD>;
+  return make_desc(tile + kk * 16 * L::kSw, rows * L::kSw, 8 * L::kSw,
+                   L::kDescLayout);
+}
+
+#define R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define R16(i) R4(i), R4(i + 4), R4(i + 8), R4(i + 12)
+
+// D(64 x 64, fp32) (+)= A(64 x 16) B(64 x 16)^T, both K-major in shared
+// memory; scale_d = 0 overwrites.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : R16(0), R16(16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x 128, fp32) (+)= A(64 x 16) B(128 x 16)^T, both K-major in shared
+// memory; scale_d = 0 overwrites.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : R16(0), R16(16), R16(32), R16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x N, fp32) += A(64 x 16, bf16 in registers) B(16 x N), B MN-major in
+// shared memory (transpose bit set); N = 16, 32, 64 or 128 by d's size.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : R4(0), R4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : R16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : R16(0), R16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, "
+      "1;\n}\n"
+      : R16(0), R16(16), R16(32), R16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef R16
+#undef R4
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 values (a, b: the lower column first) as bf16 pairs hi + lo
+// with a ~= hi.x + lo.x, b ~= hi.y + lo.y to ~16 bits: a product taken as
+// hi * B + lo * B keeps an fp32 operand to within fp32 accumulation, where
+// one bf16 part would carry 8 bits.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// An accumulator of wgmma m64nN (fp32, N / 2 registers) as the A fragments
+// of the next product, whose contraction runs over those N columns: one
+// per 16-column k-step, bf16 hi parts in a[0], lo parts in a[1].  The
+// accumulator layout is the A-fragment layout, so nothing moves between
+// threads.
+template <int N>
+__device__ __forceinline__ void to_a(const float (&s)[N / 2],
+                                     uint32_t (&a)[2][N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], a[0][kk][j],
+                 a[1][kk][j]);
+}
+
+// ---- host ------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over (hd, seq, heads, batch) of a bf16 tensor with element
+// strides (s_seq, s_head, s_batch) and unit stride on hd; boxes of one
+// column block x `rows` rows of one head and batch row.  Rows past `seq`
+// read as zeros.
+template <int HD>
+bool encode(CUtensorMap* map, const void* ptr, int seq, int heads, int batch,
+            long long s_seq, long long s_head, long long s_batch, int rows) {
+  using L = Sw<HD>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_seq) * 2,
+                                 static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {L::kCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            L::kTmaSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The dynamic shared-memory opt-in of `kernel` to `bytes`, once per device
+// (a benign race: setting it twice is harmless).
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
+}
+
+}  // namespace sm90

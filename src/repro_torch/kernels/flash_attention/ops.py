@@ -10,14 +10,22 @@ h // (H // Kh) inside the kernel, and keys are masked on the true length T,
 so no repeat, transpose or padding copy is made.
 
 `flash_attention` goes through a `torch.autograd.Function` where a
-gradient is needed, and straight to the forward elsewhere.  Its backward is
-plain torch: it recomputes the plain version one query chunk of `Q_CHUNK`
-rows at a time and differentiates that, so the (S, T) score matrix is never
-live whole, as the reference's `attention_chunked` remat does (no backward
-kernel exists in the reference either).  There is no fallback: a CUDA
-input the kernel does not take, a failed build or a failed launch raises.
-`launches` counts the bf16 kernel's launches, `launches_f32` the fp32
-kernel's.
+gradient is needed, and straight to the forward elsewhere.  On the card its
+forward also writes each row's log-sum-exp (fp32, (B, H, S)), which only a
+gradient needs, and its backward goes by dtype too (the
+reference's lax `_vjp_bwd`): bf16 to `csrc/flash_attention_bwd_sm90.cu`
+(wgmma and TMA; P and dS as bf16 hi + lo), fp32 to `flash_attention.cu`'s
+backward (TF32 mma.sync, three products).  Each is a dQ kernel that also
+writes D = rowsum(dO o O), then key-major kernels that sum a kv head's
+group into dK and dV (one launch for both in bf16, one each in fp32):
+every output element is written by one block, with no atomics, so two
+calls are bit-identical.  On the CPU the backward recomputes the plain
+version one query chunk of `Q_CHUNK` rows at a time and differentiates
+that, so the (S, T) score matrix is never live whole, as the reference's
+`attention_chunked` remat does.  There is no fallback: a CUDA input the
+kernels do not take, a failed build or a failed launch raises.
+`launches` / `launches_f32` count the bf16 / fp32 forward's calls,
+`bwd_launches` / `bwd_launches_f32` the backward's.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from repro_torch.kernels.flash_attention import ref
 
 launches = 0
 launches_f32 = 0
+bwd_launches = 0
+bwd_launches_f32 = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 Q_CHUNK = 512
@@ -59,13 +69,22 @@ def _forward(q, k, v, causal, window, softcap, q_scale):
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_scale):
-        ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
                       q_scale=q_scale)
-        return _forward(q, k, v, causal, window, softcap, q_scale)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return ref.attention(q, k, v, **ctx.kw)
+        o, lse = flash_attention_cuda(q, k, v, causal, window, softcap,
+                                      q_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
+        if do.device.type != "cpu":
+            grads = flash_attention_bwd_cuda(*ctx.saved_tensors, do,
+                                             **ctx.kw)
+            return *grads, None, None, None, None
         q, k, v = ctx.saved_tensors
         dq = torch.empty_like(q)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
@@ -86,11 +105,18 @@ class _Flash(torch.autograd.Function):
 
 @functools.cache
 def _kernel(name):
+    """The launcher `name`: a forward takes q, k, v, o, 6 sizes, 12 strides,
+    the masks and scale, (fp32) the products, lse and the stream; a
+    backward q, k, v, o, dout, lse, delta, dq, dk, dv, 6 sizes, 24 strides,
+    the masks and scale, (fp32) the products and the stream."""
     fn = getattr(build.library().cdll, name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12
+    bwd = "_bwd" in name
+    fn.argtypes = ([p] * (10 if bwd else 4) + [i] * 6 + [ll] * (24 if bwd
+                                                                 else 12)
                    + [i, i, ctypes.c_float, ctypes.c_float]
-                   + ([] if name.endswith("sm90") else [i]) + [p])
+                   + ([] if name.endswith("sm90") else [i])
+                   + ([] if bwd else [p]) + [p])
     fn.restype = i
     return fn
 
@@ -103,12 +129,9 @@ def _tma_strides(t):
             for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
-def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale,
-                         tf32_products=3):
-    """The kernels' launch.  `tf32_products` (fp32 only): 3 for the kernel
-    (hi*hi + hi*lo + lo*hi), 1 for hi*hi alone, a planted fault that the
-    checks must reject."""
-    global launches, launches_f32
+def _check(q, k, v, window, softcap):
+    """Raises on what the kernels do not take; returns q, k, v's strides
+    over (batch, position, head) as the launchers take them."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash kernel: q, k, v must be on one CUDA device")
     if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
@@ -131,30 +154,104 @@ def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale,
         raise ValueError(f"flash kernel: window {window} must be >= 1")
     if softcap is not None and softcap < 0:
         raise ValueError(f"flash kernel: softcap {softcap} must be > 0")
+    if q.dtype != torch.bfloat16:
+        return [st for t in (q, k, v) for st in t.stride()[:3]]
+    if not _tma_readable(q, k, v):
+        raise ValueError(
+            "flash kernel: bf16 q/k/v are read by TMA, which needs "
+            "16-byte aligned base pointers and strides that are multiples "
+            f"of 8 elements; got strides {[t.stride() for t in (q, k, v)]}"
+            f" and offsets {[t.storage_offset() for t in (q, k, v)]}")
+    return [st for t in (q, k, v) for st in _tma_strides(t)]
+
+
+def _tma_readable(*ts):
+    return not any(t.data_ptr() % 16 or any(st % 8 for st in _tma_strides(t))
+                   for t in ts)
+
+
+def _scale(q_scale, hd):
+    return float(q_scale if q_scale is not None else 1.0 / math.sqrt(hd))
+
+
+def flash_attention_cuda(q, k, v, causal, window, softcap, q_scale,
+                         tf32_products=3, with_lse=False):
+    """The forward kernels' launch.  `tf32_products` (fp32 only): 3 for the
+    kernel (hi*hi + hi*lo + lo*hi), 1 for hi*hi alone, a planted fault that
+    the checks must reject.  With `with_lse` it also returns each row's
+    log-sum-exp, (B, H, S) fp32, which the backward needs."""
+    global launches, launches_f32
+    strides = _check(q, k, v, window, softcap)
+    B, S, H, hd = q.shape
+    T, Kh = k.shape[1], k.shape[2]
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        strides = [st for t in (q, k, v) for st in _tma_strides(t)]
-        if (any(t.data_ptr() % 16 for t in (q, k, v))
-                or any(st % 8 for st in strides)):
-            raise ValueError(
-                "flash kernel: bf16 q/k/v are read by TMA, which needs "
-                "16-byte aligned base pointers and strides that are multiples "
-                f"of 8 elements; got strides {[t.stride() for t in (q, k, v)]}"
-                f" and offsets {[t.storage_offset() for t in (q, k, v)]}")
-    else:
-        strides = [st for t in (q, k, v) for st in t.stride()[:3]]
-    scale = q_scale if q_scale is not None else 1.0 / math.sqrt(hd)
     # empty_like: a third of torch.empty's host cost
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     name = "flash_attention_fwd_sm90" if bf16 else "flash_attention_fwd"
     rc = _kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, S, T, H, Kh, hd, *strides, *o.stride()[:3],
-        int(causal), int(window or 0), float(softcap or 0.0), float(scale),
-        *(() if bf16 else (tf32_products,)), build.stream_ptr(q.device))
+        int(causal), int(window or 0), float(softcap or 0.0),
+        _scale(q_scale, hd), *(() if bf16 else (tf32_products,)),
+        None if lse is None else lse.data_ptr(), build.stream_ptr(q.device))
     build.check(rc, name)
     if bf16:
         launches += 1
     else:
         launches_f32 += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=None,
+                             softcap=None, q_scale=None, tf32_products=3):
+    """The backward kernels' launch: (dq, dk, dv) in the inputs' dtype from
+    the forward's inputs, its output `o` and row log-sum-exp `lse` ((B, H,
+    S) fp32) and the cotangent `do`.  `tf32_products` as for the forward
+    (fp32 only; 1 is the planted fault)."""
+    global bwd_launches, bwd_launches_f32
+    strides = _check(q, k, v, window, softcap)
+    B, S, H, hd = q.shape
+    T, Kh = k.shape[1], k.shape[2]
+    if (do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype
+            or o.dtype != q.dtype or do.device != q.device
+            or o.device != q.device or o.stride(-1) != 1
+            or o.data_ptr() % 16):
+        raise ValueError(f"flash backward: do {tuple(do.shape)} {do.dtype}, "
+                         f"o {tuple(o.shape)} {o.dtype} (strides "
+                         f"{o.stride()}) against q {tuple(q.shape)} "
+                         f"{q.dtype}; o's rows are read whole, 16-byte "
+                         "aligned")
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash backward: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}; need contiguous fp32 (B, H, S)")
+    bf16 = q.dtype == torch.bfloat16
+    # the cotangent is read with a unit stride on hd, in bf16 by TMA, whose
+    # map takes no stride of 0: autograd hands an expanded one (all strides
+    # 0 after a .sum()) to a copy
+    if do.stride(-1) != 1 or bf16 and not (
+            _tma_readable(do) and all(_tma_strides(do))):
+        do = do.contiguous()
+    o_strides = list(o.stride()[:3])
+    do_strides = _tma_strides(do) if bf16 else list(do.stride()[:3])
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    name = "flash_attention_bwd_sm90" if bf16 else "flash_attention_bwd"
+    rc = _kernel(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, T, H, Kh, hd, *strides,
+        *o_strides, *do_strides,
+        *(st for t in (dq, dk, dv) for st in t.stride()[:3]),
+        int(causal), int(window or 0), float(softcap or 0.0),
+        _scale(q_scale, hd), *(() if bf16 else (tf32_products,)),
+        build.stream_ptr(q.device))
+    build.check(rc, name)
+    if bf16:
+        bwd_launches += 1
+    else:
+        bwd_launches_f32 += 1
+    return dq, dk, dv

@@ -15,8 +15,11 @@ The quant pair must equal its plain version bit for bit (wire bytes,
 scales, decoded values, the seed the SR launch used), also at the largest
 bucket of the full-width path, around the edge of the SR seed pass's grid
 and on views whose loads are misaligned.  The gradients of the rmsnorm and
-flash `autograd.Function`s (kernel forward, plain-torch backward) are held
-against autograd through the plain versions.  The SSD goes by dtype too:
+flash `autograd.Function`s are held against autograd through the plain
+versions (rmsnorm: kernel forward, plain-torch backward; flash: kernel
+forward and backward kernels, `bwd_launches` / `bwd_launches_f32`, also
+against the plain reverse pass `ref.attention_bwd`, bit-identical across
+calls, with its planted faults missing FLASH_BF16_GRAD_RMS_REL / TOL32).  The SSD goes by dtype too:
 bf16 to the chunk-parallel tensor-core forward (`launches`), fp32 to the
 CUDA-core one (`launches` and `launches_f32`); its backward kernels
 (`bwd_launches`) are held against the plain reverse-pass backward and
@@ -264,12 +267,185 @@ def test_flash_gradient_matches_plain_autograd(dev, S, T_chunk, dtype,
     v = _randn(dev, 2, S, 2, 64, dtype=dtype, seed=2)
     ct = _randn(dev, 2, S, 4, 64, dtype=dtype, seed=3)
     n = flash_ops.launches + flash_ops.launches_f32
+    nb = flash_ops.bwd_launches + flash_ops.bwd_launches_f32
     got = _grads(lambda *a: flash_ops.flash_attention(*a), (q, k, v), ct)
     assert flash_ops.launches + flash_ops.launches_f32 == n + 1
+    assert flash_ops.bwd_launches + flash_ops.bwd_launches_f32 == nb + 1
     want = _grads(lambda *a: flash_ref.attention(*a), (q, k, v), ct)
     for a, b in zip(got, want):
         torch.testing.assert_close(
             a.float(), b.float(), **(TOL32 if dtype == torch.float32 else TOL))
+
+
+# The backward kernels (bf16: flash_attention_bwd_sm90.cu, 128-key dK/dV
+# blocks over 64-row Q tiles and 128-row dQ blocks over 64-key tiles; fp32:
+# flash_attention.cu, 64-row / 64-key blocks over 32-row / 32-key tiles) on
+# the forward's o and lse, against the plain reverse pass and autograd
+# through the plain version: tile edges, windows with a softcap, head dims
+# and groups, q_scale, non-causal, qwen3's S = T = 2048 at H16 / Kh8.
+FLASH_BWD_CASES = [  # (B, T, H, Kh, hd, kwargs)
+    (1, 127, 4, 2, 128, dict(causal=True)),
+    (1, 128, 4, 2, 128, dict(causal=True)),
+    (1, 129, 4, 2, 128, dict(causal=True)),
+    (2, 129, 4, 2, 64, dict(causal=False)),
+    (2, 63, 4, 1, 32, dict(causal=False, q_scale=0.3)),
+    (2, 600, 4, 2, 64, dict(causal=True, window=127, softcap=30.0)),
+    (2, 600, 4, 2, 64, dict(causal=True, window=128, softcap=30.0)),
+    (2, 600, 4, 2, 64, dict(causal=True, window=129, softcap=30.0,
+                            q_scale=0.0625)),
+    (2, 300, 8, 8, 16, dict(causal=True)),
+    (2, 300, 8, 4, 32, dict(causal=True)),
+    (2, 300, 8, 2, 64, dict(causal=True)),
+    (2, 300, 8, 1, 128, dict(causal=True)),
+    (1, 2048, 16, 8, 128, dict(causal=True)),
+]
+# bf16 gradients against the plain reverse pass: chip_smoke.py's
+# FLASH_BF16_GRAD_RMS_REL, where the value is explained
+FLASH_BF16_GRAD_RMS_REL = 1e-3
+
+
+def _flash_bwd_inputs(dev, B, T, H, Kh, hd, dtype):
+    return (_randn(dev, B, T, H, hd, dtype=dtype),
+            _randn(dev, B, T, Kh, hd, dtype=dtype, seed=1),
+            _randn(dev, B, T, Kh, hd, dtype=dtype, seed=2),
+            _randn(dev, B, T, H, hd, dtype=dtype, seed=3))
+
+
+def _fwd_lse(q, k, v, kw):
+    return flash_ops.flash_attention_cuda(
+        q, k, v, kw["causal"], kw.get("window"), kw.get("softcap"),
+        kw.get("q_scale"), with_lse=True)
+
+
+def _rms_rel(got, want):
+    e, w = got.float() - want.float(), want.float()
+    return (e.pow(2).mean().sqrt() / w.pow(2).mean().sqrt()).item()
+
+
+@pytest.mark.parametrize("B,T,H,Kh,hd,kw", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain(dev, B, T, H, Kh, hd, kw, dtype):
+    q, k, v, ct = _flash_bwd_inputs(dev, B, T, H, Kh, hd, dtype)
+    o, lse = _fwd_lse(q, k, v, kw)
+    torch.testing.assert_close(lse, flash_ref.attention_lse(q, k, **kw),
+                               **TOL32)
+    n = (flash_ops.bwd_launches, flash_ops.bwd_launches_f32)
+    got = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct, **kw)
+    bf16 = dtype == torch.bfloat16
+    assert (flash_ops.bwd_launches - n[0],
+            flash_ops.bwd_launches_f32 - n[1]) == ((1, 0) if bf16 else (0, 1))
+    assert [g.dtype for g in got] == [dtype] * 3
+    want = flash_ref.attention_bwd(q, k, v, o, lse, ct, **kw)
+    auto = _grads(lambda *a: flash_ref.attention(*a, **kw), (q, k, v), ct)
+    for a, b, c in zip(got, want, auto[1:]):
+        tol = TOL if bf16 else TOL32
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+        torch.testing.assert_close(a.float(), c.float(), **tol)
+        if bf16:
+            assert _rms_rel(a, b) <= FLASH_BF16_GRAD_RMS_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_are_deterministic(dev, dtype):
+    """Every output element is written by one block in a fixed order: two
+    calls agree bit for bit (restarts stay bit-exact)."""
+    q, k, v, ct = _flash_bwd_inputs(dev, 2, 515, 8, 2, 128, dtype)
+    o, lse = _fwd_lse(q, k, v, dict(causal=True))
+    a = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct)
+    b = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_bwd_bf16_plants_miss_their_limits(dev):
+    """Each planted fault of the plain reverse pass fails TOL or
+    FLASH_BF16_GRAD_RMS_REL against the unplanted one, which the kernels
+    pass, at qwen3-1.7b's layer shape."""
+    q, k, v, ct = _flash_bwd_inputs(dev, 1, 2048, 16, 8, 128, torch.bfloat16)
+    o, lse = _fwd_lse(q, k, v, dict(causal=True))
+    want = flash_ref.attention_bwd(q, k, v, o, lse, ct)
+    for plant in flash_ref.PLANTS:
+        got = flash_ref.attention_bwd(q, k, v, o, lse, ct, plant=plant)
+        assert any(_rms_rel(a, b) > FLASH_BF16_GRAD_RMS_REL
+                   or not torch.allclose(a.float(), b.float(), **TOL)
+                   for a, b in zip(got, want)), plant
+
+
+def test_flash_bwd_f32_with_one_tf32_product_misses_tol32(dev):
+    q, k, v, ct = _flash_bwd_inputs(dev, 2, 777, 8, 8, 64, torch.float32)
+    kw = dict(causal=False)
+    o, lse = _fwd_lse(q, k, v, kw)
+    want = _grads(lambda *a: flash_ref.attention(*a, **kw), (q, k, v), ct)
+    got = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct, **kw)
+    for a, b in zip(got, want[1:]):
+        torch.testing.assert_close(a, b, **TOL32)
+    one = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct,
+                                             tf32_products=1, **kw)
+    assert not all(torch.allclose(a, b, **TOL32)
+                   for a, b in zip(one, want[1:]))
+
+
+def test_flash_bwd_reads_strided_heads_and_cotangent(dev):
+    """q, k, v as head slices of one packed projection; a cotangent that
+    TMA cannot read (a transposed view) is made contiguous first."""
+    qkv = _randn(dev, 2, 200, 12, 64, dtype=torch.bfloat16)
+    q, k, v = qkv.split([8, 2, 2], dim=2)
+    ct = _randn(dev, 2, 8, 200, 64, dtype=torch.bfloat16, seed=3)
+    ct = ct.transpose(1, 2)
+    o, lse = _fwd_lse(q, k, v, dict(causal=True))
+    got = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct)
+    want = flash_ref.attention_bwd(q, k, v, o, lse, ct)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **TOL)
+
+
+@pytest.mark.parametrize("form", ["sum", "batch_expanded", "hd_strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_takes_expanded_and_strided_cotangents(dev, dtype, form):
+    """Autograd's cotangent of `.sum()` is expanded (every stride 0), one
+    broadcast over the batch has a batch stride of 0, and a slice of a wider
+    tensor has no unit hd stride: the kernels see each as a contiguous
+    copy."""
+    q, k, v, ct = _flash_bwd_inputs(dev, 2, 200, 8, 2, 64, dtype)
+    if form == "sum":
+        ct = torch.ones((), dtype=dtype, device=dev).expand(q.shape)
+    elif form == "batch_expanded":
+        ct = ct[:1].expand(q.shape)
+    else:
+        ct = _randn(dev, 2, 200, 8, 128, dtype=dtype, seed=3)[..., ::2]
+    o, lse = _fwd_lse(q, k, v, dict(causal=True))
+    want = flash_ref.attention_bwd(q, k, v, o, lse, ct.contiguous())
+    tol = TOL if dtype == torch.bfloat16 else TOL32
+    got = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct)
+    if form == "sum":
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        n = flash_ops.bwd_launches + flash_ops.bwd_launches_f32
+        flash_ops.flash_attention(*leaves).sum().backward()
+        assert flash_ops.bwd_launches + flash_ops.bwd_launches_f32 == n + 1
+        got = [t.grad for t in leaves]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+def test_flash_bwd_rejects_what_the_forward_rejects(dev):
+    q, k, v, ct = _flash_bwd_inputs(dev, 1, 64, 2, 2, 64, torch.bfloat16)
+    o, lse = _fwd_lse(q, k, v, dict(causal=True))
+    wide = _randn(dev, 1, 64, 2, 70, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_ops.flash_attention_bwd_cuda(wide, k, v, o, lse, ct)
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention_bwd_cuda(q, k.float(), v, o, lse, ct)
+    with pytest.raises(ValueError, match="hd"):
+        x = _randn(dev, 1, 8, 2, 48, dtype=torch.bfloat16)
+        flash_ops.flash_attention_bwd_cuda(x, x, x, x, lse[..., :8], x)
+    with pytest.raises(ValueError, match="lse"):
+        flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse.bfloat16(), ct)
+    strided_o = torch.zeros(*o.shape[:3], 2 * o.shape[3], dtype=o.dtype,
+                            device=o.device)[..., ::2]
+    strided_o.copy_(o)                       # unit stride on hd lost
+    with pytest.raises(ValueError, match="o's rows"):
+        flash_ops.flash_attention_bwd_cuda(q, k, v, strided_o, lse, ct)
+    with pytest.raises(ValueError, match="window"):
+        flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct, window=0)
 
 
 def _per_g(dx, g):
