@@ -67,18 +67,24 @@ without printing the final line):
      layer shape (B 4, T 2048, H 64, P 64, N 64, chunk 128; bf16 and fp32,
      the model's own dt and A ranges, B and C as strided halves of one
      packed projection), the reference sweep's shapes and the smoke shape
-     with a ragged last chunk; bf16 on the chunk-parallel tensor-core
-     forward, fp32 on the CUDA-core one (`launches_f32`); every bf16 output
-     also held to SSD_BF16_RMS_REL, which two planted results (the state
-     not carried across chunks, M in one bf16 part) must fail; kernel /
-     plain ms and the bound; the backward kernels (kernel forward + kernel
-     backward) against autograd through the plain version at the full
-     shape in bf16 and fp32, with the backward's own ms beside its bound
-     and the plain version's; bf16 dx, ddt, dB and dC also held to
-     SSD_BF16_GRAD_RMS_REL of the plain reverse-pass backward, which that
-     backward with M and dM o L in one bf16 part must fail; dA and dD
-     planted from half the chunks' partials and as 0 must fail their
-     checks.
+     with a ragged last chunk; both dtypes on the chunk-parallel forward of
+     ssd_sm90.cu (fp32 on TF32 tensor cores, counted in `launches_f32`);
+     every bf16 output also held to SSD_BF16_RMS_REL, which two planted
+     results (the state not carried across chunks, M in one bf16 part)
+     must fail, and the fp32 forward with one TF32 product must fail its
+     check; the full-width serve's prefill shapes (T 2064 and 2063: last
+     chunks of 16 and 15 rows) in both dtypes; the final state
+     (`ssd_with_state`) against the plain S at every full-width shape and
+     every ragged one (bf16 to SSD_BF16_RMS_REL, fp32 at TOL32 on the
+     summed |terms|), the state entering the last chunk planted in its
+     place; kernel / plain ms, device ms and the bound; the backward
+     kernels (kernel forward + kernel backward) against autograd through
+     the plain version at the full shape in bf16 and fp32, with the
+     backward's own ms (wall, device) beside its bound and the plain
+     version's; bf16 dx, ddt, dB and dC also held to SSD_BF16_GRAD_RMS_REL
+     of the plain reverse-pass backward, which that backward with M and dM
+     o L in one bf16 part must fail; dA and dD planted from half the
+     chunks' partials and as 0 must fail their checks.
  6b. zamba2 smoke training, card vs CPU: the launcher's trainer, zamba2
      SMOKE (shared block hd 32, T 40: a ragged SSD chunk), fp32, 3 steps
      from one CPU-made checkpoint, vanilla and prefetch: loss, grad norm,
@@ -241,6 +247,26 @@ without printing the final line):
      equal argmax; tokens/s, p50/p99 latency and time to first token, arena
      use, decode steps, prefill chunks, the device time of one decode step
      (after the run).
+ 10s. zamba2 serve smoke, card vs CPU (the main path of the fourteenth
+     slice, zamba2 serving): SMOKE in fp32, the same numpy-seeded weights,
+     a padded 40-token batch (a ragged SSD chunk), prefill and 4 decode
+     steps, logits and every state leaf (S, conv_x, conv_bc, the shared
+     block's keys and values) at TOL32; the prefill's launches (an fp32
+     SSD forward a layer, an fp32 flash forward a shared-block call), none
+     of the SSD or flash in a decode step; on the card prefill over p + 1
+     tokens against prefill over p into a cache of capacity p + 1 and one
+     decode step at p = ZAMBA2_SMOKE_P (token p opens a chunk), logits and
+     state at TOL32.
+ 10t. full-width zamba2-1.2b serve: all 38 layers, bf16 weights made on the
+     card, B 4, prompt 2000 padded to T 2064, 64 generated tokens through
+     `repro_torch.launch.serve`: prefill ms, decode ms/token beside its byte
+     bound (the weights, the 38 layers' SSD and conv states read and
+     written, the 6 shared-block caches), device time of a decode step,
+     peak memory; 38 SSD and 6 flash forwards a prefill on their bf16
+     routes, none in a decode step, no backward and no fp32 route; the
+     p+1 check at p = 2063 in bf16 (TOL_BF16_CONSISTENCY, the argmax where
+     the top-2 gap is clear; a decode with the conv states dropped must
+     fail) and on the weights widened to fp32 at TOL32.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -254,8 +280,9 @@ SSD_BF16_RMS_REL and its bf16 gradients to SSD_BF16_GRAD_RMS_REL, the
 bf16 flash gradients to FLASH_BF16_GRAD_RMS_REL; the fp32
 ssd check at zamba2's layer shape applies TOL32's rtol to the summed |terms|
 of each element (`check_terms`: 33.5M outputs of 128-term fp32 sums, some
-cancelling), as do its fp32 gradients but dA and dD, per-head sums over B*T
-held to TOL32 of their array's largest |value| (`check_scaled`); the quant
+cancelling), as do its final state and its fp32 gradients but dA and dD,
+per-head sums over B*T held to TOL32 of their array's largest |value|
+(`check_scaled`); the quant
 kernels are held to zero difference; quantized
 training runs that dither differently on the two devices are held to the
 bounds of tests/dist_harness.py's quant case (QUANT_LOSS_RTOL, drift).
@@ -454,6 +481,16 @@ def check_rejects(what, planted, want, tol):
     if torch.allclose(planted.float(), want.float(), **tol):
         raise AssertionError(f"{what}: the check cannot tell it apart")
     say(f"  {what}: rejected (max abs err {max_err(planted, want):.3e})")
+
+
+def check_rejects_terms(what, planted, want, terms, tol):
+    """A planted wrong result must fail `check_terms` at `tol`."""
+    err = (planted.float() - want.float()).abs()
+    ratio = (err / (tol["atol"] + tol["rtol"] * terms.float().abs())).max()
+    if ratio <= 1:
+        raise AssertionError(f"{what}: the check cannot tell it apart")
+    say(f"  {what}: rejected (max err / limit {ratio.item():.3f}, max abs "
+        f"err {err.max().item():.3e})")
 
 
 def rms_rel(got, want):
@@ -1361,6 +1398,7 @@ def _train_counts():
                 dequant_fwd=quant_ops.dequant_launches,
                 ssd=ssd_ops.launches, ssd_f32=ssd_ops.launches_f32,
                 ssd_bwd=ssd_ops.bwd_launches,
+                ssd_bwd_f32=ssd_ops.bwd_launches_f32,
                 gathers=coll.gathers, reduce_scatters=coll.reduce_scatters)
 
 
@@ -1376,6 +1414,7 @@ def _reset_counts():
     flash_ops.launches_f32 = ssd_ops.launches = 0
     flash_ops.bwd_launches = flash_ops.bwd_launches_f32 = 0
     ssd_ops.launches_f32 = ssd_ops.bwd_launches = 0
+    ssd_ops.bwd_launches_f32 = 0
     xent_ops.fwd_launches = xent_ops.bwd_launches = 0
     quant_ops.quant_launches = quant_ops.dequant_launches = 0
     coll.gathers = coll.reduce_scatters = 0
@@ -1392,11 +1431,11 @@ def _serve_counts():
 COLLECTIVES = ("gathers", "reduce_scatters")
 QUANT = ("quant_fwd", "dequant_fwd")
 # kernels the dense paths do not run at a bf16 wire
-NOT_DENSE = QUANT + ("ssd", "ssd_f32", "ssd_bwd")
+NOT_DENSE = QUANT + ("ssd", "ssd_f32", "ssd_bwd", "ssd_bwd_f32")
 # fp32 runs take flash's fp32 routes, bf16 runs its bf16 routes (the ssd's
-# fp32 forwards count in both ssd and ssd_f32)
+# fp32 calls count in both ssd and ssd_f32, ssd_bwd and ssd_bwd_f32)
 NOT_F32 = ("flash", "flash_bwd")
-NOT_BF16 = ("flash_f32", "flash_bwd_f32", "ssd_f32")
+NOT_BF16 = ("flash_f32", "flash_bwd_f32", "ssd_f32", "ssd_bwd_f32")
 
 
 def phase_smoke_train(state):
@@ -2294,6 +2333,35 @@ def _ssd_bwd_bound(b, t, h, p, grp, n, lc, dtype):
     return nbytes, flops
 
 
+def _check_ssd_final(name, ins, lc, bf16, tol):
+    """The state leaving the sequence from `ops.ssd_with_state` against
+    `ref.ssd_chunked`'s S: bf16 to SSD_BF16_RMS_REL, fp32 at TOL32 on the
+    summed |terms| (the S of |x|, |B|); the state entering the last chunk
+    (the forward's saved states[:, :, -1]), planted in its place, must
+    fail."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    x, dt, A, Bm, Cm, D = ins
+    n0 = ssd_ops.launches
+    _, got = ssd_ops.ssd_with_state(*ins, chunk=lc)
+    _, states, _ = ssd_ops._forward(*ins, lc)
+    if ssd_ops.launches != n0 + 2:
+        raise AssertionError(f"{name}: the final state took no kernel")
+    want = ssd_ref.ssd_chunked(*ins, chunk=lc)[1]
+    planted = states[:, :, -1]
+    what = f"{name} final state"
+    if bf16:
+        check_rms(what, got, want, SSD_BF16_RMS_REL)
+        check_plant_rejected("final state: the state entering the last "
+                             "chunk", planted, want, SSD_BF16_RMS_REL)
+    else:
+        terms = ssd_ref.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(),
+                                    None, lc)[1]
+        check_terms(what, got, want, terms, tol)
+        check_rejects_terms(f"{what} planted: the state entering the last "
+                            "chunk", planted, want, terms, tol)
+
+
 def phase_ssd_kernels(state):
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
@@ -2321,10 +2389,18 @@ def phase_ssd_kernels(state):
         ("smoke T40 H8 P16 N8 chunk 16 (ragged) bf16",
          (4, 40, 8, 16, 1, 8, 16), torch.bfloat16, True),
     ]
+    # the full-width serve's prefills: T 2064 and, in its p + 1 check,
+    # 2063 (last chunks of 16 and 15 rows)
+    for t_serve in (T, T - 1):
+        for dt_, label in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            cases.append((f"full zamba2-1.2b serve prefill T{t_serve} "
+                          f"(ragged) {label}", (TRAIN_B, t_serve) + full[2:],
+                          dt_, True))
     for i, (name, (b, t, h, p, grp, n, lc), dt_, zamba) in enumerate(cases):
         ins = _ssd_inputs(g, b, t, h, p, grp, n, dt_, zamba)
         bf16 = dt_ == torch.bfloat16
         tol = TOL if bf16 else TOL32
+        wide = h * p == full[2] * full[3]
         n0, n32 = ssd_ops.launches, ssd_ops.launches_f32
         got = ssd_ops.ssd_cuda(*ins, chunk=lc)
         if (ssd_ops.launches, ssd_ops.launches_f32) != \
@@ -2332,11 +2408,11 @@ def phase_ssd_kernels(state):
             raise AssertionError(f"{name}: took the wrong route")
         want, _ = ssd_ref.ssd_chunked(*ins, chunk=lc)
         x, dt, A, Bm, Cm, D = ins
-        if i == 1:
+        if bf16:
+            err = check_rms(name, got, want, SSD_BF16_RMS_REL)
+        elif wide:
             err = check_terms(name, got, want, ssd_ref.ssd_chunked(
                 x.abs(), dt, A, Bm.abs(), Cm.abs(), D.abs(), lc)[0], tol)
-        elif bf16:
-            err = check_rms(name, got, want, SSD_BF16_RMS_REL)
         else:
             err = check_close(name, got, want, tol)
         if i in (0, 1):
@@ -2356,6 +2432,19 @@ def phase_ssd_kernels(state):
             check_plant_rejected("M in one bf16 part",
                                  ssd_one_part_m(*ins, lc), want,
                                  SSD_BF16_RMS_REL)
+        elif i in (1, 8):
+            # one TF32 product in place of three
+            planted = ssd_ops.ssd_cuda(*ins, chunk=lc, tf32_products=1)
+            terms = ssd_ref.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(),
+                                        D.abs(), lc)[0]
+            check_rejects_terms(f"{name} planted: one TF32 product", planted,
+                                want, terms, tol)
+            if i == 8:
+                check_rejects(f"{name} planted: one TF32 product "
+                              "(elementwise)", planted, want, tol)
+            del planted, terms
+        if wide or t % lc:
+            _check_ssd_final(name, ins, lc, bf16, tol)
         del want, got
         if i > 1:
             continue
@@ -2372,8 +2461,8 @@ def phase_ssd_kernels(state):
             f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s);"
             f" device {_ms(dev_ms)} ms")
         state["ssd" if bf16 else "ssd_f32"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-            bound_by=by, library_ms=None)
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=None)
         torch.cuda.empty_cache()
 
     say("ssd gradients: kernel forward + kernel backward vs autograd "
@@ -2440,10 +2529,8 @@ def phase_ssd_kernels(state):
                           f"{'' if bf16 else ' (/ max|want|)'}", planted / s,
                           w / s, tol)
         del got, want, half
-        if not bf16:
-            continue
         # the backward's own time, given the forward's states
-        _, states = ssd_ops._forward(*ins, lc)
+        _, states, _ = ssd_ops._forward(*ins, lc)
         bwd = lambda: ssd_ops.ssd_bwd_cuda(*ins, ct, lc, states=states)
         nbytes, flops = _ssd_bwd_bound(b, t, h, p, grp, n, lc, dt_)
         bound, by = _bound(nbytes, flops, dt_, products=True)
@@ -2458,10 +2545,11 @@ def phase_ssd_kernels(state):
             f"plain reverse-pass backward {plain_bwd:.4f}, bound "
             f"{bound:.4f} ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
             f"GFLOP); fwd+bwd {ms:.4f} / plain {plain:.4f}")
-        state["ssd_bwd"] = dict(
+        state["ssd_bwd" if bf16 else "ssd_bwd_f32"] = dict(
             max_abs_err=max(errs[k] for k in names[1:]), ms=ms_bwd,
-            plain_ms=plain_bwd, bound_ms=bound, bound_by=by, library_ms=None,
-            fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain)
+            device_ms=dev_bwd, plain_ms=plain_bwd, bound_ms=bound,
+            bound_by=by, library_ms=None, fwd_bwd_ms=ms,
+            plain_fwd_bwd_ms=plain)
         del states
         torch.cuda.empty_cache()
 
@@ -2489,7 +2577,8 @@ def phase_zamba_smoke_train(state):
             m=cpu.par.unshard(opt["m"]), v=cpu.par.unshard(opt["v"]),
             step=opt["step"]), cpu.model, cpu.dcfg)
         need = ("rmsnorm", "flash_f32", "flash_bwd_f32", "xent_fwd",
-                "xent_bwd", "adamw", "ssd", "ssd_f32", "ssd_bwd")
+                "xent_bwd", "adamw", "ssd", "ssd_f32", "ssd_bwd",
+                "ssd_bwd_f32")
         for reorder in (False, True):
             runs = {}
             for dev in ("cpu", "cuda"):
@@ -2505,7 +2594,8 @@ def phase_zamba_smoke_train(state):
             say(f"  zamba2 smoke {label}: launches on the card {counts}")
             if (min(counts[k] for k in need) <= 0
                     or any(counts[k] for k in NOT_F32)
-                    or counts["ssd_f32"] != counts["ssd"]):
+                    or counts["ssd_f32"] != counts["ssd"]
+                    or counts["ssd_bwd_f32"] != counts["ssd_bwd"]):
                 raise AssertionError(f"a kernel never launched, or fp32 "
                                      f"took a bf16 route: {counts}")
             _check_bwd_calls(counts, tr.model, 3, "flash_bwd_f32")
@@ -4618,6 +4708,269 @@ def _check_batcher_prefills(model, dcfg, params, plan, attempts, firsts):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# zamba2 serving (the main path of the fourteenth slice)
+# ---------------------------------------------------------------------------
+ZAMBA2 = "zamba2_1_2b"
+ZAMBA2_STATE = ("S", "conv_x", "conv_bc")
+# the p+1 checks' p at SMOKE: two whole chunks of 16, so token p opens the
+# third
+ZAMBA2_SMOKE_P = 32
+
+
+def _zamba_state_close(what, got, want, tol, upto=None):
+    """Every leaf of a zamba2 serving state on two devices; the shared
+    block's keys and values over their first `upto` positions."""
+    errs = [check_close(f"{what} {k}", got[k].cpu(), want[k].cpu(), tol)
+            for k in ZAMBA2_STATE]
+    for i, (g, w) in enumerate(zip(got["sh_kv"], want["sh_kv"])):
+        for name, a, b in zip("kv", g, w):
+            errs.append(check_close(f"{what} sh_kv[{i}] {name}",
+                                    a[:, :upto].cpu(), b[:, :upto].cpu(),
+                                    tol))
+    return max(errs)
+
+
+def _zamba_p1(model, dcfg, params, x, label, plant=False):
+    """Prefill over x (B, p + 1) against prefill over x[:, :p] into a cache
+    of capacity p + 1 and one decode step of x[:, p] at position p.
+    Returns (want logits, got logits, launch counts of the long prefill and
+    of the decode step, the long prefill's cache, the decoded cache, and
+    with `plant` the logits of the same decode from a cache whose conv
+    states were zeroed)."""
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train import serve as SV
+    b, t = x.shape
+    shape = ShapeConfig("p", t, b, "prefill")
+    pos = torch.full((b,), t - 1, dtype=torch.int64, device=x.device)
+    with torch.inference_mode():
+        _reset_counts()
+        want, full = model.prefill_local(
+            params, {"tokens": x}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        counts = dict(prefill=_train_counts())
+        _, cache = model.prefill_local(
+            params, {"tokens": x[:, :-1]}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        planted = None
+        if plant:
+            dropped = PG.kv_map(torch.clone, cache)
+            dropped["conv_x"].zero_()
+            dropped["conv_bc"].zero_()
+            planted, _ = model.decode_local(params, dropped, x[:, -1], pos,
+                                            dcfg)
+            del dropped
+        _reset_counts()
+        got, cache = model.decode_local(params, cache, x[:, -1], pos, dcfg)
+        counts["decode"] = _train_counts()
+    top2 = want.float().topk(2, dim=-1).values
+    say(f"  {label}: max|logit| {want.abs().max().item():.4f}, max abs err "
+        f"{max_err(got, want):.4e}, top-2 gaps "
+        f"{[round(v, 5) for v in (top2[:, 0] - top2[:, 1]).tolist()]}, "
+        f"argmax {want.argmax(-1).tolist()} vs {got.argmax(-1).tolist()}")
+    return want, got, counts, full, cache, planted
+
+
+def _check_zamba_counts(counts, model, what, prefills=1):
+    """`prefills` bf16 prefills: one SSD forward a Mamba layer and one flash
+    forward a shared-block invocation; no backward and no fp32 route."""
+    want = dict(ssd=prefills * model.cfg.n_layers,
+                flash=prefills * model.n_super)
+    off = [k for k in ("ssd_f32", "flash_f32", "ssd_bwd", "ssd_bwd_f32",
+                       "flash_bwd", "flash_bwd_f32") if counts[k]]
+    if any(counts[k] != v for k, v in want.items()) or off \
+            or (prefills and counts["rmsnorm"] <= 0):
+        raise AssertionError(f"{what}: launches {counts}, want {want} and "
+                             "no backward or fp32-route launch")
+
+
+def phase_zamba_serve_smoke(state):
+    """zamba2 SMOKE served in fp32 with the same numpy-seeded weights on
+    the card and on the CPU: prefill of a padded 40-token batch (a ragged
+    SSD chunk) and 4 decode steps, logits and every state leaf at TOL32;
+    then on the card prefill over p + 1 tokens against prefill over p into
+    a cache of capacity p + 1 and one decode step at position p."""
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import serve as SV
+    b, prompt, gen = 2, 36, 4
+    t_len = prompt + gen
+    cfg, model = get_arch(ZAMBA2, smoke=True)
+    dcfg = single_device_config(param_dtype=torch.float32)
+    tree = _numpy_params(model, dcfg, seed=0)
+    rng = np.random.default_rng(1)
+    tokens = np.pad(rng.integers(3, cfg.vocab, (b, prompt)),
+                    ((0, 0), (0, gen)), constant_values=3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = SV.serve_params_from_jax(tree, model, dcfg, device=dev)
+        pf = SV.make_prefill_step(model, dcfg,
+                                  ShapeConfig("p", t_len, b, "prefill"))
+        dec = SV.make_decode_step(model, dcfg,
+                                  ShapeConfig("d", t_len, b, "decode"))
+        _reset_counts()
+        logits, cache = pf(params, {"tokens": torch.from_numpy(tokens)
+                                    .to(dev)})
+        runs[dev] = dict(params=params, dec=dec, cache=cache,
+                         logits=[logits.cpu()], prefill=_train_counts())
+    counts = runs["cuda"]["prefill"]
+    say(f"  launches in the card's prefill: {counts}")
+    if counts["ssd"] != cfg.n_layers or counts["ssd_f32"] != cfg.n_layers \
+            or counts["flash_f32"] != model.n_super or counts["rmsnorm"] <= 0:
+        raise AssertionError(f"the fp32 prefill on the card: {counts}")
+    if any(runs["cpu"]["prefill"][k] for k in counts if k not in COLLECTIVES):
+        raise AssertionError("the CPU prefill launched a kernel")
+    check_close("zamba2 smoke prefill logits cuda vs cpu",
+                runs["cuda"]["logits"][0], runs["cpu"]["logits"][0], TOL32)
+    _zamba_state_close("zamba2 smoke prefill cuda vs cpu",
+                       runs["cuda"]["cache"], runs["cpu"]["cache"], TOL32)
+    _reset_counts()
+    for i in range(gen):
+        tok = runs["cpu"]["logits"][-1].argmax(-1)
+        if not torch.equal(runs["cuda"]["logits"][-1].argmax(-1), tok):
+            raise AssertionError(f"zamba2: greedy tokens differ at {i}")
+        pos = torch.full((b,), prompt + i, dtype=torch.int64)
+        for dev, r in runs.items():
+            logits, r["cache"] = r["dec"](r["params"], r["cache"],
+                                          tok.to(dev), pos.to(dev))
+            r["logits"].append(logits.cpu())
+        check_close(f"zamba2 smoke decode {i} logits cuda vs cpu",
+                    runs["cuda"]["logits"][-1], runs["cpu"]["logits"][-1],
+                    TOL32)
+    decode_counts = _train_counts()
+    if any(decode_counts[k] for k in ("ssd", "flash", "flash_f32")):
+        raise AssertionError(f"a decode step launched an SSD or flash "
+                             f"kernel: {decode_counts}")
+    _zamba_state_close(f"zamba2 smoke after {gen} decode steps cuda vs cpu",
+                       runs["cuda"]["cache"], runs["cpu"]["cache"], TOL32)
+    state["zamba_serve_smoke_launches"] = counts
+    # prefill over p + 1 tokens against prefill over p + one decode step
+    p = ZAMBA2_SMOKE_P
+    x = torch.from_numpy(rng.integers(3, cfg.vocab, (b, p + 1))).cuda()
+    want, got, _, full, cache, _ = _zamba_p1(
+        model, dcfg, runs["cuda"]["params"], x, f"smoke p {p}: prefill "
+        f"{p + 1} vs prefill {p} + decode")
+    check_close(f"zamba2 smoke p {p}: prefill vs prefill + decode logits",
+                got, want, TOL32)
+    _zamba_state_close(f"zamba2 smoke p {p}: prefill vs prefill + decode",
+                       cache, full, TOL32)
+
+
+def phase_full_zamba_serve(state):
+    """zamba2-1.2b served at its published depth: bf16 weights made on the
+    card layer by layer, B 4, prompt 2000 padded to T 2064, 64 generated
+    tokens through `repro_torch.launch.serve`; prefill ms and decode
+    ms/token beside the decode step's byte bound and its device kernel
+    time, peak memory, the launch counts; then prefill over p + 1 tokens
+    against prefill over p into a cache of capacity p + 1 and one decode
+    step at p = T - 1, in bf16 (with a planted fault, the conv states
+    dropped) and on the weights widened to fp32 at TOL32."""
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.meta import tree_map
+    from repro_torch.launch import serve as launch
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, model, dcfg, params, prefill, decode = launch.setup(
+        ZAMBA2, False, B, PROMPT, GEN, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    say(f"{cfg.name} bf16, {cfg.n_layers} layers ({model.n_super} shared-"
+        f"block invocations): {n / 1e9:.3f}B params, {wbytes / 1e9:.2f} GB, "
+        f"made on the card in {time.perf_counter() - t0:.1f}s")
+    padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN)
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step reads every weight but the embedding table (B rows of
+    # it), reads and writes the 38 layers' SSD and conv states (fp32), and
+    # reads the shared block's keys and values at the first decode
+    # position (PROMPT + 1 of them, 6 invocations), writing one of each
+    L, K = cfg.n_layers, cfg.ssm_conv
+    states = 4 * L * B * (model.nh * model.hd * model.ds
+                          + (K - 1) * (model.nh * model.hd + 2 * model.ds))
+    kv_token = 2 * cfg.gqa_layout(1)["kvp"] * cfg.head_dim * 2
+    kv = model.n_super * B * (PROMPT + 2) * kv_token
+    step_bytes = wbytes - params["embed"].numel() * 2 \
+        + B * cfg.d_model * 2 + 2 * states + kv
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"serve B={B} prompt={PROMPT} gen={GEN} T={T}: prefill "
+        f"{t['prefill_s'] * 1e3:.2f} ms (warm-up "
+        f"{t['prefill_warmup_s'] * 1e3:.2f}), decode "
+        f"{t['decode_step_s'] * 1e3:.3f} ms/token (warm-up "
+        f"{t['decode_warmup_s'] * 1e3:.2f}), {t['decode_tok_s']:.1f} "
+        f"tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"  decode byte bound {bound:.3f} ms/token ({step_bytes / 1e9:.3f} "
+        f"GB a step: the SSD and conv states {2 * states / 1e9:.3f} GB read "
+        f"and written, the shared block's keys and values {kv / 1e9:.3f} "
+        "GB)")
+    say(f"launches in the serve run (2 prefills, {GEN - 1} decode steps): "
+        f"{counts}")
+    state["serve_zamba2_launches"] = counts
+    if tokens.shape != (B, GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
+    _check_zamba_counts(counts, model, "the serve run", prefills=2)
+    logits, cache = prefill(params, {"tokens": padded})
+    _profile("prefill", lambda: prefill(params, {"tokens": padded}), 1)
+    pos = torch.full((B,), PROMPT, dtype=torch.int64, device=dev)
+    busy, dev_s = _profile("decode step", lambda: decode(
+        params, cache, logits.argmax(-1), pos), 8, top=12)
+    state["serve_zamba2"] = dict(
+        t, max_memory_allocated=peak, decode_bound_ms=bound,
+        decode_device_ms=None if dev_s is None else dev_s * 1e3,
+        decode_busy=busy)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    del cache, logits
+
+    # prefill over p + 1 tokens against prefill over p + one decode step,
+    # p = T - 1; the decode from a cache with its conv states zeroed is a
+    # planted fault
+    x = torch.randint(3, cfg.vocab, (B, T),
+                      generator=torch.Generator().manual_seed(2)).to(dev)
+    want, got, per_call, _, _, planted = _zamba_p1(
+        model, dcfg, params, x, f"bf16, {L} layers, p {T - 1}", plant=True)
+    say(f"launches per call: {per_call}")
+    state["zamba2_per_call"] = per_call
+    _check_zamba_counts(per_call["prefill"], model, "one prefill")
+    _check_zamba_counts(per_call["decode"], model, "one decode step",
+                        prefills=0)
+    # the weights widened to fp32: there the two paths must agree to fp32
+    # rounding, which separates a fault from bf16 noise
+    dcfg32 = single_device_config(param_dtype=torch.float32)
+    params32 = tree_map(lambda a: a.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    want32, got32, per32, *_ = _zamba_p1(
+        model, dcfg32, params32, x,
+        f"fp32 (the same weights widened, all {L} layers)")
+    if per32["prefill"]["ssd_f32"] != L or per32["decode"]["ssd"]:
+        raise AssertionError(f"the fp32 prefill's routes: {per32}")
+    del params32
+    say(f"  bf16 prefill vs fp32 prefill, same weights: max_abs_err "
+        f"{max_err(want, want32):.4e} (for scale; not a limit)")
+    check_close("fp32: prefill vs prefill + decode", got32, want32, TOL32)
+    if not torch.equal(got32.argmax(-1), want32.argmax(-1)):
+        raise AssertionError("fp32: argmax differs")
+    err = check_close("bf16: prefill vs prefill + decode", got, want,
+                      TOL_BF16_CONSISTENCY)
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    say(f"  bf16: argmax equal {same.tolist()}, top-2 gap above 2 x "
+        f"{err:.3e} {clear.tolist()}")
+    if not bool(same[clear].all()):
+        raise AssertionError("bf16: argmax differs where the gap is clear")
+    check_rejects("planted: the decode step with the conv states dropped",
+                  planted, want, TOL_BF16_CONSISTENCY)
+    state["zamba2_consistency"] = dict(bf16=err, fp32=max_err(got32, want32))
+
+
 # kernel families summed in every profiler window
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
@@ -4703,17 +5056,21 @@ def kernels_line(state):
     and the paged-serving runs' counts (`serve_paged`: the paged steps of
     llama3-8b's three caches; `serve_batcher`: the batcher's paged steps;
     `serve_paged_smoke`: the SMOKE cases' paged steps on the card; each
-    without the dense steps it is compared with); the flash row carries
+    without the dense steps it is compared with) and the zamba2-1.2b serve
+    run's (`serve_zamba2`: two prefills and 63 decode steps); the flash
+    row carries
     its readings at qwen3-moe's group-8
     shape (`group8`) and at gemma2's four shapes (`gemma2`), the
     flash_attention_bwd row (the backward alone, at qwen3's layer shape;
     `fwd_bwd` the gradient's forward + backward) its readings at the group-8
     shape and gemma2's local layer, the adamw row at the moe path's largest
     leaf (`moe_leaf`) and at gemma2's embedding (`gemma2_leaf`), the
-    rmsnorm and xent rows at gemma2's shapes (`gemma2`).  flash_attention_f32,
-    flash_attention_bwd_f32 and ssd_fwd_f32 are the fp32 routes: no bf16 path runs them (their count is
+    rmsnorm and xent rows at gemma2's shapes (`gemma2`).
+    flash_attention_f32, flash_attention_bwd_f32, ssd_fwd_f32 and
+    ssd_bwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
-    smoke training runs' counts.  A count is one call of the kernel's
+    smoke training runs' counts and, for the ssd rows, the fp32 zamba2
+    serve smoke prefill's (`zamba2_serve_smoke_f32`).  A count is one call of the kernel's
     wrapper: the ssd forward is two launches a call, its backward three, an
     SR quant call two (the seed pass and the quant kernel)."""
     src = "src/repro_torch/csrc/"
@@ -4735,7 +5092,8 @@ def kernels_line(state):
                        train_qwen2_moe=state[
                            "train_qwen2_moe_a2_7b_launches"][key],
                        train_gemma2=state["train_gemma2_27b_launches"][key])
-        for path in ("serve_paged", "serve_batcher", "serve_paged_smoke"):
+        for path in ("serve_paged", "serve_batcher", "serve_paged_smoke",
+                     "serve_zamba2"):
             by_path[path] = state[f"{path}_launches"][key]
         if serve_key:
             by_path["serve"] = serve[serve_key]
@@ -4747,6 +5105,8 @@ def kernels_line(state):
             by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
         if key.startswith("ssd"):
             by_path["zamba2_smoke_f32"] = state["zamba_smoke_launches"][key]
+            by_path["zamba2_serve_smoke_f32"] = state[
+                "zamba_serve_smoke_launches"][key]
         return dict(name=name, route="cuda", source=src + source,
                     replaces="src/repro/kernels/" + replaces,
                     launches=home[key], **state[key],
@@ -4787,8 +5147,14 @@ def kernels_line(state):
         row("ssd_fwd", "ssd", "ssd_sm90.cu", "ssd/kernel.py:65", home=zamba),
         row("ssd_bwd", "ssd_bwd", "ssd_sm90.cu", "ssd/ops.py:57", home=zamba),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
-        row("ssd_fwd_f32", "ssd_f32", "ssd.cu", "ssd/kernel.py:65",
-            home=zamba),
+        row("ssd_fwd_f32", "ssd_f32", "ssd_sm90.cu", "ssd/kernel.py:65",
+            home=zamba,
+            kernel="chunk_scan_kernel, then chunk_out_kernel: mma.sync "
+                   "m16n8k8 TF32, hi*hi + hi*lo + lo*hi"),
+        row("ssd_bwd_f32", "ssd_bwd_f32", "ssd_sm90.cu", "ssd/ops.py:57",
+            home=zamba,
+            kernel="chunk_scan_kernel (TF32 x3), chunk_grad_kernel (fp32 "
+                   "FMAs), group_sum_kernel"),
     ]
     return json.dumps({"kernels": rows})
 
@@ -4848,7 +5214,11 @@ def main() -> int:
                         ("paged serving smoke cuda vs cpu",
                          phase_paged_smoke),
                         ("full-width paged serve: llama3-8b",
-                         phase_full_paged_serve)]:
+                         phase_full_paged_serve),
+                        ("zamba2 serve smoke cuda vs cpu",
+                         phase_zamba_serve_smoke),
+                        ("full-width zamba2-1.2b serve",
+                         phase_full_zamba_serve)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

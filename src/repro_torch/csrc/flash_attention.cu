@@ -8,13 +8,12 @@
 // sliding-window / tanh softcap masking; q_scale (default 1/sqrt(hd), set by
 // the wrapper).  bf16 inputs take csrc/flash_attention_sm90.cu.
 //
-// Precision.  One TF32 product keeps 11 bits of each operand and misses
-// fp32 tolerances.  Every fp32 operand x is split as hi = tf32(x) (cvt.rna)
-// and lo = tf32(x - hi), and each product is taken as hi*hi + hi*lo + lo*hi
-// (the lo*lo term is below fp32 rounding): about 21 significant bits, so
-// S = Q K^T and O = P V hold fp32 tolerances.  The tensor cores' fp32 sums
-// truncate, so O is not summed in them over the whole row: each 16 keys'
-// product is, and O adds it with round to nearest.  `products` = 1 keeps
+// Precision (tf32.cuh, shared with ssd_sm90.cu's fp32 route): every fp32
+// operand is split into TF32 hi + lo and each product taken as hi*hi +
+// hi*lo + lo*hi, about 21 significant bits, so S = Q K^T and O = P V hold
+// fp32 tolerances.  The tensor cores' fp32 sums truncate, so O is not
+// summed in them over the whole row: each 16 keys' product is, and O adds
+// it with round to nearest.  `products` = 1 keeps
 // only hi*hi; it exists as a planted fault that the checks must reject.
 //
 // Layout: 4 warps a block, 16 query rows a warp (64 a block), mma.sync
@@ -56,6 +55,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -94,41 +95,8 @@ struct Params {
   int vec;         // k and v rows are 16-byte aligned
 };
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, each a TF32 value
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b in `P` TF32 products: the small terms first, then hi * hi
-template <int P>
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  if constexpr (P == 3) {
-    mma_tf32(d, al, bh0, bh1);
-    mma_tf32(d, ah, bl0, bl1);
-  }
-  mma_tf32(d, ah, bh0, bh1);
-}
+using tf32::mma3;
+using tf32::split;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -2,10 +2,10 @@
 // chunk-parallel forward on tensor cores and a hand-written backward.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd/kernel.py `ssd_fwd`
-// (pallas_call at :71, body `_ssd_kernel` at :30) for bf16 inputs, and the
-// backward that the reference takes by differentiating its chunk loop
-// (src/repro/kernels/ssd/ops.py `_vjp_bwd`).  fp32 forwards stay on
-// ssd.cu.  Per (batch b, head h) and chunk of Lc positions, with cum the
+// (pallas_call at :71, body `_ssd_kernel` at :30), and the backward that
+// the reference takes by differentiating its chunk loop
+// (src/repro/kernels/ssd/ops.py `_vjp_bwd`), for bf16 and fp32 inputs.
+// Per (batch b, head h) and chunk of Lc positions, with cum the
 // inclusive cumsum of dt*A over the chunk, L[t,s] = exp(cum_t - cum_s) on
 // s <= t (masked before exp, so nothing overflows) and xd = dt x:
 //   y_t   = sum_{s<=t} (C_t . B_s) L[t,s] xd_s + exp(cum_t) C_t . S_in + D x_t
@@ -16,10 +16,15 @@
 //      chunk's own state sum_s exp(cum_last - cum_s) dt_s x_s B_s^T, a
 //      (P x Lc)(Lc x N) product on the tensor cores, and the short
 //      sequential pass S_in[c+1] = exp(cum_last) S_in[c] + that, carried in
-//      registers in fp32; it writes the state entering every chunk;
-//   2. chunk_out_kernel, one block per (b, h, chunk): the inter term
-//      exp(cum_t) C S_in^T, then per 16 x 16 tile of the lower triangle
-//      C B^T, masked and decayed into M, times x; plus D x.
+//      registers in fp32; it writes the state entering every chunk and,
+//      where asked (`final`), the state leaving the last one: the
+//      reference's final S (a ragged last chunk is padded with dt = 0, a
+//      decay of exp(0) = 1, so it is the state at the true T);
+//   2. the inter term exp(cum_t) C S_in^T, then per 16 x 16 tile of the
+//      lower triangle C B^T, masked and decayed into M, times x; plus D x:
+//      bf16 in chunk_out_kernel, one block per (b, h, chunk); fp32 in
+//      chunk_out_f32_kernel, one block per (b, chunk) and 16 heads, which
+//      makes C B^T once for all of them.
 // Backward, three launches (four when no forward states are given: phase 1
 // first):
 //   1. the same scan on dy and C with weights exp(cum_t), run from the last
@@ -34,27 +39,46 @@
 //      dD over batches and chunks, in a fixed order: deterministic, no
 //      atomics.
 //
-// Products: bf16 mma.sync.m16n8k16 with fp32 sums.  x, B, C and dy are bf16
-// values already and reach the tensor cores through ldmatrix; an fp32
-// operand (the decayed tile M, dC's factor dM o L, the states, the weighted
-// x of phase 1) is split into a bf16 hi part and a bf16 lo part, two
-// products, so every product keeps its fp32 operand to ~2^-16.  A 16 x 16
-// tile made in registers is the next product's A operand in place (its C
-// fragment layout is the A layout), as a flash kernel does with P.  Work is
-// even across warps: a warp takes the 16-row blocks rb and nb - 1 - rb of
-// the lower triangle.  The fp32 backward takes fp32 FMAs in the same
-// fragment layout (kMma false), through a per-warp scratch tile.  Any P of
-// 16/32/64, N <= 64 and Lc <= 128; a chunk whose length is not a multiple of
-// 16 is padded inside the kernel (zero rows, dt = 0).
+// Products of bf16 inputs: bf16 mma.sync.m16n8k16 with fp32 sums.  x, B, C
+// and dy are bf16 values already and reach the tensor cores through
+// ldmatrix; an fp32 operand (the decayed tile M, dC's factor dM o L, the
+// states, the weighted x of phase 1) is split into a bf16 hi part and a bf16
+// lo part, two products, so every product keeps its fp32 operand to ~2^-16.
+// A 16 x 16 tile made in registers is the next product's A operand in place
+// (its C fragment layout is the A layout), as a flash kernel does with P.
+// Work is even across warps: a warp takes the 16-row blocks rb and nb - 1 -
+// rb of the lower triangle.
 //
-// Bound on the H100 at zamba2-1.2b (B 4, T 2048, H 64, P 64, N 64, Lc 128,
-// bf16): bytes.  The forward must move x and y (67 MB each); the chunk-
+// Products of fp32 inputs in the forward (phases 1-3, and phase 1 of the
+// backward): TF32 mma.sync.m16n8k8 with three products, hi*hi + hi*lo +
+// lo*hi (tf32.cuh, as the fp32 flash kernels), in the bf16 kernels'
+// fragment layout, split at each use by `split_rz` (a mask and an add, no
+// conversion: split with cvt.rna, the kernels were bound by the
+// conversions, which issue at a quarter of the fp32 rate).  Operands are read
+// from fp32 tiles whose rows are padded by 4 floats, and a k-major operand
+// (x, B, the weighted x) in the order logical k q -> row 2q, q + 4 -> 2q +
+// 1, which is also the order of a C fragment's columns: so a 16 x 16 tile
+// in registers is an A operand in place, and every fragment read hits 32
+// distinct banks.  Long sums (the
+// 128 rows of a chunk's own state, the tiles of y) go in parts of 16 rows,
+// each in its own accumulator, added with round to nearest: the tensor
+// cores' fp32 sums truncate.  `tf32_products` = 1 keeps hi*hi only, a
+// planted fault that the checks must reject.  The fp32 backward's chunk
+// gradients take fp32 FMAs in the same fragment layout (kMma false),
+// through a per-warp scratch tile.  Any P of 16/32/64, N <= 64 and Lc <=
+// 128; a chunk whose length is not a multiple of 16 is padded inside the
+// kernel (zero rows, dt = 0).
+//
+// Bound on the H100 at zamba2-1.2b (B 4, T 2048, H 64, P 64, N 64, Lc 128):
+// bf16, bytes.  The forward must move x and y (67 MB each); the chunk-
 // parallel grid adds the states, written by phase 1 and read by phase 2
-// (67 MB fp32 each way).
+// (67 MB fp32 each way).  fp32: operations, 17.2 GFLOP at 495 / 3 TFLOP/s
+// (three TF32 products a product), above the 134 MB of x and y each.
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 // The C interface's arguments, one struct (kernels/ssd/ops.py `_Args`
 // mirrors it field for field).  It has external linkage (outside the
@@ -70,6 +94,7 @@ struct SsdArgs {
   const void* dy;     // (B,T,H,P) contiguous, x_dtype (backward)
   void* y;            // (B,T,H,P) contiguous, x_dtype (forward)
   float* states;      // (B,H,nC,P,N): the state entering each chunk
+  float* final;       // (B,H,P,N) or null: the state leaving the last chunk
   float* dstates;     // (B,H,nC,P,N): the gradient of the state leaving it
   void* dx;           // (B,T,H,P) contiguous, x_dtype
   float* ddt;         // (B,T,H) contiguous
@@ -84,6 +109,7 @@ struct SsdArgs {
   long long sxb, sxt, sxh, sdb, sdt, sdh, sbb, sbt, sbg, scb, sct, scg;
   int B, T, H, P, G, N, Lc, nC, has_d, recompute;
   int x_dtype, dt_dtype, a_dtype, d_dtype;
+  int tf32_products;  // fp32 forward: 3, or 1 (a planted fault)
 };
 
 namespace {
@@ -346,9 +372,9 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// inclusive cumsum of dts[r] * A over r < Lp, by warp 0
+// inclusive cumsum of dts[r] * A over r < Lp, by one warp
 __device__ void chunk_cumsum(const float* dts, float A, float* cum, int Lp) {
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const int E = (Lp + 31) / 32, lo = lane * E, hi = min(lo + E, Lp);
   float run = 0.f;
   for (int r = lo; r < hi; ++r) run += dts[r] * A;
@@ -471,6 +497,66 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// fp32 tiles on the tensor cores (TF32 with kProd products a product).
+// acc[j] (+)= A B for j < nt: A's 16 rows at a[r * lda + k] and B's columns
+// 8j .. 8j+7 at b[n * ldb + k] (both k-contiguous), over K (K % 8 == 0),
+// summed in the tensor cores.  lda and ldb are 4 mod 32 floats, so each
+// fragment read hits 32 distinct banks.
+template <int kProd, int NT>
+__device__ __forceinline__ void tf32_mm_nk(float (&acc)[NT][4], int nt, int K,
+                                           const float* a, int lda,
+                                           const float* b, int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      tf32::split_rz(a[(g + (i & 1) * 8) * lda + k0 + q + (i >> 1) * 4], ah[i],
+                  al[i]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const float* br = b + (8 * j + g) * ldb + k0 + q;
+        tf32::mma3<kProd, true>(acc[j], ah, al, br[0], br[4]);
+      }
+    }
+  }
+}
+
+// acc[j] += t X for j < nt, with t a 16 x 16 fp32 tile in registers (C
+// layout) and X's 16 rows at x[k * ldx + n].  The C layout holds columns
+// (2q, 2q + 1) where the A operand wants (q, q + 4): X's rows are read in
+// the same order, logical k q -> row 2q, q + 4 -> 2q + 1 (ldx is 4 mod 32
+// floats: rows 2q lie 8q banks apart).  The product is summed in its own
+// accumulator and added with round to nearest.
+template <int kProd, int NT>
+__device__ __forceinline__ void tf32_acc_tile(float (&acc)[NT][4], int nt,
+                                              const float (&t)[2][4],
+                                              const float* x, int ldx) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    tf32::split_rz(t[u][0], ah[u][0], al[u][0]);
+    tf32::split_rz(t[u][2], ah[u][1], al[u][1]);
+    tf32::split_rz(t[u][1], ah[u][2], al[u][2]);
+    tf32::split_rz(t[u][3], ah[u][3], al[u][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* xr = x + (8 * u + 2 * q) * ldx + 8 * j + g;
+        tf32::mma3<kProd, true>(part, ah[u], al[u], xr[0], xr[ldx]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[e];
+    }
+  }
+}
+
 // Phases 1-2 of the forward (bwd 0) or of the backward (bwd 1), one block
 // per (b, h) walking its chunks: each chunk's own part
 //   loc[p][n] = sum_s coef_s U_s[p] V_s[n]
@@ -479,9 +565,12 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 //   out[c] = run;  run = exp(cum_last[c]) run + loc[c]
 // from the first chunk on into `states` (the state entering each chunk) or
 // from the last one back into `dstates` (the gradient of the state leaving
-// it).  A warp owns 16 rows p and 32 columns n of loc and of run, which
-// stays in its registers from chunk to chunk in fp32.
-template <typename T, int P>
+// it); a forward also writes the state leaving the last chunk into `final`
+// where that is given.  A warp owns 16 rows p and 32 columns n of loc and
+// of run, which stays in its registers from chunk to chunk in fp32.  bf16:
+// coef_s U_s in bf16 hi + lo tiles; fp32: TF32 with kProd products, the
+// chunk's 128 rows s in parts of 16, each in its own accumulator.
+template <typename T, int P, int kProd>
 __global__ void __launch_bounds__(kThreads, 2)
     chunk_scan_kernel(const SsdArgs a, const int bwd) {
   constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
@@ -550,8 +639,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (!owner) continue;
     float acc[4][4];
     zero(acc);
-    const RowMajor<T> V{Vs + c0, ldv};
     if constexpr (kMma) {
+      const RowMajor<T> V{Vs + c0, ldv};
       for (int k0 = 0; k0 < Lp; k0 += 16) {
         uint32_t ah[4], al[4];
         a_frag(ColMajor<T>{Us + r0, ldu}, k0, ah);
@@ -566,10 +655,35 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
     } else {
-      tile_mm<false, false>(
-          acc, nt, Lp,
-          [&](int i, int k) { return coef[k] * to_f32(Us[k * ldu + r0 + i]); },
-          V);
+      // A(p, s) = coef_s U_s[p] and B(s, n) = V_s[n], both read at rows
+      // s = k0 + 2q (logical k q) and k0 + 2q + 1 (q + 4)
+      const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+      for (int k0 = 0; k0 < Lp; k0 += 16) {
+        float part[4][4];
+        zero(part);
+#pragma unroll
+        for (int kk = k0; kk < k0 + 16; kk += 8) {
+          const int s0 = kk + 2 * q;
+          const float* u0 = Us + s0 * ldu + r0 + g;
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = i >> 1;  // 0: row s0, 1: row s0 + 1
+            tf32::split_rz(coef[s0 + k] * u0[k * ldu + (i & 1) * 8], ah[i], al[i]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j < nt) {
+              const float* vr = Vs + s0 * ldv + c0 + 8 * j + g;
+              tf32::mma3<kProd, true>(part[j], ah, al, vr[0], vr[ldv]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+      }
     }
     const float dec = expf(cl);
     float* o = out + static_cast<long long>(c) * P * N;
@@ -591,6 +705,15 @@ __global__ void __launch_bounds__(kThreads, 2)
         run[j][e + 1] = dec * run[j][e + 1] + acc[j][e + 1];
       }
   }
+  if (bwd || !a.final || !owner) return;
+  float* f = a.final + static_cast<long long>(b * a.H + h) * P * N;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = c0 + frag_col(j, e);
+      if (j < nt && n < N) f[(r0 + frag_row(e)) * N + n] = run[j][e];
+    }
 }
 
 // floats of a state tile [P][Np + 4]
@@ -606,8 +729,9 @@ __device__ __forceinline__ void for_pair(int pair, int nb, const F& f) {
   if (nb - 1 - pair != pair) f(nb - 1 - pair);
 }
 
-// Phase 3 of the forward, one block per (b, h, chunk), bf16 only.  A warp
-// takes a pair of 16-row blocks and, for P >= 32, one half of the P columns.
+// Phase 3 of the bf16 forward, one block per (b, h, chunk).  A warp takes a
+// pair of 16-row blocks and, for P >= 32, one half of the P columns; bf16
+// tiles through ldmatrix, S_in and M in bf16 hi + lo.
 template <int P>
 __global__ void __launch_bounds__(kThreads, 2) chunk_out_kernel(const SsdArgs a) {
   using T = __nv_bfloat16;
@@ -688,6 +812,145 @@ __global__ void __launch_bounds__(kThreads, 2) chunk_out_kernel(const SsdArgs a)
                  acc[j][e + 1] + Dh * to_f32(Xs[r * ldp + p + 1]));
       }
   });
+}
+
+// Phase 3 of the fp32 forward, one block per (b, chunk, hb heads of one
+// group of B and C).  C B^T does not depend on the head: each warp takes
+// its pair of 16-row blocks (for_pair) and, for P >= 32, one half of the P
+// columns, makes the pair's tiles of C B^T once (TF32 with kProd products)
+// and keeps them in registers (at most 9 tiles of 16 x 16) while the block
+// walks its heads.  A head's x and S_in tiles come in with cp.async, two
+// buffers, so the next head's land while this one's are multiplied; its
+// tiles of M = (C B^T) o L o dt_s are made from the registers, each 16-
+// column tile's product with x summed in its own accumulator.  fp32 tiles
+// take 4 bytes an element, so the bf16 kernel's one block per (b, h, chunk)
+// would reload B and C for every head and hold an SM alone with nothing to
+// overlap its loads; here they are read once for hb heads.  What bounds it
+// on the H100: a block's prologue (the loads and C B^T) costs several
+// heads' time, and at 255 registers (the tiles of C B^T take 72) one block
+// of 8 warps an SM leaves mma.sync's latency exposed.  Making each tile's
+// decay once a head in shared memory, or both row blocks' inter term in
+// one pass, read no faster.
+template <int P, int kProd>
+__global__ void __launch_bounds__(kThreads, 1)
+    chunk_out_f32_kernel(const SsdArgs a, const int hb) {
+  constexpr int kHalves = P >= 32 ? 2 : 1, PH = P / kHalves, PTH = PH / 8;
+  constexpr int kTiles = kMaxLc / 16 + 1;  // a pair's tiles: nb + 1
+  const int nhg = a.H / hb, hg = blockIdx.x % nhg;
+  const int c = (blockIdx.x / nhg) % a.nC, b = blockIdx.x / nhg / a.nC;
+  const int h0 = hg * hb, grp = h0 / (a.H / a.G), t0 = c * a.Lc;
+  const int rows = min(a.Lc, a.T - t0), Lp = round16(a.Lc), N = a.N;
+  const int Np = round16(N), ldp = padded<float>(P), ldn = padded<float>(Np);
+  const int lds = state_ld(Np);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dts = reinterpret_cast<float*>(smem);  // hb x Lp
+  float* cum = dts + hb * Lp;                   // hb x Lp
+  float* Cs = cum + hb * Lp;                    // Lp x ldn
+  float* Bs = Cs + Lp * ldn;                    // Lp x ldn
+  float* Xs = Bs + Lp * ldn;                    // 2 x Lp x ldp
+  float* Ss = Xs + 2 * Lp * ldp;                // 2 x P x lds
+
+  const auto load_head = [&](int i, int buf) {  // x and S_in of head h0 + i
+    const int h = h0 + i;
+    load_tile(Xs + buf * Lp * ldp, ldp,
+              static_cast<const float*>(a.x) + b * a.sxb + t0 * a.sxt +
+                  h * a.sxh,
+              a.sxt, rows, Lp, P, P);
+    load_state(Ss + buf * P * lds, lds,
+               a.states + ((static_cast<long long>(b) * a.H + h) * a.nC + c) *
+                              P * N,
+               P, N, Np);
+  };
+  load_tile(Cs, ldn,
+            static_cast<const float*>(a.Cm) + b * a.scb + t0 * a.sct +
+                grp * a.scg,
+            a.sct, rows, Lp, N, Np);
+  load_tile(Bs, ldn,
+            static_cast<const float*>(a.Bm) + b * a.sbb + t0 * a.sbt +
+                grp * a.sbg,
+            a.sbt, rows, Lp, N, Np);
+  load_head(0, 0);
+  for (int i = threadIdx.x; i < hb * Lp; i += kThreads) {
+    const int k = i / Lp, r = i % Lp;
+    dts[i] = r < rows ? load_any(a.dt, b * a.sdb + (t0 + r) * a.sdt +
+                                           (h0 + k) * a.sdh,
+                                 a.dt_dtype)
+                      : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  for (int k = warp; k < hb; k += kWarps)
+    chunk_cumsum(dts + k * Lp, load_any(a.A, h0 + k, a.a_dtype),
+                 cum + k * Lp, Lp);
+
+  // the pair's tiles of C B^T: row block ra's sb = 0..ra in cb[0..na), then
+  // row block rz's in cb[na..na+nz)
+  const int nb = Lp / 16, pair = warp / kHalves, c0 = (warp % kHalves) * PH;
+  const bool active = pair < (nb + 1) / 2;
+  const int ra = pair, rz = nb - 1 - pair, na = ra + 1;
+  const int nz = rz != ra ? rz + 1 : 0;
+  float cb[kTiles][2][4];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    zero(cb[i]);
+    if (active && i < na + nz)
+      tf32_mm_nk<kProd>(cb[i], 2, Np, Cs + 16 * (i < na ? ra : rz) * ldn,
+                        ldn, Bs + 16 * (i < na ? i : i - na) * ldn, ldn);
+  }
+  __syncthreads();  // the cumsums are in
+
+  const long long syt = static_cast<long long>(a.H) * P;
+  for (int i = 0; i < hb; ++i) {
+    const int buf = i & 1, h = h0 + i;
+    if (i + 1 < hb) load_head(i + 1, buf ^ 1);  // lands during this head
+    const float* X = Xs + buf * Lp * ldp;
+    const float* S = Ss + buf * P * lds;
+    const float* cm = cum + i * Lp;
+    const float* dd = dts + i * Lp;
+    const float Dh = a.has_d ? load_any(a.D, h, a.d_dtype) : 0.f;
+    float* y = static_cast<float*>(a.y) +
+               ((static_cast<long long>(b) * a.T + t0) * a.H + h) * P;
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      if (!active || (z == 1 && nz == 0)) continue;
+      const int r0 = 16 * (z == 0 ? ra : rz);
+      float acc[PTH][4];
+      zero(acc);
+      // inter: exp(cum_t) C_t . S_in
+      tf32_mm_nk<kProd>(acc, PTH, Np, Cs + r0 * ldn, ldn, S + c0 * lds, lds);
+#pragma unroll
+      for (int j = 0; j < PTH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= expf(cm[r0 + frag_row(e)]);
+      // intra: M = (C B^T) o L o dt_s on s <= t, times x
+#pragma unroll
+      for (int k = 0; k < kTiles; ++k) {
+        if (z == 0 ? k >= na : (k < na || k >= na + nz)) continue;
+        const int s0 = 16 * (z == 0 ? k : k - na);
+        float t[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + frag_row(e), s = s0 + frag_col(u, e);
+            t[u][e] = s <= r ? cb[k][u][e] * expf(cm[r] - cm[s]) * dd[s] : 0.f;
+          }
+        tf32_acc_tile<kProd>(acc, PTH, t, X + s0 * ldp + c0, ldp);
+      }
+#pragma unroll
+      for (int j = 0; j < PTH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = r0 + frag_row(e), p = c0 + frag_col(j, e);
+          if (r < rows)
+            store2(y + r * syt + p, acc[j][e] + Dh * X[r * ldp + p],
+                   acc[j][e + 1] + Dh * X[r * ldp + p + 1]);
+        }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next head's tiles are in; this head's are free
+  }
 }
 
 // Phase 3 of the backward, one block per (b, h, chunk).  Each warp takes a
@@ -971,11 +1234,12 @@ __global__ void __launch_bounds__(kThreads) group_sum_kernel(const SsdArgs a) {
 }
 
 // bytes of dynamic shared memory of each kernel
+// (bf16: x's hi and lo tiles, B; fp32: x, B)
 template <typename T>
 size_t scan_smem(const SsdArgs& a, int P) {
-  const int Lp = round16(a.Lc), Np = round16(a.N);
+  const int Lp = round16(a.Lc), Np = round16(a.N), nu = sizeof(T) == 2 ? 2 : 1;
   return 3 * Lp * sizeof(float) +
-         static_cast<size_t>(Lp) * (2 * padded<T>(P) + padded<T>(Np)) * sizeof(T);
+         static_cast<size_t>(Lp) * (nu * padded<T>(P) + padded<T>(Np)) * sizeof(T);
 }
 template <typename T>
 constexpr int scratch_floats() {
@@ -986,6 +1250,21 @@ size_t out_smem(const SsdArgs& a, int P) {
   const int Lp = round16(a.Lc), Np = round16(a.N);
   return (3 * Lp + P * state_ld(Np)) * sizeof(float) +
          static_cast<size_t>(Lp) * (padded<T>(P) + 2 * padded<T>(Np)) * sizeof(T);
+}
+// heads of one group a block of chunk_out_f32_kernel: 16, or the largest
+// power of two below that divides a group's.  A block makes C B^T once and
+// then walks its heads, so at zamba2's layer shape (256 blocks) 16 heads a
+// block read faster than 8, and 8 than 4.
+int f32_heads(const SsdArgs& a) {
+  int hb = 16;
+  while ((a.H / a.G) % hb) hb /= 2;
+  return hb;
+}
+size_t out_f32_smem(const SsdArgs& a, int P, int hb) {
+  const int Lp = round16(a.Lc), Np = round16(a.N);
+  return (2 * hb * Lp + 2 * Lp * padded<float>(Np) +
+          2 * Lp * padded<float>(P) + 2 * P * state_ld(Np)) *
+         sizeof(float);
 }
 template <typename T>
 size_t grad_smem(const SsdArgs& a, int P) {
@@ -1011,25 +1290,33 @@ cudaError_t launch(void (*kernel)(Args...), unsigned grid, size_t smem,
 }
 
 // phases 1-2, forward (states) or backward (dstates)
-template <typename T, int P>
+template <typename T, int P, int kProd>
 cudaError_t run_scan(const SsdArgs& a, int bwd, cudaStream_t s) {
-  return launch(chunk_scan_kernel<T, P>, static_cast<unsigned>(a.B) * a.H,
-                scan_smem<T>(a, P), s, a, bwd);
+  return launch(chunk_scan_kernel<T, P, kProd>,
+                static_cast<unsigned>(a.B) * a.H, scan_smem<T>(a, P), s, a,
+                bwd);
 }
 
-template <int P>
+template <typename T, int P, int kProd>
 cudaError_t run_fwd(const SsdArgs& a, cudaStream_t s) {
-  cudaError_t e = run_scan<__nv_bfloat16, P>(a, 0, s);
+  cudaError_t e = run_scan<T, P, kProd>(a, 0, s);
   if (e != cudaSuccess) return e;
-  return launch(chunk_out_kernel<P>, static_cast<unsigned>(a.B) * a.H * a.nC,
-                out_smem(a, P), s, a);
+  if constexpr (std::is_same_v<T, float>) {
+    const int hb = f32_heads(a);
+    return launch(chunk_out_f32_kernel<P, kProd>,
+                  static_cast<unsigned>(a.B) * a.nC * (a.H / hb),
+                  out_f32_smem(a, P, hb), s, a, hb);
+  } else {
+    return launch(chunk_out_kernel<P>, static_cast<unsigned>(a.B) * a.H * a.nC,
+                  out_smem(a, P), s, a);
+  }
 }
 
 template <typename T, int P>
 cudaError_t run_bwd(const SsdArgs& a, cudaStream_t s) {
   cudaError_t e;
-  if (a.recompute && (e = run_scan<T, P>(a, 0, s)) != cudaSuccess) return e;
-  if ((e = run_scan<T, P>(a, 1, s)) != cudaSuccess) return e;
+  if (a.recompute && (e = run_scan<T, P, 3>(a, 0, s)) != cudaSuccess) return e;
+  if ((e = run_scan<T, P, 3>(a, 1, s)) != cudaSuccess) return e;
   e = launch(chunk_grad_kernel<T, P>, static_cast<unsigned>(a.B) * a.H * a.nC,
              grad_smem<T>(a, P), s, a);
   if (e != cudaSuccess) return e;
@@ -1039,14 +1326,13 @@ cudaError_t run_bwd(const SsdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// the forward (bf16 only) or the backward at a.P
-template <typename T, bool kFwd>
-cudaError_t run_p(const SsdArgs& a, cudaStream_t s) {
-  static_assert(!kFwd || std::is_same_v<T, __nv_bfloat16>, "bf16 forward");
-  switch (a.P) {
-    case 16: if constexpr (kFwd) return run_fwd<16>(a, s); else return run_bwd<T, 16>(a, s);
-    case 32: if constexpr (kFwd) return run_fwd<32>(a, s); else return run_bwd<T, 32>(a, s);
-    case 64: if constexpr (kFwd) return run_fwd<64>(a, s); else return run_bwd<T, 64>(a, s);
+// f(std::integral_constant<int, P>) at P = a.P: one instantiation a head dim
+template <class F>
+cudaError_t with_p(int p, const F& f) {
+  switch (p) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1059,13 +1345,23 @@ bool valid(const SsdArgs* a) {
 
 }  // namespace
 
-// The chunk-parallel forward (phases 1-3) of bf16 inputs: y, and the state
-// entering each chunk in `states` (kept for the backward).  Launches on
-// `stream`, allocates nothing; returns cudaGetLastError()
+// The chunk-parallel forward (phases 1-3) of bf16 or fp32 inputs (B and C
+// alike): y, the state entering each chunk in `states` (kept for the
+// backward) and, where `final` is given, the state leaving the last chunk.
+// fp32 takes `tf32_products` (3; 1 is the planted fault) a product.
+// Launches on `stream`, allocates nothing; returns cudaGetLastError()
 // (cudaErrorInvalidValue for an input it does not take).
 extern "C" int ssd_chunked_fwd(const SsdArgs* a, void* stream) {
-  if (!valid(a) || a->x_dtype != repro::kBF16) return cudaErrorInvalidValue;
-  return run_p<__nv_bfloat16, true>(*a, static_cast<cudaStream_t>(stream));
+  if (!valid(a)) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_p(a->P, [&](auto p) -> cudaError_t {
+    constexpr int P = decltype(p)::value;
+    if (a->x_dtype == repro::kBF16) return run_fwd<__nv_bfloat16, P, 3>(*a, s);
+    if (a->x_dtype != repro::kF32) return cudaErrorInvalidValue;
+    if (a->tf32_products == 3) return run_fwd<float, P, 3>(*a, s);
+    if (a->tf32_products == 1) return run_fwd<float, P, 1>(*a, s);
+    return cudaErrorInvalidValue;
+  });
 }
 
 // The backward: dx, ddt, dA, dB, dC and dD (dD when has_d) from dy, with
@@ -1074,7 +1370,10 @@ extern "C" int ssd_chunked_fwd(const SsdArgs* a, void* stream) {
 extern "C" int ssd_chunked_bwd(const SsdArgs* a, void* stream) {
   if (!valid(a)) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (a->x_dtype == repro::kF32) return run_p<float, false>(*a, s);
-  if (a->x_dtype == repro::kBF16) return run_p<__nv_bfloat16, false>(*a, s);
-  return cudaErrorInvalidValue;
+  return with_p(a->P, [&](auto p) -> cudaError_t {
+    constexpr int P = decltype(p)::value;
+    if (a->x_dtype == repro::kF32) return run_bwd<float, P>(*a, s);
+    if (a->x_dtype == repro::kBF16) return run_bwd<__nv_bfloat16, P>(*a, s);
+    return cudaErrorInvalidValue;
+  });
 }

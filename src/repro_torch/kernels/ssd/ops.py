@@ -1,31 +1,33 @@
 """Mamba-2 SSD op: a CUDA tensor goes to the hand-written kernels, a CPU
 tensor to the plain version (`ref.py`).
 
-The forward goes by dtype.  bf16 takes the chunk-parallel tensor-core
-forward (`csrc/ssd_sm90.cu`: each chunk's own state, a short pass that
-carries the states, then every chunk's output), which also gives the state
-entering each chunk.  fp32 takes the CUDA-core kernel (`csrc/ssd.cu`, one
-block per sequence walking its chunks), whose fp32 FMAs hold fp32
-tolerances.  Both read the model's layout directly: x (B,T,H,P), dt
-(B,T,H), Bm/Cm (B,T,G,N) through their strides (so the B and C halves of
-one packed projection need no copy), head h reads group h // (H // G) by
-index (no repeat of B and C over the heads), and the ragged last chunk is
-masked on the true T (no padding copy).  They return y only, with the D
-skip fused: the stateless training entry of the reference's `ops.ssd`.
+The forward is the chunk-parallel forward of `csrc/ssd_sm90.cu` for both
+dtypes (each chunk's own state, a short pass that carries the states,
+then every chunk's output): bf16 on bf16 tensor-core products, fp32 on
+TF32 ones with three products a product, which hold fp32 tolerances.  It
+reads the model's layout directly: x (B,T,H,P), dt (B,T,H), Bm/Cm
+(B,T,G,N) through their strides (so the B and C halves of one packed
+projection need no copy), head h reads group h // (H // G) by index (no
+repeat of B and C over the heads), and the ragged last chunk is masked on
+the true T (no padding copy).  It gives y with the D skip fused and the
+state entering each chunk, and on request the state leaving the last one.
 
-`ssd` is a `torch.autograd.Function`.  On the card its backward is the
-hand-written backward of `csrc/ssd_sm90.cu` (a reverse pass over the
-chunks for the state's gradient, then every chunk in parallel, then the
-sums over heads, batches and chunks), given the forward's saved states on
-the bf16 route and recomputing them on the fp32 one.  On the CPU it
-recomputes the plain chunk scan and differentiates it, as the reference's
-custom VJP does with `ref.ssd_chunked` (`repro/kernels/ssd/ops.py`
-`_vjp_bwd`).  There is no fallback: a CUDA input that the kernels do not
-take, a failed build or a failed launch raises.  `launches` counts forward
-calls through a kernel (either route), `launches_f32` those on the fp32
-route, `bwd_launches` backward calls; each call is a fixed number of kernel
-launches (two for the bf16 forward, one for the fp32 forward, three for the
-backward, four with the states recomputed).
+Two entries.  `ssd` is the stateless training entry of the reference's
+`ops.ssd`, y only, a `torch.autograd.Function`: on the card its backward
+is the hand-written backward of `csrc/ssd_sm90.cu` (a reverse pass over
+the chunks for the state's gradient, then every chunk in parallel, then the
+sums over heads, batches and chunks), given the forward's saved states.  On
+the CPU it recomputes the plain chunk scan and differentiates it, as the
+reference's custom VJP does with `ref.ssd_chunked`
+(`repro/kernels/ssd/ops.py` `_vjp_bwd`).  `ssd_with_state` is the serving
+prefill's entry, (y, the final state S), the contract of
+`ref.ssd_chunked(..., state=None)`, without a gradient.  There is no
+fallback: a CUDA input that the kernels do not take, a failed build or a
+failed launch raises.  `launches` counts forward calls through the kernels
+(either dtype), `launches_f32` those of fp32 inputs, `bwd_launches`
+backward calls (either dtype), `bwd_launches_f32` those of fp32 inputs;
+each call is a fixed number of kernel launches (two for the forward, three
+for the backward, four with the states recomputed).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from repro_torch.kernels.ssd import ref
 launches = 0
 launches_f32 = 0
 bwd_launches = 0
+bwd_launches_f32 = 0
 
 CHUNK = 128
 HEAD_DIMS = (16, 32, 64)      # P: one kernel instantiation each
@@ -54,6 +57,16 @@ def ssd(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
     return _Ssd.apply(x, dt, A, Bm, Cm, D, chunk)
 
 
+def ssd_with_state(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
+    """`ref.ssd_chunked(..., state=None)`'s contract, for inference: (y
+    (B,T,H,P) in x's dtype, the state leaving the sequence S (B,H,P,N)
+    fp32).  No gradient flows through it on the card."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
+    y, _, final = _forward(x, dt, A, Bm, Cm, D, chunk, final=True)
+    return y, final
+
+
 class _Ssd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
@@ -61,7 +74,7 @@ class _Ssd(torch.autograd.Function):
         if x.device.type == "cpu":
             ctx.save_for_backward(x, dt, A, Bm, Cm, D)
             return ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk)[0]
-        y, states = _forward(x, dt, A, Bm, Cm, D, chunk)
+        y, states, _ = _forward(x, dt, A, Bm, Cm, D, chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm, D, states)
         return y
 
@@ -89,24 +102,15 @@ class _Args(ctypes.Structure):
     """`SsdArgs` of csrc/ssd_sm90.cu, field for field."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
-            "x", "dt", "A", "Bm", "Cm", "D", "dy", "y", "states", "dstates",
-            "dx", "ddt", "dBh", "dCh", "dB", "dC", "dA_part", "dD_part",
-            "dA", "dD")]
+            "x", "dt", "A", "Bm", "Cm", "D", "dy", "y", "states", "final",
+            "dstates", "dx", "ddt", "dBh", "dCh", "dB", "dC", "dA_part",
+            "dD_part", "dA", "dD")]
         + [(n, ctypes.c_longlong) for n in (
             "sxb", "sxt", "sxh", "sdb", "sdt", "sdh", "sbb", "sbt", "sbg",
             "scb", "sct", "scg")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "H", "P", "G", "N", "Lc", "nC", "has_d", "recompute",
-            "x_dtype", "dt_dtype", "a_dtype", "d_dtype")])
-
-
-@functools.cache
-def _kernel():
-    fn = build.library().cdll.ssd_fwd
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 7 + [i] * 8 + [ll] * 12 + [i] * 4 + [p]
-    fn.restype = i
-    return fn
+            "x_dtype", "dt_dtype", "a_dtype", "d_dtype", "tf32_products")])
 
 
 @functools.cache
@@ -154,7 +158,7 @@ def _check(x, dt, A, Bm, Cm, D, chunk):
     return Bsz, T, H, P, G, N, Lc
 
 
-def _args(x, dt, A, Bm, Cm, D, Lc, recompute=0, **bufs):
+def _args(x, dt, A, Bm, Cm, D, Lc, recompute=0, tf32_products=3, **bufs):
     Bsz, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     ptrs = {k: 0 if v is None else v.data_ptr()
@@ -169,7 +173,8 @@ def _args(x, dt, A, Bm, Cm, D, Lc, recompute=0, **bufs):
         has_d=int(D is not None), recompute=recompute,
         x_dtype=_CODES[x.dtype], dt_dtype=_CODES[dt.dtype],
         a_dtype=_CODES[A.dtype],
-        d_dtype=_CODES[D.dtype] if D is not None else build.F32)
+        d_dtype=_CODES[D.dtype] if D is not None else build.F32,
+        tf32_products=tf32_products)
 
 
 def _call(name, args, device):
@@ -177,47 +182,45 @@ def _call(name, args, device):
                 name)
 
 
-def _forward(x, dt, A, Bm, Cm, D, chunk):
+def _forward(x, dt, A, Bm, Cm, D, chunk, final=False, tf32_products=3):
     """-> (y (B,T,H,P) in x's dtype, contiguous; the state entering each
-    chunk (B,H,nC,P,N) fp32 on the bf16 route, None on the fp32 one)."""
+    chunk (B,H,nC,P,N) fp32; with `final`, the state leaving the last chunk
+    (B,H,P,N) fp32, else None).  `tf32_products`: fp32's TF32 products a
+    product, 3, or 1 as a planted fault."""
     global launches, launches_f32
     Bsz, T, H, P, G, N, Lc = _check(x, dt, A, Bm, Cm, D, chunk)
-    y = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=x.device)
+    if tf32_products not in (1, 3):
+        raise ValueError(f"ssd kernel: tf32_products {tf32_products}")
+    dev, f32 = x.device, torch.float32
+    y = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=dev)
+    states = torch.empty((Bsz, H, -(-T // Lc), P, N), dtype=f32, device=dev)
+    last = torch.zeros((Bsz, H, P, N), dtype=f32, device=dev) if final \
+        else None
     if y.numel() == 0:
-        return y, None
-    if x.dtype == torch.bfloat16:
-        nC = -(-T // Lc)
-        states = torch.empty((Bsz, H, nC, P, N), dtype=torch.float32,
-                             device=x.device)
-        _call("ssd_chunked_fwd", _args(x, dt, A, Bm, Cm, D, Lc, y=y,
-                                       states=states), x.device)
-        launches += 1
-        return y, states
-    rc = _kernel()(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), 0 if D is None else D.data_ptr(), y.data_ptr(),
-        Bsz, T, H, P, G, N, Lc, int(D is not None),
-        *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
-        _CODES[x.dtype], _CODES[dt.dtype], _CODES[A.dtype],
-        _CODES[D.dtype] if D is not None else build.F32,
-        build.stream_ptr(x.device))
-    build.check(rc, "ssd_fwd")
+        return y, states, last
+    _call("ssd_chunked_fwd", _args(x, dt, A, Bm, Cm, D, Lc, y=y,
+                                   states=states, final=last,
+                                   tf32_products=tf32_products), dev)
     launches += 1
-    launches_f32 += 1
-    return y, None
+    launches_f32 += x.dtype == torch.float32
+    return y, states, last
 
 
-def ssd_cuda(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK):
-    """The forward kernels' launch: y (B,T,H,P) in x's dtype, contiguous."""
-    return _forward(x, dt, A, Bm, Cm, D, chunk)[0]
+def ssd_cuda(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK,
+             tf32_products: int = 3):
+    """The forward kernels' launch: y (B,T,H,P) in x's dtype, contiguous.
+    `tf32_products` = 1 (fp32 only) is the planted one-product fault."""
+    return _forward(x, dt, A, Bm, Cm, D, chunk,
+                    tf32_products=tf32_products)[0]
 
 
 def ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk: int = CHUNK, states=None):
     """The backward kernels' launch: (dx, ddt, dA, dB, dC, dD) of `ssd` at
     output gradient dy, in the inputs' dtypes (dD None without D).
     `states`: the forward's state entering each chunk (B,H,nC,P,N) fp32,
-    else phases 1-2 are run again first."""
-    global bwd_launches
+    as `_Ssd.forward` saves it for either dtype; without it phases 1-2 are
+    run again first."""
+    global bwd_launches, bwd_launches_f32
     Bsz, T, H, P, G, N, Lc = _check(x, dt, A, Bm, Cm, D, chunk)
     if tuple(dy.shape) != (Bsz, T, H, P) or dy.device != x.device:
         raise ValueError(f"ssd backward: dy {tuple(dy.shape)} on "
@@ -250,6 +253,7 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk: int = CHUNK, states=None):
     args = _args(x, dt, A, Bm, Cm, D, Lc, recompute=int(recompute), **bufs)
     _call("ssd_chunked_bwd", args, dev)
     bwd_launches += 1
+    bwd_launches_f32 += x.dtype == torch.float32
     return (bufs["dx"], bufs["ddt"].to(dt.dtype), bufs["dA"].to(A.dtype),
             bufs["dB"], bufs["dC"],
             None if D is None else bufs["dD"].to(D.dtype))

@@ -16,7 +16,10 @@ the dt and A gradients NaN.  Here the exponent is masked to -inf before
 exp: the same values, and a gradient equal to the reference's wherever
 that one is finite.
 
-Beside it, the chunk-parallel form that the CUDA kernels compute, in plain
+`ssd_step` is the decode's one-token recurrence (the reference's
+`ssd_step`, plain lax there and no kernel), with an fp32 state.
+
+Beside them, the chunk-parallel form that the CUDA kernels compute, in plain
 torch and with the chunks as a batch dimension:
   * `ssd_chunk_states`: each chunk's own state, then a short sequential
     pass that gives the state entering every chunk (phases 1-2 of the
@@ -84,6 +87,22 @@ def ssd_chunked(x, dt, A, Bm, Cm, D=None, chunk: int = 128, state=None):
     if D is not None:
         y = y + x * D[None, None, :, None]
     return y.to(x.dtype), S
+
+
+def ssd_step(S, x, dt, A, Bm, Cm, D=None):
+    """One decode token: x (B,H,P); dt (B,H); Bm/Cm (B,G,N); S (B,H,P,N)
+    fp32.  -> (S, y (B,H,P) in x's dtype)."""
+    rep = x.shape[1] // Bm.shape[1]
+    dtf = dt.float()
+    dA = torch.exp(dtf * A[None, :])                       # (B,H)
+    Bh = Bm.float().repeat_interleave(rep, dim=1)
+    Ch = Cm.float().repeat_interleave(rep, dim=1)
+    xf = x.float() * dtf[..., None]
+    S = dA[..., None, None] * S + xf[..., :, None] * Bh[..., None, :]
+    y = torch.einsum("bhpn,bhn->bhp", S, Ch)
+    if D is not None:
+        y = y + x * D[None, :, None]
+    return S, y.to(x.dtype)
 
 
 def _chunks(x, dt, A, Bm, Cm, chunk):

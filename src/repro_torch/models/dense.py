@@ -494,20 +494,9 @@ class DenseLM:
         k = LY.apply_rope_pos(k, cos, sin)
         ck, cv = writer(kv, k, v)
         B, C = qpos.shape
-        T, kl = ck.shape[1], ck.shape[2]
         hl = q.shape[2]
-        qg = q.reshape(B, C, kl, hl // kl, cfg.head_dim)
-        s = torch.einsum("bqkgh,btkh->bkgqt", (qg * self._q_scale).float(),
-                         ck.float())
-        s = LY._softcap(s, cfg.attn_softcap)
-        tpos = torch.arange(T, device=x.device)
-        msk = tpos[None, None, :] <= qpos[:, :, None]
-        if window is not None:
-            msk &= tpos[None, None, :] > qpos[:, :, None] - window
-        s = s.masked_fill(~msk[:, None, None, :, :], -1e30)
-        pr = torch.softmax(s, dim=-1)
-        out = torch.einsum("bkgqt,btkh->bqkgh", pr.to(cv.dtype), cv)
-        out = out.reshape(B, C, hl, cfg.head_dim)
+        out = LY.cached_attention(q * self._q_scale, ck, cv, qpos,
+                                  window=window, softcap=cfg.attn_softcap)
         out = out * head_mask[None, None, :, None]
         o = torch.matmul(out.reshape(B, C, hl * cfg.head_dim),
                          p["attn"]["wo"])

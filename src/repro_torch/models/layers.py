@@ -108,6 +108,27 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
                                      softcap=softcap, q_scale=q_scale)
 
 
+def cached_attention(q, ck, cv, qpos, *, window=None, softcap=None):
+    """Decode attention over a dense cache, plain torch: the reference's
+    einsums with fp32 scores.  q: (B, C, H, hd), already scaled; ck / cv:
+    (B, T, Kh, hd); qpos: (B, C) absolute positions, each query seeing the
+    keys at <= its position (and > position - window).  Returns
+    (B, C, H, hd) in cv's dtype."""
+    B, C, hl, hd = q.shape
+    T, kl = ck.shape[1], ck.shape[2]
+    qg = q.reshape(B, C, kl, hl // kl, hd)
+    s = _softcap(torch.einsum("bqkgh,btkh->bkgqt", qg.float(), ck.float()),
+                 softcap)
+    tpos = torch.arange(T, device=q.device)
+    msk = tpos[None, None, :] <= qpos[:, :, None]
+    if window is not None:
+        msk &= tpos[None, None, :] > qpos[:, :, None] - window
+    s = s.masked_fill(~msk[:, None, None, :, :], -1e30)
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkh->bqkgh", pr.to(cv.dtype), cv)
+    return out.reshape(B, C, hl, hd)
+
+
 # ---------------------------------------------------------------------------
 # Embedding and LM head
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Zamba2 hybrid family (zamba2-1.2b), the training half (port of
+"""Zamba2 hybrid family (zamba2-1.2b), training and serving (port of
 `repro.models.zamba2`): a Mamba-2 backbone plus ONE weight-tied ("shared")
 attention block invoked after every `shared_attn_every` Mamba layers
 (arXiv:2411.15242).
@@ -16,10 +16,23 @@ reference calls the plain `ref.ssd_chunked` and never its own kernel, so
 the port is held against that function.  Per-head gated RMSNorm stays in
 plain torch, as in the reference.
 
+Serving keeps O(1) state a Mamba layer: `prefill_local` runs the prompt
+through `ops.ssd_with_state` (the kernels' final state on the card) and
+fills the cache that `train.serve.alloc_cache` made (`init_state`'s
+layout: each layer's SSD state and its two conv states, fp32, and each
+shared-block invocation's keys and values); `decode_local` advances one
+token per row through `ref.ssd_step` (plain torch: the reference's is
+plain lax, no kernel) and the conv states, and attends over the shared
+block's cache in plain torch, as the dense decode does.  Both update the
+cache in place.  The cache's capacity T may exceed the prompt: a prefill of
+p <= T tokens fills keys and values at [:, :p], so a decode at position p
+is right (the reference's cache is the prompt's length, and its decode
+drops a write past it).
+
 Simplifications of the reference kept (DESIGN.md there): shared-block LoRA
 adapters omitted; per-head RMSNorm instead of a full-d_inner groupnorm.
 Not ported yet, each raising "not yet ported": the pipeline-stage contract
-(`stage_spec` / `stage_blocks`, pp > 1), the serving half (prefill / decode and their SSD and conv states), and tp > 1.
+(`stage_spec` / `stage_blocks`, pp > 1) and tp > 1.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from repro_torch.core.meta import ParamMeta, named_leaves, tree_map
 from repro_torch.core.remat import maybe_remat, whole_block_policy
 from repro_torch.core.stack import apply_stack
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import layers as LY
 from repro_torch.models.common import ArchConfig, InputSpec, ShapeConfig
 from repro_torch.models.xlstm import causal_conv1d
@@ -135,11 +149,13 @@ class Zamba2LM:
 
     def input_specs(self, shape: ShapeConfig, dcfg: DistConfig) -> dict:
         B, S = shape.global_batch, shape.seq_len
-        if shape.kind != "train":
-            _unported(f"input_specs for kind={shape.kind!r} (serving)")
-        return {"tokens": InputSpec((B, S), "int32"),
-                "targets": InputSpec((B, S), "int32"),
-                "valid": InputSpec((B, S), "float32")}
+        if shape.kind == "train":
+            return {"tokens": InputSpec((B, S), "int32"),
+                    "targets": InputSpec((B, S), "int32"),
+                    "valid": InputSpec((B, S), "float32")}
+        if shape.kind == "prefill":
+            return {"tokens": InputSpec((B, S), "int32")}
+        return {"tok": InputSpec((B,), "int32")}
 
     def stage_spec(self, n_stages: int):
         _unported("stage_spec (pipeline stages)")
@@ -161,12 +177,6 @@ class Zamba2LM:
         return BlockStats(param_flops=pf, param_bytes=pb,
                           act_bytes=tokens * self.cfg.d_model * it
                           / dcfg.tp_size)
-
-    def prefill_local(self, *a, **k):
-        _unported("prefill_local (serving)")
-
-    def decode_local(self, *a, **k):
-        _unported("decode_local (serving)")
 
     # -------------------------------------------------------------- init --
     def mamba_init(self, generator, device, dtype) -> dict:
@@ -242,35 +252,51 @@ class Zamba2LM:
         }
 
     # ------------------------------------------------------------- mamba --
-    def mamba_block(self, p, consts, x, dcfg: DistConfig):
-        cfg = self.cfg
-        nh = p["w_x"].shape[1]
-        hd, ds = self.hd, self.ds
-        h = LY.rmsnorm(x, p["ln"], cfg.norm_eps)
+    def _mamba_proj(self, p, x):
+        """The layer's norm and input projections of x (B,T,d): (xh
+        (B,T,nh*hd), z (B,T,nh,hd), bc (B,T,2ds), dt_pre (B,T,nh))."""
+        nh, hd = p["w_x"].shape[1], self.hd
+        h = LY.rmsnorm(x, p["ln"], self.cfg.norm_eps)
         B, T, d = h.shape
-        xh = torch.matmul(h, p["w_x"].reshape(d, nh * hd))   # (B,T,nh*hd)
+        xh = torch.matmul(h, p["w_x"].reshape(d, nh * hd))
         z = torch.matmul(h, p["w_z"].reshape(d, nh * hd)).view(B, T, nh, hd)
-        bc = torch.matmul(h, p["w_bc"])                      # (B,T,2ds)
-        dt_pre = torch.matmul(h, p["w_dt"])                  # (B,T,nh)
+        return (xh, z, torch.matmul(h, p["w_bc"]),
+                torch.matmul(h, p["w_dt"]))
+
+    def _mamba_out(self, p, x, y, z):
+        """x + the output projection of y (B,T,nh,hd) through the gated
+        per-head RMSNorm, in x's dtype."""
+        B, T, nh, hd = y.shape
+        y = y * F.silu(z)
+        yf = y.float()
+        var = yf.pow(2).mean(-1, keepdim=True)
+        y = (yf * torch.rsqrt(var + self.cfg.norm_eps)
+             * p["gn"][None, None].float()).to(x.dtype)
+        return x + torch.matmul(y.reshape(B, T, nh * hd),
+                                p["w_out"].reshape(nh * hd, -1))
+
+    def _mamba(self, p, x, ssd):
+        """One Mamba layer over x (B,T,d) around `ssd(xh, dt, A, Bm, Cm, D,
+        chunk)` -> (y, S).  Returns (output, S, and the conv states: the
+        last K-1 inputs of each causal conv, zeros before the sequence)."""
+        cfg = self.cfg
+        nh, hd, ds = p["w_x"].shape[1], self.hd, self.ds
+        xh, z, bc, dt_pre = self._mamba_proj(p, x)
+        B, T, _ = x.shape
         # causal convs (x per head channel, bc shared)
-        xh2, _ = causal_conv1d(xh, p["conv_x"].reshape(-1, nh * hd))
+        xh2, cx = causal_conv1d(xh, p["conv_x"].reshape(-1, nh * hd))
         xh = F.silu(xh2).view(B, T, nh, hd)
-        bc2, _ = causal_conv1d(bc, p["conv_bc"])
+        bc2, cbc = causal_conv1d(bc, p["conv_bc"])
         bc = F.silu(bc2)
         Bm = bc[..., :ds][:, :, None, :]                     # (B,T,1,ds)
         Cm = bc[..., ds:][:, :, None, :]
         dt = F.softplus(dt_pre.float() + p["dt_bias"].float())
         A = -torch.exp(p["A_log"].float())
-        y = ssd_ops.ssd(xh, dt, A, Bm, Cm, p["Dskip"], cfg.ssm_chunk)
-        # gated per-head RMSNorm
-        y = y * F.silu(z)
-        yf = y.float()
-        var = yf.pow(2).mean(-1, keepdim=True)
-        y = (yf * torch.rsqrt(var + cfg.norm_eps)
-             * p["gn"][None, None].float()).to(h.dtype)
-        o = torch.matmul(y.reshape(B, T, nh * hd),
-                         p["w_out"].reshape(nh * hd, d))
-        return x + o
+        y, S = ssd(xh, dt, A, Bm, Cm, p["Dskip"], cfg.ssm_chunk)
+        return self._mamba_out(p, x, y, z), S, cx, cbc
+
+    def mamba_block(self, p, consts, x, dcfg: DistConfig):
+        return self._mamba(p, x, lambda *a: (ssd_ops.ssd(*a), None))[0]
 
     def _mamba_stack_fn(self, p, consts, x, dcfg, inner_remat=False):
         if inner_remat:
@@ -314,26 +340,38 @@ class Zamba2LM:
                            remat=("none" if inner else "full",))[0]
 
     # ------------------------------------------------------ shared block --
-    def shared_block(self, p, x, emb, consts, dcfg: DistConfig):
-        """concat(hidden, embedding) -> attn -> +x ; -> mlp -> +x."""
-        cfg = self.cfg
-        u = torch.cat([x, emb], dim=-1)                     # (B,S,2d)
-        h = LY.rmsnorm(u, p["ln1"], cfg.norm_eps)
-        q, k, v, head_mask = LY._local_qkv(
-            {"wq": p["wq"], "wk": p["wk"], "wv": p["wv"]}, h,
-            self.shared_cfg, dcfg)
+    def _shared_qkv(self, p, x, emb, dcfg):
+        """The shared block's norm of concat(hidden, embedding) (B,S,2d)
+        and its projections: q, k, v (before RoPE), head_mask."""
+        h = LY.rmsnorm(torch.cat([x, emb], dim=-1), p["ln1"],
+                       self.cfg.norm_eps)
+        return LY._local_qkv({"wq": p["wq"], "wk": p["wk"], "wv": p["wv"]},
+                             h, self.shared_cfg, dcfg)
+
+    def _shared_out(self, p, x, emb, out):
+        """x + the projection of the attention's out (B,S,hl,hd); -> mlp on
+        concat(x, embedding) -> +x."""
+        Bq, S, hl, hd = out.shape
+        x = x + torch.matmul(out.reshape(Bq, S, hl * hd), p["wo"])
+        h = LY.rmsnorm(torch.cat([x, emb], dim=-1), p["ln2"],
+                       self.cfg.norm_eps)
+        g = torch.matmul(h, p["wg"])
+        w = torch.matmul(h, p["wu"])
+        return x + torch.matmul(F.silu(g) * w, p["wd"])
+
+    def _shared_prefill(self, p, x, emb, consts, dcfg: DistConfig):
+        """concat(hidden, embedding) -> attn -> +x ; -> mlp -> +x.  Returns
+        (output, (keys after RoPE, values) (B,S,kv heads,hd))."""
+        q, k, v, head_mask = self._shared_qkv(p, x, emb, dcfg)
         cos, sin = consts["rope_cos"], consts["rope_sin"]
         q = LY.apply_rope(q, cos, sin)
         k = LY.apply_rope(k, cos, sin)
         out = LY.attention(q, k, v, causal=True)
-        out = out * head_mask[None, None, :, None]
-        Bq, S, hl, hd = out.shape
-        x = x + torch.matmul(out.reshape(Bq, S, hl * hd), p["wo"])
-        u = torch.cat([x, emb], dim=-1)
-        h = LY.rmsnorm(u, p["ln2"], cfg.norm_eps)
-        g = torch.matmul(h, p["wg"])
-        w = torch.matmul(h, p["wu"])
-        return x + torch.matmul(F.silu(g) * w, p["wd"])
+        return self._shared_out(p, x, emb,
+                                out * head_mask[None, None, :, None]), (k, v)
+
+    def shared_block(self, p, x, emb, consts, dcfg: DistConfig):
+        return self._shared_prefill(p, x, emb, consts, dcfg)[0]
 
     # ------------------------------------------------------------- train --
     def _shared_fn(self, consts, dcfg: DistConfig):
@@ -389,8 +427,7 @@ class Zamba2LM:
         x, emb0 = state["x"], state["emb0"]
         consts = self.consts(x.shape[1], x.device)
         shared_fn = self._shared_fn(consts, dcfg)
-        sizes = [self.per] * self.n_super + ([self.n_tail]
-                                             if self.n_tail else [])
+        sizes = self._segments()
         # one split per stacked leaf: its backward joins the runs' layer
         # gradients once
         runs = tree_map(lambda a: a.split(sizes, 0), storage["blocks"])
@@ -402,3 +439,134 @@ class Zamba2LM:
         loss = self.stage_loss(storage, {"x": x, "emb0": emb0}, batch, dcfg)
         return loss, {}
 
+
+    # ------------------------------------------------------------- serve --
+    def _segments(self) -> list:
+        """Mamba layers a run: the full superblocks (each followed by the
+        shared block), then the tail."""
+        return [self.per] * self.n_super + ([self.n_tail]
+                                            if self.n_tail else [])
+
+    def init_state(self, batch_local: int, dcfg: DistConfig,
+                   seq_len: int = 0) -> dict:
+        """The serving state's leaves on the meta device (shapes and dtypes;
+        `train.serve.alloc_cache` makes them), laid out as the reference's
+        `init_state` at tp = 1: S (L, B, nh, hd, ds), conv_x (L, B, K-1,
+        nh*hd) and conv_bc (L, B, K-1, 2 ds) fp32, and sh_kv, n_super (k,
+        v) pairs of (B, seq_len, kv heads, hd) in param_dtype."""
+        cfg = self.cfg
+        if dcfg.tp_size != 1:
+            _unported(f"serving at tp={dcfg.tp_size}")
+        L, B, K = cfg.n_layers, batch_local, cfg.ssm_conv
+        kv = (B, seq_len, cfg.gqa_layout(1)["kvp"], cfg.head_dim)
+
+        def meta(shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        return {
+            "S": meta((L, B, self.nh, self.hd, self.ds)),
+            "conv_x": meta((L, B, K - 1, self.nh * self.hd)),
+            "conv_bc": meta((L, B, K - 1, 2 * self.ds)),
+            "sh_kv": tuple((meta(kv, dcfg.param_dtype),
+                            meta(kv, dcfg.param_dtype))
+                           for _ in range(self.n_super)),
+        }
+
+    def _final_logits(self, params, x):
+        """Final norm and fp32 logits of the last position of x (B, S, d):
+        the norm is row-wise, so normalising only that position is exact."""
+        x = LY.rmsnorm(x[:, -1:].contiguous(), params["final_norm"],
+                       self.cfg.norm_eps)
+        return LY.logits_f32(x, params["head"], self.cfg)[:, 0]
+
+    def prefill_local(self, params, batch, dcfg: DistConfig, cache):
+        """params: full params, blocks stacked (n_layers, ...); batch:
+        {"tokens": (B, p) int64}; cache: `train.serve.alloc_cache`'s state
+        (`init_state`) of capacity T >= p, which this call fills: every
+        layer's SSD state after the prompt and its conv states, and each
+        shared-block invocation's keys and values at [:, :p].
+
+        Returns (last-position logits (B, V) fp32, cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        n = tokens.shape[1]
+        if self.n_super and n > cache["sh_kv"][0][0].shape[1]:
+            raise ValueError(f"a prompt of {n} tokens, a cache of "
+                             f"{cache['sh_kv'][0][0].shape[1]}")
+        x = LY.embed_apply(params["embed"], tokens, cfg, dcfg)
+        emb0 = x
+        consts = self.consts(n, tokens.device)
+        li = 0
+        for g, size in enumerate(self._segments()):
+            for _ in range(size):
+                p = tree_map(lambda a: a[li], params["blocks"])
+                x, S, cx, cbc = self._mamba(p, x, ssd_ops.ssd_with_state)
+                for key, v in (("S", S), ("conv_x", cx), ("conv_bc", cbc)):
+                    cache[key][li].copy_(v)
+                li += 1
+            if g < self.n_super:
+                x, kv = self._shared_prefill(params["shared"], x, emb0,
+                                             consts, dcfg)
+                for leaf, v in zip(cache["sh_kv"][g], kv):
+                    leaf[:, :n].copy_(v)
+        return self._final_logits(params, x), cache
+
+    def mamba_decode(self, p, st, x):
+        """One Mamba layer for one token a row, x (B,1,d), from the layer's
+        state st {"S", "conv_x", "conv_bc"}.  Returns (output, S, conv_x,
+        conv_bc), the states fp32."""
+        nh, hd, ds = p["w_x"].shape[1], self.hd, self.ds
+        xh, z, bc, dt_pre = self._mamba_proj(p, x)
+        B = x.shape[0]
+        xh2, cx = causal_conv1d(xh, p["conv_x"].reshape(-1, nh * hd),
+                                state=st["conv_x"].to(xh.dtype))
+        xh = F.silu(xh2).view(B, nh, hd)
+        bc2, cbc = causal_conv1d(bc, p["conv_bc"],
+                                 state=st["conv_bc"].to(bc.dtype))
+        bc = F.silu(bc2)[:, 0]
+        dt = F.softplus(dt_pre[:, 0].float() + p["dt_bias"].float())
+        A = -torch.exp(p["A_log"].float())
+        S, y = ssd_ref.ssd_step(st["S"], xh, dt, A, bc[:, None, :ds],
+                                bc[:, None, ds:], D=p["Dskip"])
+        return (self._mamba_out(p, x, y[:, None], z), S, cx.float(),
+                cbc.float())
+
+    def _shared_decode(self, p, kv, x, emb0, pos, cos, sin, dcfg):
+        """The shared block for one token a row at positions pos (B,):
+        writes its key and value into kv (this invocation's (k, v) cache,
+        in place) and attends over the cache at <= pos in plain torch with
+        fp32 scores, as the reference's einsums do."""
+        cfg = self.cfg
+        q, k, v, head_mask = self._shared_qkv(p, x, emb0, dcfg)
+        q = LY.apply_rope_pos(q, cos, sin)
+        k = LY.apply_rope_pos(k, cos, sin)
+        ck, cv = kv
+        B, hd = q.shape[0], cfg.head_dim
+        ib = torch.arange(B, device=x.device)
+        ck[ib, pos] = k[:, 0].to(ck.dtype)
+        cv[ib, pos] = v[:, 0].to(cv.dtype)
+        out = LY.cached_attention(q / math.sqrt(hd), ck, cv, pos[:, None])
+        out = out * head_mask[None, None, :, None]
+        return self._shared_out(p, x, emb0, out)
+
+    def decode_local(self, params, cache, tok, pos, dcfg: DistConfig):
+        """One decode step. tok: (B,) int64; pos: (B,) int64 per-row
+        positions (< the cache's capacity).  cache: as `prefill_local`'s,
+        updated in place.  Returns (logits (B, V) fp32, cache)."""
+        cfg = self.cfg
+        x = LY.embed_apply(params["embed"], tok[:, None], cfg, dcfg)
+        emb0 = x
+        cos, sin = LY.rope_pos(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        li = 0
+        for g, size in enumerate(self._segments()):
+            for _ in range(size):
+                p = tree_map(lambda a: a[li], params["blocks"])
+                st = {k: cache[k][li] for k in ("S", "conv_x", "conv_bc")}
+                x, *new = self.mamba_decode(p, st, x)
+                for key, v in zip(("S", "conv_x", "conv_bc"), new):
+                    cache[key][li].copy_(v)
+                li += 1
+            if g < self.n_super:
+                x = self._shared_decode(params["shared"], cache["sh_kv"][g],
+                                        x, emb0, pos, cos, sin, dcfg)
+        return self._final_logits(params, x), cache

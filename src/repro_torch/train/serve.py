@@ -5,10 +5,12 @@
   * `init_serve_params` — seeded weights made directly on the device;
   * `cache_abstract` — the dense KV cache's leaves on the meta device
     (the reference's `cache_abstract` without the partition specs), at any
-    mesh: the serving plan prices them;
+    mesh: the serving plan prices them; for zamba2 its serving state (SSD
+    and conv states, the shared block's keys and values) at tp = 1;
   * `alloc_cache` — the dense KV cache, one (k, v) pair a layer of a
     local/global pair; under a KV codec ({"k", "ks", "v", "vs"} leaves)
-    int8 / fp8 wire values and their per-128-chunk f32 scales;
+    int8 / fp8 wire values and their per-128-chunk f32 scales; zamba2's
+    state, zeroed;
   * `paged_abstracts` / `alloc_arena` — the paged arena (core/serving) of
     the same leaves, and its page table;
   * `make_prefill_step` / `make_decode_step` / `make_paged_step` — plain
@@ -103,8 +105,16 @@ def cache_abstract(model, shape: ShapeConfig, dcfg: DistConfig):
     hd) in param_dtype, or under a KV codec {"k", "ks", "v", "vs"} (wire
     values in the codec's dtype, scales (..., kv_chunks(hd)) f32); gemma2's
     local/global pairs hold one such pair a layer of the pair.  Global
-    head counts, as the reference's: any mesh."""
+    head counts, as the reference's: any mesh.  zamba2: `init_state`'s
+    {"S", "conv_x", "conv_bc", "sh_kv"} (the reference's leaves) at tp =
+    1, with no KV codec (the reference's zamba cache ignores one; the
+    port raises)."""
     cfg = model.cfg
+    if cfg.family == "zamba":
+        if dcfg.kv_codec:
+            raise ValueError(f"{cfg.name}: the zamba2 cache takes no KV "
+                             f"codec (got {dcfg.kv_codec!r})")
+        return model.init_state(shape.global_batch, dcfg, shape.seq_len)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: serving the {cfg.family} family is not yet ported "
@@ -129,7 +139,8 @@ def alloc_cache(model, shape: ShapeConfig, dcfg: DistConfig, device="cuda"):
     """Zeroed dense KV cache on `device` with `cache_abstract`'s leaves: a
     (k, v) pair of (n_steps, B, T, Kl, hd) tensors in param_dtype (under a
     KV codec the wire values and scales), or for gemma2's local/global
-    pairs one such pair a layer of the pair, ((k, v), (k, v))."""
+    pairs one such pair a layer of the pair, ((k, v), (k, v)); zamba2's
+    serving state."""
     check_world_size_one(dcfg)
     dev = resolve_device(device)
     return PG.kv_map(lambda a: PG.zeros(a.shape, a.dtype, dev),

@@ -19,11 +19,15 @@ flash `autograd.Function`s are held against autograd through the plain
 versions (rmsnorm: kernel forward, plain-torch backward; flash: kernel
 forward and backward kernels, `bwd_launches` / `bwd_launches_f32`, also
 against the plain reverse pass `ref.attention_bwd`, bit-identical across
-calls, with its planted faults missing FLASH_BF16_GRAD_RMS_REL / TOL32).  The SSD goes by dtype too:
-bf16 to the chunk-parallel tensor-core forward (`launches`), fp32 to the
-CUDA-core one (`launches` and `launches_f32`); its backward kernels
-(`bwd_launches`) are held against the plain reverse-pass backward and
-against autograd through the plain chunk loop.  Tolerances: TOL32 (rtol
+calls, with its planted faults missing FLASH_BF16_GRAD_RMS_REL / TOL32).  The SSD's
+chunk-parallel forward takes both dtypes (`launches`; fp32 also
+`launches_f32`, TF32 mma.sync with three products, whose one-product
+variant must miss TOL32); its final state (`ssd_with_state`) is held
+against the plain `ssd_chunked`'s, and the state entering the last chunk
+in its place must fail; its backward kernels (`bwd_launches`, fp32 also
+`bwd_launches_f32`, given the forward's saved states in both dtypes) are
+held against the plain reverse-pass backward and against autograd through
+the plain chunk loop.  Tolerances: TOL32 (rtol
 2e-4, atol 2e-5) for fp32, TOL (2e-2) for bf16, and for bf16 flash and SSD
 outputs also an RMS error of FLASH_BF16_RMS_REL / SSD_BF16_RMS_REL of the
 output's; the fp32 SSD backward's gradients take TOL32's rtol of the
@@ -689,9 +693,10 @@ def _rms_rel(got, want):
 @pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(dev, B, T, H, P, G, N, chunk, dtype):
-    """The forward by route: bf16 on the chunk-parallel kernels, fp32 on
-    the CUDA-core one (`launches_f32`); chunks of 12 and 16 rows (T 12 at
-    chunk 16, T 24 at chunk 16), ragged last chunks (T 300 at 128)."""
+    """The forward in both dtypes (fp32 counted in `launches_f32` too);
+    chunks of 12 and 16 rows (T 12 at chunk 16, T 24 at chunk 16), ragged
+    last chunks (T 300 at 128), B and C strided halves of one projection,
+    N of 12 and 5 (element loads)."""
     ins = _ssd_inputs(dev, B, T, H, P, G, N, dtype)
     bf16 = dtype == torch.bfloat16
     n, n32 = ssd_ops.launches, ssd_ops.launches_f32
@@ -716,10 +721,54 @@ def test_ssd_bf16_forward_keeps_the_states_for_the_backward(
     """The state entering each chunk, as the bf16 forward saves it, against
     the plain `ssd_chunk_states`."""
     ins = _ssd_inputs(dev, B, T, H, P, G, N, torch.bfloat16)
-    _, states = ssd_ops._forward(*ins, chunk)
+    _, states, _ = ssd_ops._forward(*ins, chunk)
     want, _ = ssd_ref.ssd_chunk_states(*ins[:5], chunk=chunk)
     assert states.shape == want.shape
     torch.testing.assert_close(states, want, **TOL32)
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
+def test_ssd_fp32_forward_keeps_the_states_for_the_backward(
+        dev, B, T, H, P, G, N, chunk):
+    """The same for the fp32 forward, which now saves them too."""
+    ins = _ssd_inputs(dev, B, T, H, P, G, N, torch.float32)
+    _, states, _ = ssd_ops._forward(*ins, chunk)
+    want, _ = ssd_ref.ssd_chunk_states(*ins[:5], chunk=chunk)
+    torch.testing.assert_close(states, want, **TOL32)
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_final_state_matches_plain(dev, B, T, H, P, G, N, chunk, dtype):
+    """`ssd_with_state`'s (y, S) against the plain `ssd_chunked`: S at
+    TOL32 (bf16 inputs too: S is fp32 from the same bf16 values); the state
+    entering the last chunk in its place must fail where there are two
+    chunks or more."""
+    ins = _ssd_inputs(dev, B, T, H, P, G, N, dtype)
+    n = ssd_ops.launches
+    y, S = ssd_ops.ssd_with_state(*ins, chunk=chunk)
+    assert ssd_ops.launches == n + 1
+    want_y, want_S = ssd_ref.ssd_chunked(*ins, chunk=chunk)
+    assert S.shape == (B, H, P, N) and S.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               **(TOL32 if dtype == torch.float32 else TOL))
+    torch.testing.assert_close(S, want_S, **TOL32)
+    if T > chunk:
+        _, states, _ = ssd_ops._forward(*ins, chunk)
+        assert not torch.allclose(states[:, :, -1], want_S, **TOL32)
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES)
+def test_ssd_fp32_forward_with_one_tf32_product_misses_tol32(
+        dev, B, T, H, P, G, N, chunk):
+    """The planted fault: one TF32 product (hi * hi) in place of three
+    must miss the tolerance the kernel holds."""
+    ins = _ssd_inputs(dev, B, T, H, P, G, N, torch.float32)
+    want, _ = ssd_ref.ssd_chunked(*ins, chunk=chunk)
+    torch.testing.assert_close(ssd_ops.ssd_cuda(*ins, chunk=chunk), want,
+                               **TOL32)
+    planted = ssd_ops.ssd_cuda(*ins, chunk=chunk, tf32_products=1)
+    assert not torch.allclose(planted, want, **TOL32)
 
 
 def _ssd_ct(dev, B, T, H, P, dtype):
@@ -731,8 +780,10 @@ def test_ssd_gradient_matches_plain_autograd(dev, dtype):
     ins = _ssd_inputs(dev, 2, 40, 4, 16, 1, 8, dtype)
     ct = _ssd_ct(dev, 2, 40, 4, 16, dtype)
     n, nb = ssd_ops.launches, ssd_ops.bwd_launches
+    n32 = ssd_ops.bwd_launches_f32
     got = _grads(lambda *a: ssd_ops.ssd(*a, chunk=16), ins, ct)
     assert (ssd_ops.launches, ssd_ops.bwd_launches) == (n + 1, nb + 1)
+    assert ssd_ops.bwd_launches_f32 == n32 + (dtype == torch.float32)
     want = _grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=16)[0], ins, ct)
     for a, b in zip(got, want):
         torch.testing.assert_close(
@@ -766,15 +817,15 @@ def _close_grads(got, want, tol, terms=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_kernel_matches_plain(dev, B, T, H, P, G, N, chunk,
                                            dtype):
-    """The backward kernels, given the forward's states (bf16) or
-    recomputing them (fp32), against the plain reverse-pass backward and
-    against autograd through the plain chunk loop."""
+    """The backward kernels, given the forward's states, against the plain
+    reverse-pass backward and against autograd through the plain chunk
+    loop; then recomputing the states, without D."""
     ins = _ssd_inputs(dev, B, T, H, P, G, N, dtype)
     ct = _ssd_ct(dev, B, T, H, P, dtype)
     fp32 = dtype == torch.float32
     tol = TOL32 if fp32 else TOL
     terms = ssd_ref.ssd_grad_terms(*ins, ct, chunk) if fp32 else None
-    _, states = ssd_ops._forward(*ins, chunk)
+    _, states, _ = ssd_ops._forward(*ins, chunk)
     nb = ssd_ops.bwd_launches
     got = ssd_ops.ssd_bwd_cuda(*ins, ct, chunk, states=states)
     assert ssd_ops.bwd_launches == nb + 1
@@ -838,6 +889,8 @@ def test_ssd_kernel_rejects_what_it_does_not_take(dev):
         ssd_ops.ssd_cuda(x, dt.cpu(), A, Bm, Cm, D)
     with pytest.raises(ValueError, match="dy"):
         ssd_ops.ssd_bwd_cuda(x, dt, A, Bm, Cm, D, x[:, :-1])
+    with pytest.raises(ValueError, match="tf32_products"):
+        ssd_ops.ssd_cuda(x, dt, A, Bm, Cm, D, tf32_products=2)
     with pytest.raises(ValueError, match="states"):
         ssd_ops.ssd_bwd_cuda(x, dt, A, Bm, Cm, D, x, 16,
                              states=torch.zeros(1, 2, 1, 16, 8, device=dev))

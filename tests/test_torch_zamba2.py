@@ -283,8 +283,9 @@ def test_full_config_size_and_layout():
 
 
 def test_unported_parts_raise():
-    """Pipeline stages, serving and tp > 1 raise; block_stats (the
-    planners' workload) is ported and equals the reference's."""
+    """Pipeline stages and tp > 1 raise (serving is ported:
+    tests/test_torch_zamba2_serve.py); block_stats (the planners'
+    workload) is ported and equals the reference's."""
     cfg, model = get_arch(ARCH, smoke=True)
     _, jmodel = jax_get_arch(ARCH, smoke=True)
     got = model.block_stats(DistConfig(), (B, S))
@@ -292,9 +293,8 @@ def test_unported_parts_raise():
     assert (got.param_flops, got.param_bytes, got.act_bytes) == \
         (want.param_flops, want.param_bytes, want.act_bytes)
     for call in (lambda: model.stage_spec(2),
-                 lambda: model.prefill_local(None, None, None),
-                 lambda: model.input_specs(ShapeConfig("p", 8, 2, "prefill"),
-                                           DistConfig())):
+                 lambda: model.stage_blocks(None, None, None),
+                 lambda: model.init_state(2, DistConfig(mesh_shape=(1, 2)))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
     with pytest.raises(NotImplementedError, match="tp=2"):
