@@ -267,14 +267,52 @@ without printing the final line):
      p+1 check at p = 2063 in bf16 (TOL_BF16_CONSISTENCY, the argmax where
      the top-2 gap is clear; a decode with the conv states dropped must
      fail) and on the weights widened to fp32 at TOL32.
+ 10u. xlstm kernels vs plain (the main path of the fifteenth slice,
+     xlstm-1.3b, which runs no kernel of its own): rmsnorm at (8192,
+     2048) and (8256, 2048) bf16, xent forward and backward at (8192,
+     50304) fp32, AdamW at the 103,022,592-element embedding, each against
+     its plain version with wall, device, plain and library ms and the
+     bound.
+ 10v. xlstm smoke, card vs CPU: SMOKE fp32 on the same numpy-seeded
+     weights: the loss and every gradient of one loss step at T 40 (a
+     ragged mLSTM chunk) on the vanilla and the prefetch stack; prefill
+     and 3 decode steps, logits and every state leaf (each mLSTM's C, n,
+     m, conv; the sLSTM's h, c, n, m); all at TOL32; no flash or SSD
+     launch.
+ 10w. full-width xlstm-1.3b training: all 48 layers, B4 T2048, bf16
+     compute, fp32 storage, through `launch.train`'s Trainer (the prefetch
+     stack, bf16 wire), XLSTM_TRAIN_STEPS timed steps, the last profiled:
+     the readings of 8, MFU on `_xlstm_flops` (the projections, the
+     chunkwise mLSTM's products, the sLSTM's recurrent products), the
+     memory plan's modeled peak and step beside the measured, the host ms
+     of the sLSTM loops a step (their forwards and their backwards, timed
+     in the step); rmsnorm 3 a layer + 1, xent 1 + 1 and AdamW one a
+     storage leaf a step, no flash and no SSD.
+ 10x. full-width xlstm-1.3b serve: all 48 layers, bf16 weights made on the
+     card, B 4, prompt 2000 padded to T 2064, 64 generated tokens through
+     `repro_torch.launch.serve`: prefill ms, decode ms/token beside its
+     byte bound, device time of a decode step, peak memory, one rmsnorm a
+     layer + 1 a call and no other kernel; the p+1 check at p = 2063 (a
+     ragged last chunk of 15 rows) in bf16 on the weights of each of
+     XLSTM_SEEDS (XLSTM_BF16_CONSISTENCY_REL of the logits' RMS, the
+     argmax where the top-2 gap is clear; a decode with the conv states
+     dropped must fail) and on all 48 layers widened to fp32 at TOL32;
+     the bf16 residual stream against the fp32 one after every sub-block
+     (and a control: the fp32 stream rounded to bf16 once); each sub-block
+     of the first superblock in bf16 against fp32 on the same input
+     (XLSTM_BLOCK_BF16_REL of the output's RMS); the cells' calls in the
+     first superblock's bf16 prefill and decode step against the same
+     calls on their inputs widened to fp32, bit for bit (XLSTM_PLANT, the
+     cells' calls rounded to bf16, must fail).
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
 fp32.  Tolerances: TOL32 (rtol 2e-4, atol 2e-5) for fp32 and TOL (rtol 2e-2,
 atol 2e-2) for bf16, those of tests/test_kernels.py; the full-width bf16
 consistency check holds to an absolute 6e-2 (TOL_BF16_CONSISTENCY; 2e-1
-for gemma2-27b's 46 layers, TOL_GEMMA2_BF16_CONSISTENCY) and an equal
-argmax; the bf16 flash outputs are also held to an RMS error of
+for gemma2-27b's 46 layers, TOL_GEMMA2_BF16_CONSISTENCY; for
+xlstm-1.3b's 48, XLSTM_BF16_CONSISTENCY_REL of the logits' RMS) and an
+equal argmax; the bf16 flash outputs are also held to an RMS error of
 FLASH_BF16_RMS_REL of the plain output's RMS, the bf16 ssd outputs to
 SSD_BF16_RMS_REL and its bf16 gradients to SSD_BF16_GRAD_RMS_REL, the
 bf16 flash gradients to FLASH_BF16_GRAD_RMS_REL; the fp32
@@ -290,8 +328,10 @@ bounds of tests/dist_harness.py's quant case (QUANT_LOSS_RTOL, drift).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -619,7 +659,6 @@ def phase_device(state):
 def _kernel_resources(log):
     """(kernel, registers, static smem bytes, (spill stores, spill loads))
     for every entry function in an nvcc -Xptxas -v log."""
-    import re
     out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2098,7 +2137,9 @@ def _attn_pairs(seq, window=None):
 
 def _attn_calls(model):
     """Attention calls a training step differentiates: one a layer, for
-    zamba one a shared-block invocation."""
+    zamba one a shared-block invocation, for xlstm none."""
+    if model.cfg.family == "xlstm":
+        return 0
     return model.n_super if model.cfg.family == "zamba" else \
         model.cfg.n_layers
 
@@ -2118,7 +2159,7 @@ def _model_flops(cfg, model, batch, seq):
     forward; remat's recompute not counted): 6 x the matmul parameters
     applied per token x tokens (for moe the active ones), plus causal
     attention (4*hd a pair, inside the window on gemma2's local layers)
-    and, for zamba, the SSD's own products."""
+    and, for zamba, the SSD's own products; xlstm: `_xlstm_flops`."""
     tokens = batch * seq
     lay = cfg.gqa_layout(1)
     hd = cfg.head_dim
@@ -2145,6 +2186,8 @@ def _model_flops(cfg, model, batch, seq):
         return 6.0 * mm * tokens + attn
     # zamba: the Mamba layers once, the shared block once per invocation
     # (on the 2d-wide concat), the head once; the lookup has none
+    if cfg.family == "xlstm":
+        return _xlstm_flops(cfg, model, batch, seq)
     d, d2, di = cfg.d_model, 2 * cfg.d_model, model.d_inner
     mamba = d * (2 * di + 2 * cfg.ssm_state + model.nh) + di * d
     shared = (d2 * lay["hq"] * hd + 2 * lay["kvp"] * hd * d2
@@ -2158,14 +2201,16 @@ def _model_flops(cfg, model, batch, seq):
 
 def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
                 step=None, first_loss=None, layers=None, batch=TRAIN_B,
-                seq=TRAIN_T):
+                seq=TRAIN_T, steps=TRAIN_STEPS):
     """Trains `arch` at full width (at `layers` layers where given, else
-    its published depth) on (batch, seq) batches: 1 warm-up step,
-    TRAIN_STEPS timed steps and a profiled one, through `par` / `step`
-    when given (else `parallelize(dcfg)` and its train step).
-    `first_loss(storage, batch)`, when given, runs before the warm-up step
-    on its storage and batch and returns a loss the warm-up step's must
-    equal bit for bit.  Returns
+    its published depth) on (batch, seq) batches: 1 warm-up step and
+    `steps` timed steps, the last of them under the profiler (the median
+    is the unprofiled steps'), through `par` / `step` when given (else
+    `parallelize(dcfg)` and its train step).  Every path needs rmsnorm,
+    xent and adamw; the attention families flash and its backward too, and
+    xlstm none of flash or the SSD.  `first_loss(storage, batch)`, when
+    given, runs before the warm-up step on its storage and batch and
+    returns a loss the warm-up step's must equal bit for bit.  Returns
     (par, storage, opt_state)."""
     import dataclasses
     from repro_torch.core.api import parallelize
@@ -2197,7 +2242,7 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
         step = par.train_step(ocfg, default_schedule(ocfg, 100, 10))
     data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch, seed=0))
-    batches = [data.batch(i) for i in range(TRAIN_STEPS + 3)]
+    batches = [data.batch(i) for i in range(steps + 1)]
     want_first = first_loss(storage, batches[0]) if first_loss else None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2216,11 +2261,13 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
                                  "to the reference loss step's")
     _reset_counts()
     times, losses, aux_steps = [], [], []
-    for i in range(1, TRAIN_STEPS + 1):
-        t0 = time.perf_counter()
-        storage, opt_state, m = step(storage, opt_state, batches[i])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    for i in range(1, steps + 1):
+        with _cuda_profiler() if i == steps else contextlib.nullcontext() \
+                as prof:
+            t0 = time.perf_counter()
+            storage, opt_state, m = step(storage, opt_state, batches[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         aux_steps.append({k: float(m[k]) for k in ("moe_aux", "moe_drops")
                           if k in m})
@@ -2228,14 +2275,16 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     if aux:
         say(f"  aux terms per timed step: {aux_steps}")
     counts = _train_counts()
-    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    per_step = {k: v / steps for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated()
     tokens = batch * seq
-    step_s = sorted(times)[len(times) // 2]
+    plain = times[:-1] or times
+    step_s = sorted(plain)[len(plain) // 2]
     flops = _model_flops(cfg, model, batch, seq)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
     say(f"train B={batch} T={seq}: warm-up step {warm * 1e3:.1f} ms; "
-        f"steps {[round(t * 1e3, 2) for t in times]} ms, median "
+        f"steps {[round(t * 1e3, 2) for t in times]} ms (the last "
+        f"profiled), median "
         f"{step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s, "
         f"{flops / 1e12:.2f} model TFLOP/step, MFU {100 * mfu:.2f}% of "
         f"989 TFLOP/s (bound {flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.1f}"
@@ -2247,13 +2296,14 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     state[f"{key}_launches"] = counts
     if not all(np.isfinite([warm_loss, *losses])):
         raise AssertionError(f"non-finite loss: {warm_loss}, {losses}")
-    need = ("rmsnorm", "flash", "flash_bwd", "xent_fwd", "xent_bwd", "adamw",
-            *need)
-    unused = [k for k in NOT_DENSE + NOT_BF16 if k not in need and counts[k]]
+    attn = () if cfg.family == "xlstm" else ("flash", "flash_bwd")
+    need = ("rmsnorm", *attn, "xent_fwd", "xent_bwd", "adamw", *need)
+    unused = [k for k in NOT_DENSE + NOT_BF16 + NOT_F32
+              if k not in need and counts[k]]
     if min(counts[k] for k in need) <= 0 or unused:
         raise AssertionError(f"a kernel of the path never launched, or one "
                              f"off the path did: {counts}")
-    _check_bwd_calls(counts, model, TRAIN_STEPS)
+    _check_bwd_calls(counts, model, steps)
     if "ef" in opt_state:
         # the hop applies to the leaves of *_ef buckets alone: every
         # non-zero leaf must be one, and some must be non-zero if any is
@@ -2268,8 +2318,8 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
             raise AssertionError(f"ef non-zero outside the *_ef buckets or "
                                  f"zero in all of them: {sorted(live - on)}"
                                  f" / {sorted(on)}")
-    busy, dev_s = _profile(f"{key} step", lambda: step(
-        storage, opt_state, batches[-1]), 1, top=24)
+    busy, dev_s = _report(f"{key} step (the last timed one)", prof,
+                          times[-1], 1, top=24)
     if dev_s is not None:
         # the profiler costs host time per op: set the device time against
         # the unprofiled median step as well
@@ -4971,6 +5021,784 @@ def phase_full_zamba_serve(state):
     state["zamba2_consistency"] = dict(bf16=err, fp32=max_err(got32, want32))
 
 
+XLSTM = "xlstm_1_3b"
+XLSTM_MLSTM = ("C", "n", "m", "conv")
+XLSTM_SLSTM = ("h", "c", "n", "m")
+# full-width xlstm-1.3b training: every sLSTM time step is a round of small
+# ops issued by the host (slstm_seq's loop), so a step takes some 42 s,
+# not milliseconds; 2 timed steps (the second profiled) after the warm-up
+# step: the phase read 196.9 s of the script's 1200 s limit (NVIDIA H100
+# 80GB HBM3, 700.00 W)
+XLSTM_TRAIN_STEPS = 2
+# the p+1 check of the full-width bf16 serve: max |prefill(p+1) -
+# prefill(p)+decode| over the logits' RMS, on the weights of each of
+# XLSTM_SEEDS.  The two paths differ in the order of their bf16 roundings
+# (the chunkwise form against the one-token recurrence in 42 mLSTM
+# blocks), and at these random weights each mLSTM block carries a
+# difference on at 1.3-2x its size (`_xlstm_drift`'s control), so 48
+# layers make much of a rounding.  Seeds 0, 1 and 2 read 2.48e-1, 3.08e-1
+# and 3.65e-1; a decode with the conv states dropped, a planted fault,
+# 6.15 to 6.51 (NVIDIA H100 80GB HBM3, 700.00 W).  The limit lies 2.7x
+# above the largest reading and 6.2x under the smallest plant's
+XLSTM_BF16_CONSISTENCY_REL = 1.0
+XLSTM_SEEDS = (0, 1, 2)
+# bf16 against fp32 one sub-block deep (`_xlstm_drift`): the RMS of the
+# difference of the sub-block's outputs over the fp32 one's.  Every
+# projection's bf16 rounding enters it: the first superblock's sub-blocks
+# read 2.39e-3 (the sLSTM) to 1.228e-2 (the first mLSTM), and with the
+# cells' exp, einsum, baddbmm, cumsum, tanh and sigmoid rounded to bf16
+# (XLSTM_PLANT) at most 1.516e-2, a fault within bf16's own noise here;
+# `_xlstm_cells_widen` catches it (NVIDIA H100 80GB HBM3, 700.00 W)
+XLSTM_BLOCK_BF16_REL = 3e-2
+# the planted fault of the bf16 checks: the cells' torch calls named
+# rounded to bf16 (`_CellOpsInBf16`), as if they ran in the compute dtype
+XLSTM_PLANT = ("exp", "einsum", "baddbmm", "cumsum", "tanh", "sigmoid")
+
+
+def _xlstm_flops(cfg, model, batch, seq):
+    """FLOPs of one xlstm training step (forward and backward, 3 x the
+    forward; remat's recomputes not counted): 6 x the matrix-product
+    parameters applied per token x tokens (every block's projections and
+    the head; R is counted with the recurrence), plus the products the
+    chunkwise mLSTM computes a chunk and (b, h) (q k^T, (S o W) v and W k
+    over the whole Lc x Lc square, 2 Lc^2 (2 dk + dv); q C and the state
+    update k^T v, 4 Lc dk dv) and the sLSTM's recurrent products (h R over
+    the four gates, 8 hd^2 a token and head)."""
+    d, di, H, dk = cfg.d_model, model.d_inner, model.n_heads, model.dk
+    hd, per = d // H, model.per
+    mlstm = 2 * d * di + 3 * di * di + di * 2 * H + di * d
+    slstm = d * 4 * d + d * d
+    mm = model.n_steps * ((per - 1) * mlstm + slstm) + d * cfg.vocab
+    lc = min(cfg.ssm_chunk, seq)
+    chunks = -(-seq // lc)
+    chunk = 2 * lc * lc * (2 * dk + dk) + 4 * lc * dk * dk
+    cells = model.n_steps * (per - 1) * chunks * batch * H * chunk \
+        + model.n_steps * seq * batch * H * 8 * hd * hd
+    return 6.0 * mm * batch * seq + 3.0 * cells
+
+
+def phase_xlstm_kernels(state):
+    """The kernels xlstm-1.3b's path runs, at its shapes: rmsnorm at (8192,
+    2048) bf16 (the training rows) and (8256, 2048) bf16 (the serve
+    prefill's rows, B4 T2064); xent forward and backward at (8192, 50304)
+    fp32; AdamW at the path's largest flat leaf.  Each against its plain
+    version, with the kernel's wall and device ms, the plain version's, a
+    PyTorch call's and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw import ref as adamw_ref
+    from repro_torch.kernels.cross_entropy import ops as xent_ops
+    from repro_torch.kernels.cross_entropy import ref as xent_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.runtime import model_abstract_storage
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    cfg, model = get_arch(XLSTM)
+    d, V = cfg.d_model, cfg.vocab
+    say("rmsnorm kernel vs plain at xlstm-1.3b's shapes (ms: kernel / plain "
+        "/ F.rms_norm / bound):")
+    rms = {}
+    for rows, path in ((TRAIN_B * TRAIN_T, "training"), (B * T, "prefill")):
+        x = randn(rows, d, dtype=torch.bfloat16) * 2
+        w = randn(d, dtype=torch.bfloat16)
+        name = f"rmsnorm ({rows}, {d}) bf16 ({path})"
+        n = rms_ops.launches
+        got = rms_ops.rmsnorm(x, w, cfg.norm_eps)
+        if rms_ops.launches != n + 1:
+            raise AssertionError("the rmsnorm kernel did not launch")
+        err = check_close(name, got, rms_ref.rmsnorm(x, w, cfg.norm_eps), TOL)
+        fwd = lambda: rms_ops.rmsnorm(x, w, cfg.norm_eps)
+        nbytes = 2 * x.numel() * 2 + d * 2
+        bound, by = _bound(nbytes, 4.0 * x.numel())
+        ms, on_card = time_ms(fwd), device_ms(fwd, bound)
+        plain = time_ms(lambda: rms_ref.rmsnorm(x, w, cfg.norm_eps))
+        lib = time_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps))
+        say(f"    {path}: {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
+            f"({nbytes / ms / 1e6:.0f} GB/s); device {on_card:.4f}")
+        rms[path] = dict(shape=f"({rows}, {d}) bf16", max_abs_err=err, ms=ms,
+                         device_ms=on_card, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound, bound_by=by)
+        del x, w, got
+    state["xlstm_rmsnorm"] = rms
+
+    R = TRAIN_B * TRAIN_T
+    say(f"xent kernels vs plain at ({R}, {V}) fp32 (ms: kernel / plain / "
+        "F.cross_entropy / bound):")
+    x = randn(R, V) * 3
+    tg = torch.randint(0, V, (R,), device=dev, generator=g)
+    gr = randn(R) / R
+    name = f"xent ({R}, {V}) fp32"
+    n = xent_ops.fwd_launches, xent_ops.bwd_launches
+    loss, lse = xent_ops.xent_fwd_cuda(x, tg)
+    want_loss, want_lse = xent_ref.xent(x, tg)
+    err_f = max(check_close(f"{name} loss", loss, want_loss, TOL32),
+                check_close(f"{name} lse", lse, want_lse, TOL32))
+    want_dx = per_g(xent_ref.dlogits(x, tg, want_lse, gr), gr)
+    got_dx = per_g(xent_ops.xent_bwd_cuda(x, tg, lse, gr), gr)
+    if (xent_ops.fwd_launches, xent_ops.bwd_launches) != (n[0] + 1,
+                                                           n[1] + 1):
+        raise AssertionError("the xent kernels did not launch")
+    err_b = check_close(f"{name} dlogits / |g|", got_dx, want_dx, TOL32)
+    onehot_only = torch.zeros_like(x).scatter_(1, tg[:, None], -gr[:, None])
+    check_rejects(f"{name} planted -onehot*g", per_g(onehot_only, gr),
+                  want_dx, TOL32)
+    del got_dx, want_dx, onehot_only, want_loss, want_lse
+    torch.cuda.empty_cache()
+    # forward: read the logits and targets, write loss and lse, ~4
+    # operations an element; backward: read the logits, write dlogits, ~5
+    bound_f, by_f = _bound(x.numel() * 4 + 16 * R, 4.0 * x.numel())
+    bound_b, by_b = _bound(2 * x.numel() * 4 + 16 * R, 5.0 * x.numel())
+    fwd = lambda: xent_ops.xent_fwd_cuda(x, tg)
+    bwd = lambda: xent_ops.xent_bwd_cuda(x, tg, lse, gr)
+    ms_f, dev_f = time_ms(fwd), device_ms(fwd, bound_f, n=10)
+    plain_f = time_ms(lambda: xent_ref.xent(x, tg))
+    torch.cuda.empty_cache()
+    lib_f = time_ms(lambda: F.cross_entropy(x, tg, reduction="none"))
+    torch.cuda.empty_cache()
+    ms_b, dev_b = time_ms(bwd), device_ms(bwd, bound_b, n=10)
+    torch.cuda.empty_cache()
+    plain_b = time_ms(lambda: xent_ref.dlogits(x, tg, lse, gr))
+    torch.cuda.empty_cache()
+    # the library's backward: autograd of F.cross_entropy (forward too)
+    xr = x.detach().requires_grad_()
+
+    def lib_bwd():
+        torch.autograd.grad(F.cross_entropy(xr, tg, reduction="none"), xr,
+                            gr)
+    lib_fb = time_ms(lib_bwd)
+    torch.cuda.empty_cache()
+    say(f"    fwd {ms_f:.4f} / {plain_f:.4f} / {lib_f:.4f} / {bound_f:.4f} "
+        f"({x.numel() * 4 / ms_f / 1e6:.0f} GB/s); device {dev_f:.4f}")
+    say(f"    bwd {ms_b:.4f} / {plain_b:.4f} / n/a / {bound_b:.4f} "
+        f"({2 * x.numel() * 4 / ms_b / 1e6:.0f} GB/s); device {dev_b:.4f}; "
+        f"F.cross_entropy forward + autograd backward {lib_fb:.4f} (no "
+        "backward-alone library call)")
+    state["xlstm_xent_fwd"] = dict(
+        shape=f"({R}, {V}) fp32", max_abs_err=err_f, ms=ms_f, device_ms=dev_f,
+        plain_ms=plain_f, library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
+    state["xlstm_xent_bwd"] = dict(
+        shape=f"({R}, {V}) fp32", max_abs_err=err_b, ms=ms_b, device_ms=dev_b,
+        plain_ms=plain_b, library_ms=None, library_fwd_bwd_ms=lib_fb,
+        bound_ms=bound_b, bound_by=by_b)
+    del x, xr, tg, gr, loss, lse
+    torch.cuda.empty_cache()
+
+    n = max(a.numel() for a in _leaves(model_abstract_storage(
+        model, DistConfig())))
+    say(f"adamw kernel vs plain at xlstm's largest flat leaf (n={n}; ms: "
+        "kernel / plain / AdamW(fused=True) / bound):")
+    p, gd, m = randn(n), randn(n), randn(n) * 0.1
+    v = randn(n).abs() * 0.01
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+              lr=torch.tensor(3e-4, device=dev),
+              t=torch.tensor(7, dtype=torch.int32, device=dev),
+              scale=torch.tensor(0.5, device=dev))
+    want = adamw_ref.adamw_update(p, gd, m, v, **kw)
+    got = [a.clone() for a in (p, m, v)]
+    n_before = adamw_ops.launches
+    adamw_ops.adamw_update(got[0], gd, got[1], got[2], **kw)
+    if adamw_ops.launches != n_before + 1:
+        raise AssertionError("the adamw kernel did not launch")
+    err = max(check_close(f"adamw n={n} dp", got[0] - p, want[0] - p, TOL32),
+              *(check_close(f"adamw n={n} {k_}", a, b_, TOL32)
+                for k_, a, b_ in zip("mv", got[1:], want[1:])))
+    del want
+    torch.cuda.empty_cache()
+    upd = lambda: adamw_ops.adamw_update(got[0], gd, got[1], got[2], **kw)
+    bound, by = _bound(28 * n, 15.0 * n)
+    ms, on_card = time_ms(upd), device_ms(upd, bound, n=10)
+    plain = time_ms(lambda: adamw_ref.adamw_update(p, gd, m, v, **kw))
+    torch.cuda.empty_cache()
+    q = p.clone().requires_grad_()
+    q.grad = gd
+    opt = torch.optim.AdamW([q], lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=True)
+    lib = time_ms(opt.step)
+    say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
+        f"({28 * n / ms / 1e6:.0f} GB/s); device {on_card:.4f}")
+    state["xlstm_adamw_leaf"] = dict(n=n, max_abs_err=err, ms=ms,
+                                     device_ms=on_card, plain_ms=plain,
+                                     library_ms=lib, bound_ms=bound,
+                                     bound_by=by)
+    del p, gd, m, v, got, q, opt
+    torch.cuda.empty_cache()
+
+
+def _xlstm_storage(model, dcfg, tree, dev):
+    """The port's storage from reference-layout full params (numpy)."""
+    from repro_torch.core.api import shard_params
+    from repro_torch.core.meta import tree_map
+    metas = model.metas(dcfg)
+    return {k: tree_map(lambda a: a.to(dev), shard_params(
+        tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)),
+                 tree[k]), metas[k], dcfg)) for k in metas}
+
+
+def _xlstm_state_close(what, got, want, tol):
+    """Every leaf of an xlstm serving state, on two devices."""
+    errs = []
+    for sub in sorted(want):
+        for k in XLSTM_SLSTM if sub == "s" else XLSTM_MLSTM:
+            errs.append(check_close(f"{what} {sub}.{k}", got[sub][k].cpu(),
+                                    want[sub][k].cpu(), tol))
+    return max(errs)
+
+
+def phase_xlstm_smoke(state):
+    """xlstm SMOKE in fp32 with the same numpy-seeded weights on the card
+    and on the CPU: the loss and every gradient of one loss step at T 40 (a
+    ragged mLSTM chunk) on the vanilla and the prefetch stack; prefill of a
+    padded 40-token batch and 3 decode steps, logits and every state leaf;
+    all at TOL32.  No flash or SSD launch, on any of them."""
+    from repro_torch.core.api import parallelize
+    from repro_torch.core.dist import DistConfig, single_device_config
+    from repro_torch.core.meta import named_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import serve as SV
+    cfg, model = get_arch(XLSTM, smoke=True)
+    tree = _numpy_params(model, single_device_config(
+        param_dtype=torch.float32), seed=0)
+    b, t = 4, 40
+    batch = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=t,
+                                   global_batch=b, seed=0)).batch(0)
+    off = ("flash", "flash_f32", "flash_bwd", "flash_bwd_f32", "ssd",
+           "ssd_f32", "ssd_bwd", "ssd_bwd_f32")
+    for reorder in (False, True):
+        label = "prefetch" if reorder else "vanilla"
+        dcfg = DistConfig(param_dtype=torch.float32, reorder=reorder)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            par = parallelize(model, dcfg, ShapeConfig("t", t, b, "train"),
+                              device=dev)
+            storage = _xlstm_storage(model, dcfg, tree, dev)
+            _reset_counts()
+            loss, grads = par.loss_step()(storage, batch)
+            runs[dev] = (loss, grads, _train_counts())
+        counts = runs["cuda"][2]
+        say(f"  xlstm smoke {label} loss step: launches on the card {counts}")
+        if min(counts[k] for k in ("rmsnorm", "xent_fwd", "xent_bwd")) <= 0 \
+                or any(counts[k] for k in off):
+            raise AssertionError(f"xlstm smoke {label}: launches {counts}")
+        if max(v for k, v in runs["cpu"][2].items()
+               if k not in COLLECTIVES) > 0:
+            raise AssertionError("the CPU loss step launched a kernel")
+        check_close(f"xlstm smoke {label} loss cuda vs cpu",
+                    runs["cuda"][0].cpu(), runs["cpu"][0], TOL32)
+        errs = [check_close(f"xlstm smoke {label} grad {n}", a.cpu(), b_,
+                            TOL32)
+                for (n, a), (_, b_) in zip(named_leaves(runs["cuda"][1]),
+                                           named_leaves(runs["cpu"][1]))]
+        say(f"  xlstm smoke {label}: loss {float(runs['cuda'][0]):.6f}, "
+            f"{len(errs)} gradient leaves, max abs err {max(errs):.3e}")
+
+    prompt, gen = 36, 4
+    t_len = prompt + gen
+    dcfg = single_device_config(param_dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    tokens = np.pad(rng.integers(3, cfg.vocab, (2, prompt)),
+                    ((0, 0), (0, gen)), constant_values=3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = SV.serve_params_from_jax(tree, model, dcfg, device=dev)
+        pf = SV.make_prefill_step(model, dcfg,
+                                  ShapeConfig("p", t_len, 2, "prefill"))
+        dec = SV.make_decode_step(model, dcfg,
+                                  ShapeConfig("d", t_len, 2, "decode"))
+        _reset_counts()
+        logits, cache = pf(params, {"tokens": torch.from_numpy(tokens)
+                                    .to(dev)})
+        runs[dev] = dict(params=params, dec=dec, cache=cache,
+                         logits=[logits.cpu()], prefill=_train_counts())
+    counts = runs["cuda"]["prefill"]
+    say(f"  launches in the card's prefill: {counts}")
+    if counts["rmsnorm"] != cfg.n_layers + 1 or any(counts[k] for k in off):
+        raise AssertionError(f"the fp32 prefill on the card: {counts}")
+    check_close("xlstm smoke prefill logits cuda vs cpu",
+                runs["cuda"]["logits"][0], runs["cpu"]["logits"][0], TOL32)
+    _xlstm_state_close("xlstm smoke prefill cuda vs cpu",
+                       runs["cuda"]["cache"], runs["cpu"]["cache"], TOL32)
+    for i in range(3):
+        tok = runs["cpu"]["logits"][-1].argmax(-1)
+        if not torch.equal(runs["cuda"]["logits"][-1].argmax(-1), tok):
+            raise AssertionError(f"xlstm: greedy tokens differ at {i}")
+        pos = torch.full((2,), prompt + i, dtype=torch.int64)
+        for dev, r in runs.items():
+            logits, r["cache"] = r["dec"](r["params"], r["cache"],
+                                          tok.to(dev), pos.to(dev))
+            r["logits"].append(logits.cpu())
+        check_close(f"xlstm smoke decode {i} logits cuda vs cpu",
+                    runs["cuda"]["logits"][-1], runs["cpu"]["logits"][-1],
+                    TOL32)
+        err = _xlstm_state_close(f"xlstm smoke decode {i} cuda vs cpu",
+                                 runs["cuda"]["cache"], runs["cpu"]["cache"],
+                                 TOL32)
+    say(f"  xlstm smoke serve: prefill + 3 decode steps, logits and "
+        f"{len(list(_leaves(runs['cuda']['cache'])))} state leaves at TOL32 "
+        f"(last state max abs err {err:.3e})")
+    state["xlstm_smoke_launches"] = counts
+
+
+def phase_full_xlstm_train(state):
+    """xlstm-1.3b at every published width and depth (48 layers), B4 T2048,
+    bf16 compute, fp32 storage, through `repro_torch.launch.train`'s
+    Trainer (the reference launcher's defaults: the prefetch stack, bf16
+    wire, remat fsdp_only, block buckets), XLSTM_TRAIN_STEPS timed steps,
+    the last profiled: the readings of 8 with MFU on `_xlstm_flops`, the
+    memory plan's modeled peak and the modeled step (H100 profile) beside
+    the measured, the host ms the sLSTM time loops take a step, launch
+    counts (rmsnorm 3 a layer + 1, xent 1 + 1, AdamW one a storage leaf;
+    no flash, no SSD)."""
+    import tempfile
+    from repro_torch.core.obs import drift
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import xlstm as XM
+    from repro_torch.models.common import ShapeConfig
+    trainer = launch_train.build_trainer(launch_train.parse_args([
+        "--arch", XLSTM, "--seq", str(TRAIN_T), "--batch", str(TRAIN_B),
+        "--steps", "100", "--ckpt-dir", tempfile.mkdtemp(
+            prefix="chip_smoke_xlstm_")]))
+    # host seconds of each sLSTM time loop: forward (each call of
+    # slstm_seq) and backward (from the gradient's arrival at the loop's
+    # output to its arrival at the gate inputs, read by tensor hooks on
+    # the graph that the backward walks)
+    fwd, bwd, orig = [], [], XM.slstm_seq
+
+    def timed(xg, R, state=None):
+        t0 = time.perf_counter()
+        out = orig(xg, R, state)
+        fwd.append(time.perf_counter() - t0)
+        if out[0].requires_grad:
+            t = [0.0]
+
+            def start(g):
+                t[0] = time.perf_counter()
+
+            def stop(g):
+                bwd.append(time.perf_counter() - t[0])
+            out[0].register_hook(start)
+            xg.register_hook(stop)
+        return out
+
+    key = "train_xlstm_1_3b"
+    XM.slstm_seq = timed
+    try:
+        par, storage, opt = _full_train(
+            state, key, trainer.dcfg, arch=XLSTM, par=trainer.par,
+            step=trainer.step_fn, steps=XLSTM_TRAIN_STEPS)
+    finally:
+        XM.slstm_seq = orig
+    del storage, opt
+    torch.cuda.empty_cache()
+    cfg, model, r = par.model.cfg, par.model, state[key]
+    counts = state[f"{key}_launches"]
+    n_leaves = len(list(_leaves(model.metas(par.dcfg))))
+    want = dict(rmsnorm=3 * cfg.n_layers + 1, xent_fwd=1, xent_bwd=1,
+                adamw=n_leaves)
+    per_step = {k: counts[k] / XLSTM_TRAIN_STEPS for k in want}
+    if per_step != want:
+        raise AssertionError(f"launches a step {per_step}, want {want}")
+    off = [k for k in ("flash", "flash_f32", "flash_bwd", "flash_bwd_f32",
+                       "ssd", "ssd_f32", "ssd_bwd", "ssd_bwd_f32")
+           if counts[k]]
+    if off:
+        raise AssertionError(f"xlstm launched {off}: {counts}")
+    # a step runs each block's loop three times forward (the stack's
+    # forward, its recompute, the checkpoint's recompute) and once
+    # backward; the warm-up step's come first
+    steps = 1 + XLSTM_TRAIN_STEPS
+    if (len(fwd), len(bwd)) != (3 * model.n_steps * steps,
+                                model.n_steps * steps):
+        raise AssertionError(f"{len(fwd)} sLSTM loop forwards and "
+                             f"{len(bwd)} backwards over {steps} steps, "
+                             f"want {3 * model.n_steps} and "
+                             f"{model.n_steps} a step")
+    # the unprofiled timed steps, which the median is taken over
+    k = XLSTM_TRAIN_STEPS - 1
+    f_ms = sum(fwd[3 * model.n_steps:3 * model.n_steps * (1 + k)]) * 1e3 / k
+    b_ms = sum(bwd[model.n_steps:model.n_steps * (1 + k)]) * 1e3 / k
+    loop_ms = f_ms + b_ms
+    shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
+    modeled_s = drift.modeled_step_time(model, par.plan, shape)
+    flops = _xlstm_flops(cfg, model, TRAIN_B, TRAIN_T)
+    say(f"  {cfg.name}: {cfg.n_params() / 1e9:.4f}B params (the metas), "
+        f"{flops / 1e12:.2f} TFLOP a step (_xlstm_flops); the sLSTM time "
+        f"loops take {loop_ms:.1f} ms of host time a step "
+        f"({100 * loop_ms / r['step_ms']:.1f}% of the median step): their "
+        f"{3 * model.n_steps} forwards {f_ms:.1f} ms, their "
+        f"{model.n_steps} backwards {b_ms:.1f} ms")
+    say(f"  modeled peak {par.plan.memory.peak / 2**30:.2f} GiB against "
+        f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"({par.plan.memory.peak / r['max_memory_allocated']:.3f}); modeled "
+        f"step (H100 profile, drift.modeled_step_time) "
+        f"{modeled_s * 1e3:.3f} ms against the measured "
+        f"{r['step_ms']:.2f} ms")
+    r.update(modeled_peak=par.plan.memory.peak,
+             modeled_step_ms=modeled_s * 1e3, model_tflop=flops / 1e12,
+             slstm_loop_host_ms=loop_ms, slstm_loop_fwd_host_ms=f_ms,
+             slstm_loop_bwd_host_ms=b_ms)
+
+
+def _xlstm_p1(model, dcfg, params, x, label, plant=False):
+    """Prefill over x (B, p + 1) against prefill over x[:, :p] and one
+    decode step of x[:, p].  Returns (want logits, got logits, launch
+    counts of the long prefill and of the decode step, and with `plant` the
+    logits of the same decode from a cache whose conv states were
+    zeroed)."""
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train import serve as SV
+    b, t = x.shape
+    shape = ShapeConfig("p", t, b, "prefill")
+    pos = torch.full((b,), t - 1, dtype=torch.int64, device=x.device)
+    with torch.inference_mode():
+        _reset_counts()
+        want, full = model.prefill_local(
+            params, {"tokens": x}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        counts = dict(prefill=_train_counts())
+        del full
+        _, cache = model.prefill_local(
+            params, {"tokens": x[:, :-1]}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        planted = None
+        if plant:
+            dropped = PG.kv_map(torch.clone, cache)
+            for sub, leaves in dropped.items():
+                if sub != "s":
+                    leaves["conv"].zero_()
+            planted, _ = model.decode_local(params, dropped, x[:, -1], pos,
+                                            dcfg)
+            del dropped
+        _reset_counts()
+        got, cache = model.decode_local(params, cache, x[:, -1], pos, dcfg)
+        counts["decode"] = _train_counts()
+    top2 = want.float().topk(2, dim=-1).values
+    say(f"  {label}: logits RMS {want.float().pow(2).mean().sqrt().item():.4e}"
+        f", max|logit| {want.abs().max().item():.4f}, max abs err "
+        f"{max_err(got, want):.4e}, top-2 gaps "
+        f"{[round(v, 5) for v in (top2[:, 0] - top2[:, 1]).tolist()]}, "
+        f"argmax {want.argmax(-1).tolist()} vs {got.argmax(-1).tolist()}")
+    return want, got, counts, planted
+
+
+def _check_xlstm_serve_counts(counts, cfg, what, prefills=1, decodes=0):
+    """One rmsnorm a block and the final norm a call; nothing else."""
+    want = (prefills + decodes) * (cfg.n_layers + 1)
+    off = [k for k, v in counts.items()
+           if v and k not in ("rmsnorm", *COLLECTIVES)]
+    if counts["rmsnorm"] != want or off:
+        raise AssertionError(f"{what}: launches {counts}, want {want} "
+                             "rmsnorm and no other kernel")
+
+
+def phase_full_xlstm_serve(state):
+    """xlstm-1.3b served at its published depth: bf16 weights made on the
+    card, B 4, prompt 2000 padded to T 2064, 64 generated tokens through
+    `repro_torch.launch.serve`: prefill ms, decode ms/token beside its byte
+    bound, the device time of a decode step, peak memory, launch counts;
+    then the p+1 check at p = T - 1 = 2063 (the prefill over p ends in a
+    ragged chunk of 15 rows), prefill over p + 1 tokens against prefill
+    over p and one decode step, in bf16 on the weights of each of
+    XLSTM_SEEDS (XLSTM_BF16_CONSISTENCY_REL, with a planted fault: the
+    conv states dropped) and on all 48 layers of seed 0's widened to fp32
+    at TOL32; then on seed 0's, `_xlstm_drift` (the bf16 residual stream
+    against the fp32 one after every sub-block; one sub-block deep to
+    XLSTM_BLOCK_BF16_REL) and `_xlstm_cells_widen` (bit for bit, with
+    XLSTM_PLANT as a planted fault)."""
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.meta import tree_map
+    from repro_torch.launch import serve as launch
+    from repro_torch.train import serve as SV
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, model, dcfg, params, prefill, decode = launch.setup(
+        XLSTM, False, B, PROMPT, GEN, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    n = sum(a.numel() for a in _leaves(params))
+    wbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    say(f"{cfg.name} bf16, {cfg.n_layers} layers ({model.n_steps} "
+        f"superblocks): {n / 1e9:.3f}B params, {wbytes / 1e9:.2f} GB, made "
+        f"on the card in {time.perf_counter() - t0:.1f}s")
+    padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN)
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step reads every weight but the embedding table (B rows of
+    # it) and reads and writes every block's state (fp32)
+    states = sum(a.numel() * 4 for a in _leaves(
+        model.init_state(B, dcfg)))
+    step_bytes = wbytes - params["embed"].numel() * 2 \
+        + B * cfg.d_model * 2 + 2 * states
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"serve B={B} prompt={PROMPT} gen={GEN} T={T}: prefill "
+        f"{t['prefill_s'] * 1e3:.2f} ms (warm-up "
+        f"{t['prefill_warmup_s'] * 1e3:.2f}), decode "
+        f"{t['decode_step_s'] * 1e3:.3f} ms/token (warm-up "
+        f"{t['decode_warmup_s'] * 1e3:.2f}), {t['decode_tok_s']:.1f} "
+        f"tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"  decode byte bound {bound:.3f} ms/token ({step_bytes / 1e9:.3f} "
+        f"GB a step: the states {2 * states / 1e9:.3f} GB read and written)")
+    say(f"launches in the serve run (2 prefills, {GEN - 1} decode steps): "
+        f"{counts}")
+    state["serve_xlstm_launches"] = counts
+    if tokens.shape != (B, GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
+    _check_xlstm_serve_counts(counts, cfg, "the serve run", prefills=2,
+                              decodes=GEN - 1)
+    logits, cache = prefill(params, {"tokens": padded})
+    pos = torch.full((B,), PROMPT, dtype=torch.int64, device=dev)
+    busy, dev_s = _profile("decode step", lambda: decode(
+        params, cache, logits.argmax(-1), pos), 8, top=12)
+    state["serve_xlstm"] = dict(
+        t, max_memory_allocated=peak, decode_bound_ms=bound,
+        decode_device_ms=None if dev_s is None else dev_s * 1e3,
+        decode_busy=busy)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    del cache, logits
+
+    dcfg32 = single_device_config(param_dtype=torch.float32)
+    L = cfg.n_layers
+    rel, planted_rel = [], []
+    for seed in XLSTM_SEEDS:
+        if seed:
+            params = SV.init_serve_params(
+                model, dcfg, torch.Generator(device=dev).manual_seed(seed),
+                dev)
+        x = torch.randint(3, cfg.vocab, (B, T), generator=torch.Generator()
+                          .manual_seed(2 + seed)).to(dev)
+        want, got, per_call, planted = _xlstm_p1(
+            model, dcfg, params, x, f"bf16, {L} layers, p {T - 1}, weights "
+            f"seed {seed}", plant=True)
+        rms = want.float().pow(2).mean().sqrt().item()
+        rel.append(max_err(got, want) / rms)
+        planted_rel.append(max_err(planted, want) / rms)
+        say(f"  bf16 seed {seed}: max abs err {rel[-1]:.4e} x the logits' "
+            f"RMS; planted (conv states dropped) {planted_rel[-1]:.4e}")
+        if not seed:
+            _check_xlstm_serve_counts(per_call["prefill"], cfg, "one prefill")
+            _check_xlstm_serve_counts(per_call["decode"], cfg,
+                                      "one decode step", prefills=0,
+                                      decodes=1)
+            params0, x0, want0, got0 = params, x, want, got
+        del params, planted
+        torch.cuda.empty_cache()
+    params, x, want, got = params0, x0, want0, got0
+    del params0, x0, want0, got0
+    params32 = tree_map(lambda a: a.float(), params)
+    want32, got32, *_ = _xlstm_p1(
+        model, dcfg32, params32, x,
+        f"fp32 (seed 0's weights widened, all {L} layers)")
+    drift = _xlstm_drift(model, dcfg, dcfg32, params, params32, x)
+    widen = _xlstm_cells_widen(model, dcfg, params, x)
+    widen_planted = _xlstm_cells_widen(model, dcfg, params, x, plant=True)[1]
+    del params, params32
+    torch.cuda.empty_cache()
+    say(f"  bf16 prefill vs fp32 prefill, same weights, {L} layers: max abs "
+        f"err {max_err(want, want32):.4e} (logits' RMS "
+        f"{want32.pow(2).mean().sqrt().item():.4e}; for scale, not a limit)")
+    check_close("fp32: prefill vs prefill + decode", got32, want32, TOL32)
+    if not torch.equal(got32.argmax(-1), want32.argmax(-1)):
+        raise AssertionError("fp32: argmax differs")
+    say(f"  bf16 p+1 over {len(XLSTM_SEEDS)} weight seeds: "
+        f"{[f'{v:.4e}' for v in rel]} x the logits' RMS (limit "
+        f"{XLSTM_BF16_CONSISTENCY_REL:g}); planted: "
+        f"{[f'{v:.4e}' for v in planted_rel]}")
+    if max(rel) > XLSTM_BF16_CONSISTENCY_REL:
+        raise AssertionError("bf16: prefill vs prefill + decode")
+    if min(planted_rel) <= XLSTM_BF16_CONSISTENCY_REL:
+        raise AssertionError("the planted fault (conv states dropped) "
+                             "passed the bf16 limit")
+    err = max_err(got, want)
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    say(f"  bf16 seed 0: argmax equal {same.tolist()}, top-2 gap above 2 x "
+        f"{err:.3e} {clear.tolist()}")
+    if not bool(same[clear].all()):
+        raise AssertionError("bf16: argmax differs where the gap is clear")
+    worst = max(drift["block"])
+    say(f"  bf16 vs fp32 one sub-block deep: at most {worst:.4e} of the "
+        f"output's RMS (limit {XLSTM_BLOCK_BF16_REL:g}); under the plant "
+        f"{max(drift['planted']):.4e}, within bf16's own noise")
+    if worst > XLSTM_BLOCK_BF16_REL:
+        raise AssertionError("bf16 vs fp32, one sub-block deep")
+    calls, diff = widen
+    say(f"  the cells on bf16 inputs against the same inputs widened to "
+        f"fp32 ({calls} calls: the first superblock's prefill and decode "
+        f"step): max abs difference {diff:.3e} (must be 0); with the plant "
+        f"in the bf16 calls {widen_planted:.3e}")
+    if diff:
+        raise AssertionError("the cells' bf16 calls differ from their "
+                             "widened inputs'")
+    if not widen_planted:
+        raise AssertionError("the planted fault (the cells' calls rounded "
+                             "to bf16) passed the widening check")
+    state["xlstm_consistency"] = dict(
+        bf16_rel=rel, planted_rel=planted_rel, fp32=max_err(got32, want32),
+        block_rel=drift["block"], block_planted_rel=drift["planted"],
+        cells_widen=widen[1], cells_widen_planted=widen_planted,
+        gap=drift["gap"], control_gap=drift["control"])
+
+
+class _CellOpsInBf16:
+    """A planted fault for `_xlstm_drift`: stands in for `torch` inside
+    `repro_torch.models.xlstm` and rounds the result of each of the cells'
+    torch calls named in `rounded` to bf16, as if the cells computed them
+    in the compute dtype instead of widening to fp32."""
+
+    def __init__(self, rounded):
+        self.rounded = rounded
+
+    def __getattr__(self, name):
+        fn = getattr(torch, name)
+        if name not in self.rounded:
+            return fn
+        return lambda *a, **kw: fn(*a, **kw).bfloat16().float()
+
+
+def _xlstm_cells_widen(model, dcfg, params, x, plant=False):
+    """The cells compute in fp32 whatever their inputs' dtype.  Through the
+    first superblock of a bf16 prefill over x[:, :-1] and one decode step
+    of x[:, -1], each call of `mlstm_chunked`, `mlstm_step` and
+    `slstm_seq` is repeated on its inputs widened to fp32: every fp32
+    tensor it returns (the states; slstm_seq's hs) must equal the bf16
+    call's bit for bit, the same fp32 values having gone through the same
+    fp32 operations.  `plant`: the bf16 calls run under
+    `_CellOpsInBf16(XLSTM_PLANT)`.  Returns (the calls, the largest abs
+    difference)."""
+    from repro_torch.core.meta import tree_map
+    from repro_torch.models import layers as LY
+    from repro_torch.models import xlstm as XM
+    cells = {n: getattr(XM, n) for n in ("mlstm_chunked", "mlstm_step",
+                                         "slstm_seq")}
+    real, diffs = XM.torch, []
+
+    def widen(a):
+        return a.float() if torch.is_tensor(a) and \
+            a.dtype == torch.bfloat16 else a
+
+    def pairs(out, wide):
+        """(bf16 call's, widened call's) leaf where the first is fp32."""
+        if torch.is_tensor(out):
+            return [(out, wide)] if out.dtype == torch.float32 else []
+        return [p for o, w in zip(out, wide, strict=True)
+                for p in pairs(o, w)]
+
+    def checked(fn):
+        def call(*a, **kw):
+            if plant:
+                XM.torch = _CellOpsInBf16(XLSTM_PLANT)
+            try:
+                out = fn(*a, **kw)
+            finally:
+                XM.torch = real
+            wide = fn(*map(widen, a), **{k: widen(v) for k, v in kw.items()})
+            diffs.append(max(max_err(g, w) for g, w in pairs(out, wide)))
+            return out
+        return call
+
+    subs = [f"m{i}" for i in range(model.per - 1)] + ["s"]
+    p = tree_map(lambda a: a[0], params["blocks"])
+    cfg = model.cfg
+    for n, fn in cells.items():
+        setattr(XM, n, checked(fn))
+    try:
+        with torch.inference_mode():
+            h = LY.embed_apply(params["embed"], x[:, :-1], cfg, dcfg)
+            t = LY.embed_apply(params["embed"], x[:, -1:], cfg, dcfg)
+            for k in subs:
+                fn = model._slstm if k == "s" else model._mlstm
+                h, st = fn(p[k], h)
+                t = fn(p[k], t, st)[0]
+    finally:
+        for n, fn in cells.items():
+            setattr(XM, n, fn)
+    return len(diffs), max(diffs)
+
+
+def _xlstm_drift(model, dcfg, dcfg32, params, params32, x):
+    """Where the bf16 prefill leaves the fp32 one.  The residual streams of
+    the bf16 weights and of the same weights widened to fp32, run over x
+    from the empty state sub-block by sub-block: the RMS of their
+    difference over the fp32 stream's RMS after each sub-block (`gap`),
+    and `control`, the fp32 stream rounded to bf16 once after the first
+    sub-block, against the fp32 stream: how far the fp32 model itself
+    carries one perturbation of bf16's size.  One sub-block deep, where
+    the two agree (`block`): each sub-block of the first superblock in
+    bf16 against fp32 on the fp32 stream's input (rounded to bf16 for
+    the bf16 one), the RMS of the difference of their outputs over the
+    fp32 output's RMS; the same for the bf16 sub-blocks under XLSTM_PLANT
+    (`planted`)."""
+    from repro_torch.core.meta import tree_map
+    from repro_torch.models import layers as LY
+    from repro_torch.models import xlstm as XM
+    cfg = model.cfg
+    subs = [f"m{i}" for i in range(model.per - 1)] + ["s"]
+
+    def rel(a, b):
+        return ((a.float() - b).pow(2).mean().sqrt()
+                / b.pow(2).mean().sqrt()).item()
+
+    def out(p, k, h):
+        return (model._slstm if k == "s" else model._mlstm)(p[k], h)[0]
+
+    gap, control, block = [], [], []
+    planted = []
+    real = XM.torch
+    with torch.inference_mode():
+        h16 = LY.embed_apply(params["embed"], x, cfg, dcfg)
+        h32 = LY.embed_apply(params32["embed"], x, cfg, dcfg32)
+        hc = None
+        for li in range(model.n_steps):
+            p16 = tree_map(lambda a: a[li], params["blocks"])
+            p32 = tree_map(lambda a: a[li], params32["blocks"])
+            for k in subs:
+                if li == 0:
+                    want = out(p32, k, h32)
+                    block.append(rel(out(p16, k, h32.bfloat16()), want))
+                    XM.torch = _CellOpsInBf16(XLSTM_PLANT)
+                    try:
+                        planted.append(rel(out(p16, k, h32.bfloat16()),
+                                           want))
+                    finally:
+                        XM.torch = real
+                    del want
+                fn = model._slstm if k == "s" else model._mlstm
+                h16 = fn(p16[k], h16)[0]
+                h32 = fn(p32[k], h32)[0]
+                hc = h32.bfloat16().float() if hc is None \
+                    else fn(p32[k], hc)[0]
+                gap.append(rel(h16, h32))
+                control.append(rel(hc, h32))
+        del h16, h32, hc
+    say(f"  bf16 vs fp32 residual stream, RMS of the difference over the "
+        f"fp32 RMS after each sub-block ({', '.join(subs)} a superblock):")
+    for li in range(model.n_steps):
+        row = slice(li * model.per, (li + 1) * model.per)
+        say(f"    superblock {li}: bf16 "
+            f"{' '.join(f'{v:.2e}' for v in gap[row])}")
+        say(f"    {'':13s}control "
+            f"{' '.join(f'{v:.2e}' for v in control[row])}")
+    say("  one sub-block deep (superblock 0, the fp32 stream's input), bf16 "
+        "vs fp32 output, RMS of the difference over the fp32 RMS:")
+    say(f"    sound   {' '.join(f'{v:.3e}' for v in block)}")
+    say(f"    planted {' '.join(f'{v:.3e}' for v in planted)}")
+    return dict(gap=gap, control=control, block=block, planted=planted)
+
+
 # kernel families summed in every profiler window
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
@@ -4981,50 +5809,65 @@ FAMILIES = {"quant codec (seed + quant + dequant kernels)":
 CODEC_VARIANT = r"((?:seed|quant|dequant)_kernel<[^>]*>)"
 
 
-def _profile(label, fn, n, top=8):
-    """Prints device kernel time against wall time over n calls, and the
-    `top` kernels that take most of it (torch.profiler).  Returns (the
-    device busy share of the profiled window, device seconds per call), or
-    (None, None) when the profiler saw no kernels."""
-    from torch.autograd import DeviceType
+def _cuda_profiler():
+    """torch.profiler recording device activity only: the host-side op
+    records would cost each of a step's millions of ops host time."""
     from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def _report(label, prof, wall, n, top=8):
+    """Prints the device kernel time of `prof`'s window against its wall
+    time over n calls, the `top` kernels that take most of it, the FAMILIES
+    and the codec variants: the kineto events summed by name as they come
+    (`key_averages()` takes minutes over a million ops).  Returns (the
+    device busy share of the window, device seconds per call), or (None,
+    None) when the profiler saw no kernels."""
+    from torch.autograd import DeviceType
+    t0 = time.perf_counter()
+    rows = {}                           # name -> [ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            r = rows.setdefault(e.name(), [0, 0])
+            r[0] += e.duration_ns()
+            r[1] += 1
+    read_s = time.perf_counter() - t0
+    if not rows:
+        say(f"{label}: device time not measured (the profiler saw no "
+            f"kernels); wall {wall / n * 1e3:.3f} ms per call")
+        return None, None
+    dev_s = sum(ns for ns, _ in rows.values()) / 1e9
+    say(f"{label}: wall {wall / n * 1e3:.3f} ms, device kernels "
+        f"{dev_s / n * 1e3:.3f} ms per call ({100 * dev_s / wall:.1f}% busy),"
+        f" {sum(c for _, c in rows.values()) / n:.0f} device ops per call "
+        f"(the events read in {read_s:.1f} s)")
+    for name, (ns, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
+        say(f"    {ns / n / 1e6:9.3f} ms {c // n:7d}x  {name[:90]}")
+    for family, keys in FAMILIES.items():
+        fam = [r for k, r in rows.items() if any(s in k for s in keys)]
+        if fam:
+            say(f"  {family}: {sum(ns for ns, _ in fam) / n / 1e6:.3f} ms, "
+                f"{sum(c for _, c in fam) // n} kernels per call")
+    for name, (ns, c) in sorted(rows.items()):
+        m = re.search(CODEC_VARIANT, name)
+        if m:
+            say(f"    {m.group(1)}: {ns / n / 1e6:.3f} ms in {c // n} "
+                f"launches, {ns / c / 1e6:.4f} ms each")
+    return dev_s / wall, dev_s / n
+
+
+def _profile(label, fn, n, top=8):
+    """One warm-up call of fn, then n calls under the profiler
+    (`_report`)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _cuda_profiler() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    if not rows:
-        say(f"{label}: device time not measured (the profiler saw no "
-            f"kernels); wall {wall / n * 1e3:.3f} ms per call")
-        return None, None
-    dev_us = sum(e.self_device_time_total for e in rows)
-    say(f"{label}: wall {wall / n * 1e3:.3f} ms, device kernels "
-        f"{dev_us / n / 1e3:.3f} ms per call "
-        f"({100 * dev_us / 1e6 / wall:.1f}% busy), "
-        f"{sum(e.count for e in rows) / n:.0f} device ops per call")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
-        say(f"    {e.self_device_time_total / n / 1e3:9.3f} ms "
-            f"{e.count // n:5d}x  {e.key[:90]}")
-    import re
-    for family, keys in FAMILIES.items():
-        fam = [e for e in rows if any(k in e.key for k in keys)]
-        if fam:
-            us = sum(e.self_device_time_total for e in fam)
-            say(f"  {family}: {us / n / 1e3:.3f} ms, "
-                f"{sum(e.count for e in fam) // n} kernels per call")
-    for e in sorted(rows, key=lambda e: e.key):
-        m = re.search(CODEC_VARIANT, e.key)
-        if m:
-            say(f"    {m.group(1)}: {e.self_device_time_total / n / 1e3:.3f}"
-                f" ms in {e.count // n} launches, "
-                f"{e.self_device_time_total / e.count / 1e3:.4f} ms each")
-    return dev_us / 1e6 / wall, dev_us / 1e6 / n
+    return _report(label, prof, wall, n, top)
 
 
 def _named(tree, prefix=""):
@@ -5056,16 +5899,20 @@ def kernels_line(state):
     and the paged-serving runs' counts (`serve_paged`: the paged steps of
     llama3-8b's three caches; `serve_batcher`: the batcher's paged steps;
     `serve_paged_smoke`: the SMOKE cases' paged steps on the card; each
-    without the dense steps it is compared with) and the zamba2-1.2b serve
-    run's (`serve_zamba2`: two prefills and 63 decode steps); the flash
+    without the dense steps it is compared with), the zamba2-1.2b serve
+    run's (`serve_zamba2`: two prefills and 63 decode steps) and the
+    xlstm-1.3b runs' (`train_xlstm`: 2 timed steps at 48 layers;
+    `serve_xlstm`: two prefills and 63 decode steps; xlstm launches
+    rmsnorm, xent and AdamW and no other kernel); the flash
     row carries
     its readings at qwen3-moe's group-8
     shape (`group8`) and at gemma2's four shapes (`gemma2`), the
     flash_attention_bwd row (the backward alone, at qwen3's layer shape;
     `fwd_bwd` the gradient's forward + backward) its readings at the group-8
     shape and gemma2's local layer, the adamw row at the moe path's largest
-    leaf (`moe_leaf`) and at gemma2's embedding (`gemma2_leaf`), the
-    rmsnorm and xent rows at gemma2's shapes (`gemma2`).
+    leaf (`moe_leaf`), at gemma2's embedding (`gemma2_leaf`) and at
+    xlstm's (`xlstm_leaf`), the rmsnorm and xent rows at gemma2's shapes
+    (`gemma2`) and at xlstm's (`xlstm`).
     flash_attention_f32, flash_attention_bwd_f32, ssd_fwd_f32 and
     ssd_bwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
@@ -5091,9 +5938,10 @@ def kernels_line(state):
                            "train_qwen3_moe_30b_a3b_launches"][key],
                        train_qwen2_moe=state[
                            "train_qwen2_moe_a2_7b_launches"][key],
-                       train_gemma2=state["train_gemma2_27b_launches"][key])
+                       train_gemma2=state["train_gemma2_27b_launches"][key],
+                       train_xlstm=state["train_xlstm_1_3b_launches"][key])
         for path in ("serve_paged", "serve_batcher", "serve_paged_smoke",
-                     "serve_zamba2"):
+                     "serve_zamba2", "serve_xlstm"):
             by_path[path] = state[f"{path}_launches"][key]
         if serve_key:
             by_path["serve"] = serve[serve_key]
@@ -5114,7 +5962,8 @@ def kernels_line(state):
 
     rows = [
         row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
-            "rmsnorm", gemma2=state["gemma2_rmsnorm"]),
+            "rmsnorm", gemma2=state["gemma2_rmsnorm"],
+            xlstm=state["xlstm_rmsnorm"]),
         row("flash_attention", "flash", "flash_attention_sm90.cu",
             "flash_attention/kernel.py:77", "flash",
             group8=state["flash_group8"], gemma2=state["gemma2_flash"]),
@@ -5135,12 +5984,15 @@ def kernels_line(state):
             kernel="flash_bwd_dq_tf32_kernel, then "
                    "flash_bwd_dkdv_tf32_kernel: mma.sync m16n8k8 TF32 x3"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
-            "cross_entropy/kernel.py:61", gemma2=state["gemma2_xent_fwd"]),
+            "cross_entropy/kernel.py:61", gemma2=state["gemma2_xent_fwd"],
+            xlstm=state["xlstm_xent_fwd"]),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",
-            "cross_entropy/kernel.py:96", gemma2=state["gemma2_xent_bwd"]),
+            "cross_entropy/kernel.py:96", gemma2=state["gemma2_xent_bwd"],
+            xlstm=state["xlstm_xent_bwd"]),
         row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40",
             moe_leaf=state["adamw_moe_leaf"],
-            gemma2_leaf=state["gemma2_adamw_leaf"]),
+            gemma2_leaf=state["gemma2_adamw_leaf"],
+            xlstm_leaf=state["xlstm_adamw_leaf"]),
         row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46",
             kernel="quant_kernel (RTN); seed_kernel + quant_kernel (SR)"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
@@ -5218,7 +6070,13 @@ def main() -> int:
                         ("zamba2 serve smoke cuda vs cpu",
                          phase_zamba_serve_smoke),
                         ("full-width zamba2-1.2b serve",
-                         phase_full_zamba_serve)]:
+                         phase_full_zamba_serve),
+                        ("xlstm kernels vs plain", phase_xlstm_kernels),
+                        ("xlstm smoke cuda vs cpu", phase_xlstm_smoke),
+                        ("full-width xlstm-1.3b training",
+                         phase_full_xlstm_train),
+                        ("full-width xlstm-1.3b serve",
+                         phase_full_xlstm_serve)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

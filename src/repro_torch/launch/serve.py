@@ -8,10 +8,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --int8-kv --metrics-jsonl serve.jsonl
 
-Serves the dense, moe and zamba families (`--arch` any id in
+Serves the dense, moe, zamba and xlstm families (`--arch` any id in
 `models.registry.PORTED`):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1_2b \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1_3b \
       --smoke --device cpu
 
 Mirrors `repro.launch.serve` at world size 1: seeded weights, prompts of
@@ -20,8 +22,8 @@ greedy token comes from the logits of position T-1, a pad, as in the
 reference), one untimed warm-up call of each step, then timed windows that
 end in a device synchronize.  The padding is kept so that the two
 launchers' timings compare; for zamba2 the pads enter the SSD and conv
-states before decode starts at prompt_len (attention's decode overwrites
-their keys instead).  The first call on the card also builds the
+states, for xlstm the mLSTM, sLSTM and conv states, before decode starts
+at prompt_len (attention's decode overwrites their keys instead).  The first call on the card also builds the
 kernels.  `--int8-kv` stores the KV cache as int8 with per-128-chunk
 scales (the quant kernels on the card); `--metrics-jsonl` appends one
 `MetricsRegistry` line of `serve/*` gauges with the reference launcher's

@@ -17,7 +17,11 @@
 `--arch` takes every id of `models.registry.PORTED`: the dense family
 (llama3_8b, qwen3_1_7b, deepseek_coder_33b, phi3_medium_14b), the moe
 family (qwen3_moe_30b_a3b, qwen2_moe_a2_7b; each step logs the router's
-load-balance term apart as `moe_aux`) and zamba2_1_2b.
+load-balance term apart as `moe_aux`), zamba2_1_2b and xlstm_1_3b:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_1_3b \
+      --smoke --device cpu --steps 3 --dtype float32 --seq 40 --batch 4
+
 Runs on the card unless `--device cpu` is given.  At world size 1 it
 creates its own one-rank process group on an in-process store (no
 network); a multi-rank run initialises `torch.distributed` itself (one

@@ -1,4 +1,4 @@
-"""Architecture config schema (the dense, moe and zamba subsets of
+"""Architecture config schema (the dense, moe, zamba and xlstm subsets of
 `repro.models.common`).
 
 `ArchConfig` keeps the reference's field names, defaults and derived head
@@ -57,7 +57,7 @@ class BlockSegments:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # 'dense' | 'moe' | 'zamba' are ported
+    family: str               # 'dense' | 'moe' | 'zamba' | 'xlstm'
     n_layers: int
     d_model: int
     n_heads: int
@@ -95,6 +95,7 @@ class ArchConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 128
     shared_attn_every: int = 0            # zamba2: shared block period
+    slstm_every: int = 0                  # xlstm: 1 sLSTM per N blocks
 
     # recommended pipeline-parallel degree on the production mesh (the
     # reference's launch.mesh reads it); 1 = no pipelining.  Nothing in the
@@ -143,8 +144,9 @@ class ArchConfig:
         (padded heads and experts included).  The reference's formula
         (`repro/models/common.py` `n_params`) counts two norms a layer and
         no final norm, so it leaves out gemma2's post norms; it applies the
-        dense formula to zamba, which counts attention and MLP weights
-        that the Mamba layers do not have; and for moe it counts the real
+        dense formula to zamba and xlstm, which counts attention and MLP
+        weights that their layers do not have and misses xlstm's q/k/v
+        projections (d_inner x d_inner each); and for moe it counts the real
         experts, not the padded ones the metas hold, and leaves out the q/k
         norms and the shared expert's gate."""
         from repro_torch.models.registry import build_model

@@ -16,7 +16,7 @@ ARCH_IDS = (
 )
 PORTED = ("llama3_8b", "qwen3_1_7b", "zamba2_1_2b", "qwen3_moe_30b_a3b",
           "qwen2_moe_a2_7b", "deepseek_coder_33b", "phi3_medium_14b",
-          "gemma2_27b")
+          "gemma2_27b", "xlstm_1_3b")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
@@ -30,6 +30,9 @@ def build_model(cfg):
     if cfg.family == "moe":
         from repro_torch.models.moe import MoELM
         return MoELM(cfg)
+    if cfg.family == "xlstm":
+        from repro_torch.models.xlstm import XLSTMLM
+        return XLSTMLM(cfg)
     if cfg.family == "zamba":
         from repro_torch.models.zamba2 import Zamba2LM
         return Zamba2LM(cfg)

@@ -6,11 +6,13 @@
   * `cache_abstract` — the dense KV cache's leaves on the meta device
     (the reference's `cache_abstract` without the partition specs), at any
     mesh: the serving plan prices them; for zamba2 its serving state (SSD
-    and conv states, the shared block's keys and values) at tp = 1;
+    and conv states, the shared block's keys and values) and for xlstm
+    its recurrent states (mLSTM C, n, m and conv, sLSTM h, c, n, m) at
+    tp = 1;
   * `alloc_cache` — the dense KV cache, one (k, v) pair a layer of a
     local/global pair; under a KV codec ({"k", "ks", "v", "vs"} leaves)
     int8 / fp8 wire values and their per-128-chunk f32 scales; zamba2's
-    state, zeroed;
+    and xlstm's states, zeroed (a prefill writes every leaf);
   * `paged_abstracts` / `alloc_arena` — the paged arena (core/serving) of
     the same leaves, and its page table;
   * `make_prefill_step` / `make_decode_step` / `make_paged_step` — plain
@@ -107,13 +109,15 @@ def cache_abstract(model, shape: ShapeConfig, dcfg: DistConfig):
     local/global pairs hold one such pair a layer of the pair.  Global
     head counts, as the reference's: any mesh.  zamba2: `init_state`'s
     {"S", "conv_x", "conv_bc", "sh_kv"} (the reference's leaves) at tp =
-    1, with no KV codec (the reference's zamba cache ignores one; the
-    port raises)."""
+    1; xlstm: `init_state`'s {"m0".."m6": {"C", "n", "m", "conv"}, "s":
+    {"h", "c", "n", "m"}}, fp32, stacked over the superblocks, at tp = 1.
+    Neither takes a KV codec (the reference's caches ignore one; the port
+    raises)."""
     cfg = model.cfg
-    if cfg.family == "zamba":
+    if cfg.family in ("zamba", "xlstm"):
         if dcfg.kv_codec:
-            raise ValueError(f"{cfg.name}: the zamba2 cache takes no KV "
-                             f"codec (got {dcfg.kv_codec!r})")
+            raise ValueError(f"{cfg.name}: the {cfg.family} cache takes no "
+                             f"KV codec (got {dcfg.kv_codec!r})")
         return model.init_state(shape.global_batch, dcfg, shape.seq_len)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
@@ -140,7 +144,7 @@ def alloc_cache(model, shape: ShapeConfig, dcfg: DistConfig, device="cuda"):
     (k, v) pair of (n_steps, B, T, Kl, hd) tensors in param_dtype (under a
     KV codec the wire values and scales), or for gemma2's local/global
     pairs one such pair a layer of the pair, ((k, v), (k, v)); zamba2's
-    serving state."""
+    or xlstm's serving state."""
     check_world_size_one(dcfg)
     dev = resolve_device(device)
     return PG.kv_map(lambda a: PG.zeros(a.shape, a.dtype, dev),

@@ -110,9 +110,10 @@ def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
-    """Each ported arch builds its family's model class; the other three
+    """Each ported arch builds its family's model class; the other two
     raise "not yet ported"."""
     from repro_torch.models.moe import MoELM
+    from repro_torch.models.xlstm import XLSTMLM
     from repro_torch.models.zamba2 import Zamba2LM
     want = {"llama3_8b": ("dense", DenseLM), "qwen3_1_7b": ("dense", DenseLM),
             "deepseek_coder_33b": ("dense", DenseLM),
@@ -120,14 +121,15 @@ def test_registry_ports_two_archs_and_names_the_rest():
             "gemma2_27b": ("dense", DenseLM),
             "qwen3_moe_30b_a3b": ("moe", MoELM),
             "qwen2_moe_a2_7b": ("moe", MoELM),
-            "zamba2_1_2b": ("zamba", Zamba2LM)}
+            "zamba2_1_2b": ("zamba", Zamba2LM),
+            "xlstm_1_3b": ("xlstm", XLSTMLM)}
     assert set(PORTED) == set(want)
     for arch in PORTED:
         for smoke in (True, False):
             cfg, model = get_arch(arch, smoke=smoke)
             family, cls = want[arch]
             assert cfg.family == family and type(model) is cls, arch
-    assert len(set(ARCH_IDS) - set(PORTED)) == 3
+    assert len(set(ARCH_IDS) - set(PORTED)) == 2
     for arch in set(ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_arch(arch)

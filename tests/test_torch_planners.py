@@ -55,7 +55,10 @@ from repro_torch.models.common import BlockSegments, ShapeConfig
 from repro_torch.models.registry import PORTED, get_arch
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = tuple(sorted(PORTED))
+# xlstm's plans are held in tests/test_torch_xlstm.py at SMOKE: over its
+# 67-leaf superblock the joint precision DP (auto_dp with comm_precision
+# auto) takes ~9 s a SMOKE plan and ~70 s a full-width plan on each side
+ARCHS = tuple(sorted(a for a in PORTED if a != "xlstm_1_3b"))
 DP_SIZES = (1, 8, 64, 256)
 PRECISIONS = ("bf16", "fp8_ef", "auto")
 MODES = ("none", "block", "auto", "auto_dp")

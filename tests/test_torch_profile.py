@@ -244,7 +244,7 @@ def test_zamba2_has_no_installed_stats_in_either_package():
 # ---------------------------------------------------------------------------
 # the port's own profiler, on the CPU
 # ---------------------------------------------------------------------------
-def test_profile_step_on_cpu():
+def test_profile_step_on_cpu(monkeypatch):
     _, model = get_arch("qwen3_1_7b", smoke=True)
     shape = ShapeConfig("t", 16, 4, "train")
     d = DistConfig(param_dtype=torch.float32, bucket_mode="auto",
@@ -262,14 +262,28 @@ def test_profile_step_on_cpu():
     assert prof.rank_step_s == {"0": prof.wall_step_s}
     assert prof.meta["backend"] == "cpu" and prof.meta["closure_factor"] > 0
     assert prof.meta["seg_names"] == ["attn", "mlp"]
-    closed = cal.calibrated_step_time(model, p, shape, prof)
-    assert abs(closed - prof.wall_step_s) <= 0.02 * prof.wall_step_s
     s = prof.to_json()
     assert prof_mod.MeasuredProfile.from_json(s) == prof
     assert jprofile.MeasuredProfile.from_json(s).to_json() == s
     given = prof_mod.profile_step(model, p, shape, steps=1,
                                   wall_step_s=0.5, device="cpu")
     assert given.wall_step_s == 0.5 and given.spans[-1]["cat"] == "wall"
+    # the closure on fixed measurements: the segment and codec timings a
+    # loaded machine takes vary, and a codec time near the measured wall
+    # leaves the segment scales nothing to close on (the closure scales
+    # only them), so the 2% check runs on given segment scales, codec rate
+    # and wall, through profile_step
+    fixed = ({"attn": 1.0e5, "mlp": 1.0e4}, dict(prof.param_segment),
+             ["attn", "mlp"])
+    monkeypatch.setattr(prof_mod, "_profile_segments",
+                        lambda *a, **k: fixed)
+    monkeypatch.setattr(prof_mod, "_profile_quant",
+                        lambda *a, **k: {"fp8": 1.0e8})
+    pinned = prof_mod.profile_step(model, p, shape, steps=1,
+                                   wall_step_s=0.2, device="cpu")
+    assert pinned.meta["closure_factor"] > 0 and pinned.wall_step_s == 0.2
+    closed = cal.calibrated_step_time(model, p, shape, pinned)
+    assert abs(closed - pinned.wall_step_s) <= 0.02 * pinned.wall_step_s
 
 
 def test_profile_step_raises_instead_of_falling_back(monkeypatch):
