@@ -304,6 +304,37 @@ without printing the final line):
      first superblock's bf16 prefill and decode step against the same
      calls on their inputs widened to fp32, bit for bit (XLSTM_PLANT, the
      cells' calls rounded to bf16, must fail).
+ 10y. encdec kernels vs plain (the main path of the sixteenth slice,
+     seamless-m4t-large-v2, an encoder-decoder: hd 64, 16 heads on 16
+     kv heads): rmsnorm at (4096, 1024), (8256, 1024) and (4128, 1024)
+     bf16, xent forward and backward at (4096, 256208) fp32, AdamW at its
+     262,356,992-element embedding; the bf16 flash forward at B4 S = T
+     1024, non-causal (the encoder, the cross-attention) and causal (the
+     decoder), and at the serve prefill's cross-attention B4 S2064 T1032,
+     with FLASH_BF16_RMS_REL and its plants, beside SDPA and the bound;
+     the flash backward (`flash_grad_case`) at B4 S = T 1024, non-causal
+     and causal.
+ 10z. encdec smoke, card vs CPU: SMOKE fp32 on the same numpy-seeded
+     weights: the loss and every gradient of one loss step at seq 32 (the
+     encoder's leaves included) on the vanilla and the prefetch stack;
+     prefill over 20 tokens and 10 frames and 3 decode steps, logits and
+     both caches; on the card the p+1 check at p = 19, which a cross cache
+     of the decoder's keys must fail; all at TOL32 on flash's fp32 routes.
+ 10aa. full-width seamless-m4t-large-v2 training: all 48 layers, B4 at seq
+     2048 (1024 frames, 1024 target tokens), bf16 compute, fp32 storage,
+     on the vanilla and on the prefetch stack: the readings of 8, MFU on
+     `_encdec_flops`, the memory plan's modeled peak beside the measured,
+     launches a step asserted (flash 72 / 144, its backward 72, rmsnorm
+     122 / 242, xent 1 + 1, AdamW 26).
+ 10ab. full-width seamless-m4t-large-v2 serve: all 48 layers in bf16, B 4,
+     prompt 2000 padded to T 2064 over 1032 seeded frames, 64 generated
+     tokens through `repro_torch.launch.serve`: prefill ms, decode
+     ms/token beside its byte bound, device time of a decode step, peak
+     memory, launches a prefill (rmsnorm 122, flash 72) and a decode step
+     (rmsnorm 73, no flash); the p+1 check at p = 2063 in bf16
+     (ENCDEC_BF16_CONSISTENCY_REL of the logits' RMS; a cross cache of the
+     decoder's keys, planted, must fail it) and on the weights widened to
+     fp32 at TOL32.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -2137,9 +2168,12 @@ def _attn_pairs(seq, window=None):
 
 def _attn_calls(model):
     """Attention calls a training step differentiates: one a layer, for
-    zamba one a shared-block invocation, for xlstm none."""
+    zamba one a shared-block invocation, for xlstm none, for encdec one an
+    encoder layer and two a decoder layer (self and cross)."""
     if model.cfg.family == "xlstm":
         return 0
+    if model.cfg.family == "encdec":
+        return model.n_enc + 2 * model.n_dec
     return model.n_super if model.cfg.family == "zamba" else \
         model.cfg.n_layers
 
@@ -2159,7 +2193,10 @@ def _model_flops(cfg, model, batch, seq):
     forward; remat's recompute not counted): 6 x the matmul parameters
     applied per token x tokens (for moe the active ones), plus causal
     attention (4*hd a pair, inside the window on gemma2's local layers)
-    and, for zamba, the SSD's own products; xlstm: `_xlstm_flops`."""
+    and, for zamba, the SSD's own products; xlstm: `_xlstm_flops`; encdec:
+    `_encdec_flops`."""
+    if cfg.family == "encdec":
+        return _encdec_flops(cfg, model, batch, seq)
     tokens = batch * seq
     lay = cfg.gqa_layout(1)
     hd = cfg.head_dim
@@ -2197,6 +2234,32 @@ def _model_flops(cfg, model, batch, seq):
     ssd = 3 * cfg.n_layers * _ssd_flops(batch, seq, model.nh, model.hd,
                                         model.ds, min(cfg.ssm_chunk, seq))
     return 6.0 * mm * tokens + attn + ssd
+
+
+def _encdec_flops(cfg, model, batch, seq):
+    """FLOPs of one encdec training step at a cell's seq (S_src = S_tgt =
+    seq / 2; forward and backward, 3 x the forward, remat's recompute not
+    counted): 6 x the matrix-product parameters x the tokens they apply to
+    (the frontend projection and the encoder's over the S_src frames; the
+    decoder's self-attention, cross-attention queries and output, FFN and
+    the head over the S_tgt tokens; the cross-attention keys and values
+    over the memory's S_src rows), plus attention at 4*hd a (query, key)
+    pair: the encoder's bidirectional S_src^2, the decoder's causal
+    S_tgt (S_tgt + 1) / 2 and the cross-attention's S_tgt x S_src."""
+    d, hd = cfg.d_model, cfg.head_dim
+    lay = cfg.gqa_layout(1)
+    hq, kvp = lay["hq"], lay["kvp"]
+    s_src = s_tgt = seq // 2
+    attn = 2 * d * hq * hd + 2 * d * kvp * hd
+    ffn = 2 * d * cfg.d_ff
+    enc = cfg.frontend_dim * d + model.n_enc * (attn + ffn)
+    dec = model.n_dec * (attn + d * hq * hd + hq * hd * d + ffn) \
+        + d * cfg.vocab
+    xkv = model.n_dec * 2 * d * kvp * hd
+    mm = 6.0 * batch * (enc * s_src + dec * s_tgt + xkv * s_src)
+    pairs = (model.n_enc * s_src * s_src
+             + model.n_dec * (s_tgt * (s_tgt + 1) / 2 + s_tgt * s_src))
+    return mm + 3 * 4.0 * batch * hq * hd * pairs
 
 
 def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
@@ -2243,6 +2306,11 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch, seed=0))
     batches = [data.batch(i) for i in range(steps + 1)]
+    if cfg.family == "encdec":
+        # frames synthesised, token fields cropped to S_tgt = seq / 2
+        from repro_torch.data.pipeline import adapt_batch
+        specs = model.input_specs(shape, dcfg)
+        batches = [adapt_batch(b_, specs, i) for i, b_ in enumerate(batches)]
     want_first = first_loss(storage, batches[0]) if first_loss else None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5081,9 +5149,37 @@ def phase_xlstm_kernels(state):
     """The kernels xlstm-1.3b's path runs, at its shapes: rmsnorm at (8192,
     2048) bf16 (the training rows) and (8256, 2048) bf16 (the serve
     prefill's rows, B4 T2064); xent forward and backward at (8192, 50304)
-    fp32; AdamW at the path's largest flat leaf.  Each against its plain
-    version, with the kernel's wall and device ms, the plain version's, a
-    PyTorch call's and the bound."""
+    fp32; AdamW at the path's largest flat leaf (`_path_kernels`)."""
+    _path_kernels(state, "xlstm", XLSTM, ((TRAIN_B * TRAIN_T, "training"),
+                                          (B * T, "prefill")),
+                  TRAIN_B * TRAIN_T)
+
+
+# H100 SXM's L2 holds 50 MB: `_cold` cycles a call's input and output
+# through this many bytes of copies, so that each call reads and writes
+# HBM as the byte bound assumes (at d 1024 rmsnorm's whole traffic fits in
+# L2, and a warm call read 0.0092 ms against a 0.0101 ms bound)
+COLD_BYTES = 256 * 2**20
+
+
+def _cold(fn, x):
+    """A call of fn on the next of a ring of copies of x, which keeps the
+    ring's outputs alive: inputs and outputs together span COLD_BYTES."""
+    import collections
+    import itertools
+    n = max(1, -(-COLD_BYTES // (2 * x.numel() * x.element_size())))
+    ring = itertools.cycle([x] + [x.clone() for _ in range(n - 1)])
+    kept = collections.deque(maxlen=n)
+    return lambda: kept.append(fn(next(ring)))
+
+
+def _path_kernels(state, prefix, arch, rms_rows, xent_rows):
+    """rmsnorm at each (rows, path) of `rms_rows` bf16 at `arch`'s width,
+    xent forward and backward at (xent_rows, vocab) fp32 and AdamW at the
+    arch's largest flat storage leaf, each against its plain version, with
+    the kernel's wall and device ms, the plain version's, a PyTorch call's
+    and the bound; the readings go to state[prefix + "_rmsnorm" | "_xent_fwd"
+    | "_xent_bwd" | "_adamw_leaf"]."""
     import torch.nn.functional as F
     from repro_torch.core.dist import DistConfig
     from repro_torch.kernels.adamw import ops as adamw_ops
@@ -5100,12 +5196,12 @@ def phase_xlstm_kernels(state):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    cfg, model = get_arch(XLSTM)
+    cfg, model = get_arch(arch)
     d, V = cfg.d_model, cfg.vocab
-    say("rmsnorm kernel vs plain at xlstm-1.3b's shapes (ms: kernel / plain "
-        "/ F.rms_norm / bound):")
+    say(f"rmsnorm kernel vs plain at {cfg.name}'s shapes (ms: kernel / "
+        "plain / F.rms_norm / bound):")
     rms = {}
-    for rows, path in ((TRAIN_B * TRAIN_T, "training"), (B * T, "prefill")):
+    for rows, path in rms_rows:
         x = randn(rows, d, dtype=torch.bfloat16) * 2
         w = randn(d, dtype=torch.bfloat16)
         name = f"rmsnorm ({rows}, {d}) bf16 ({path})"
@@ -5114,21 +5210,24 @@ def phase_xlstm_kernels(state):
         if rms_ops.launches != n + 1:
             raise AssertionError("the rmsnorm kernel did not launch")
         err = check_close(name, got, rms_ref.rmsnorm(x, w, cfg.norm_eps), TOL)
-        fwd = lambda: rms_ops.rmsnorm(x, w, cfg.norm_eps)
+        fwd = _cold(lambda a: rms_ops.rmsnorm(a, w, cfg.norm_eps), x)
         nbytes = 2 * x.numel() * 2 + d * 2
         bound, by = _bound(nbytes, 4.0 * x.numel())
         ms, on_card = time_ms(fwd), device_ms(fwd, bound)
-        plain = time_ms(lambda: rms_ref.rmsnorm(x, w, cfg.norm_eps))
-        lib = time_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps))
+        plain = time_ms(_cold(lambda a: rms_ref.rmsnorm(a, w, cfg.norm_eps),
+                              x))
+        lib = time_ms(_cold(lambda a: F.rms_norm(a, (d,), w, cfg.norm_eps),
+                            x))
         say(f"    {path}: {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
-            f"({nbytes / ms / 1e6:.0f} GB/s); device {on_card:.4f}")
+            f"({nbytes / ms / 1e6:.0f} GB/s); device {on_card:.4f} (inputs "
+            "and outputs cycled past the L2, `_cold`)")
         rms[path] = dict(shape=f"({rows}, {d}) bf16", max_abs_err=err, ms=ms,
                          device_ms=on_card, plain_ms=plain, library_ms=lib,
                          bound_ms=bound, bound_by=by)
         del x, w, got
-    state["xlstm_rmsnorm"] = rms
+    state[f"{prefix}_rmsnorm"] = rms
 
-    R = TRAIN_B * TRAIN_T
+    R = xent_rows
     say(f"xent kernels vs plain at ({R}, {V}) fp32 (ms: kernel / plain / "
         "F.cross_entropy / bound):")
     x = randn(R, V) * 3
@@ -5180,10 +5279,10 @@ def phase_xlstm_kernels(state):
         f"({2 * x.numel() * 4 / ms_b / 1e6:.0f} GB/s); device {dev_b:.4f}; "
         f"F.cross_entropy forward + autograd backward {lib_fb:.4f} (no "
         "backward-alone library call)")
-    state["xlstm_xent_fwd"] = dict(
+    state[f"{prefix}_xent_fwd"] = dict(
         shape=f"({R}, {V}) fp32", max_abs_err=err_f, ms=ms_f, device_ms=dev_f,
         plain_ms=plain_f, library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
-    state["xlstm_xent_bwd"] = dict(
+    state[f"{prefix}_xent_bwd"] = dict(
         shape=f"({R}, {V}) fp32", max_abs_err=err_b, ms=ms_b, device_ms=dev_b,
         plain_ms=plain_b, library_ms=None, library_fwd_bwd_ms=lib_fb,
         bound_ms=bound_b, bound_by=by_b)
@@ -5192,8 +5291,8 @@ def phase_xlstm_kernels(state):
 
     n = max(a.numel() for a in _leaves(model_abstract_storage(
         model, DistConfig())))
-    say(f"adamw kernel vs plain at xlstm's largest flat leaf (n={n}; ms: "
-        "kernel / plain / AdamW(fused=True) / bound):")
+    say(f"adamw kernel vs plain at {cfg.name}'s largest flat leaf (n={n}; "
+        "ms: kernel / plain / AdamW(fused=True) / bound):")
     p, gd, m = randn(n), randn(n), randn(n) * 0.1
     v = randn(n).abs() * 0.01
     kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
@@ -5223,15 +5322,14 @@ def phase_xlstm_kernels(state):
     lib = time_ms(opt.step)
     say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
         f"({28 * n / ms / 1e6:.0f} GB/s); device {on_card:.4f}")
-    state["xlstm_adamw_leaf"] = dict(n=n, max_abs_err=err, ms=ms,
-                                     device_ms=on_card, plain_ms=plain,
-                                     library_ms=lib, bound_ms=bound,
-                                     bound_by=by)
+    state[f"{prefix}_adamw_leaf"] = dict(
+        n=n, max_abs_err=err, ms=ms, device_ms=on_card, plain_ms=plain,
+        library_ms=lib, bound_ms=bound, bound_by=by)
     del p, gd, m, v, got, q, opt
     torch.cuda.empty_cache()
 
 
-def _xlstm_storage(model, dcfg, tree, dev):
+def _storage_from_full(model, dcfg, tree, dev):
     """The port's storage from reference-layout full params (numpy)."""
     from repro_torch.core.api import shard_params
     from repro_torch.core.meta import tree_map
@@ -5279,7 +5377,7 @@ def phase_xlstm_smoke(state):
         for dev in ("cpu", "cuda"):
             par = parallelize(model, dcfg, ShapeConfig("t", t, b, "train"),
                               device=dev)
-            storage = _xlstm_storage(model, dcfg, tree, dev)
+            storage = _storage_from_full(model, dcfg, tree, dev)
             _reset_counts()
             loss, grads = par.loss_step()(storage, batch)
             runs[dev] = (loss, grads, _train_counts())
@@ -5799,6 +5897,461 @@ def _xlstm_drift(model, dcfg, dcfg32, params, params32, x):
     return dict(gap=gap, control=control, block=block, planted=planted)
 
 
+ENCDEC = "seamless_m4t_large_v2"
+# the p+1 check of the full-width bf16 serve (24 decoder layers over 2064
+# target tokens, 1032 frames): max |prefill(p+1) - prefill(p)+decode| over
+# the logits' RMS.  The two paths round differently in bf16 (the flash
+# kernel's P against the decode's fp32 softmax cast once, products over
+# B x T rows against B rows), and 24 residual layers carry that on.  The
+# limit was set before the first full-width run, from xlstm-1.3b's 48
+# layers, which read up to 0.37 of the logits' RMS on sound builds: half
+# of the RMS leaves that room while a cross cache of the decoder's own keys
+# (the planted fault) moves every logit by about its RMS.  A sound build
+# read 7.45e-2 and the plant 4.29 (NVIDIA H100 80GB HBM3, 700.00 W)
+ENCDEC_BF16_CONSISTENCY_REL = 0.5
+
+
+def phase_encdec_kernels(state):
+    """The kernels seamless-m4t-large-v2's path runs, at its shapes: rmsnorm
+    at (4096, 1024) bf16 (the training rows: B4 x 1024 frames or target
+    tokens), (8256, 1024) and (4128, 1024) (the serve prefill's decoder and
+    encoder rows), xent forward and backward at (4096, 256208) fp32, AdamW
+    at the path's largest flat leaf (`_path_kernels`); the bf16 flash
+    forward at B4 S = T 1024 H16 Kh16 hd64 non-causal (the encoder's
+    self-attention and the cross-attention) and causal (the decoder's
+    self-attention), and at the serve prefill's cross-attention, B4 S2064
+    T1032 non-causal: each against its plain version (FLASH_BF16_RMS_REL
+    with its two planted faults), with wall and device ms beside SDPA's and
+    the bound; the flash backward (`flash_grad_case`) at B4 S = T 1024
+    hd64, non-causal and causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    rows = TRAIN_B * TRAIN_T // 2
+    _path_kernels(state, "encdec", ENCDEC, (
+        (rows, "training"), (B * T, "prefill decoder"),
+        (B * (T // 2), "prefill encoder")), rows)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    h, hd, s_tr = 16, 64, TRAIN_T // 2
+    cases = [  # (name, B, S, T, causal)
+        (f"B{TRAIN_B} S{s_tr} T{s_tr} H16 Kh16 hd64 non-causal bf16 (the "
+         "encoder's self-attention, the cross-attention)", TRAIN_B, s_tr,
+         s_tr, False),
+        (f"B{TRAIN_B} S{s_tr} T{s_tr} H16 Kh16 hd64 causal bf16 (the "
+         "decoder's self-attention)", TRAIN_B, s_tr, s_tr, True),
+        (f"B{B} S{T} T{T // 2} H16 Kh16 hd64 non-causal bf16 (the serve "
+         "prefill's cross-attention)", B, T, T // 2, False),
+    ]
+    say("flash kernel vs plain at seamless-m4t-large-v2's shapes (ms: "
+        "kernel / plain / SDPA / bound; the kernel's and SDPA's device "
+        "time):")
+    out = []
+    for name, b, s, t, causal in cases:
+        q, k, v = randn(b, s, h, hd), randn(b, t, h, hd), randn(b, t, h, hd)
+        kw = dict(causal=causal)
+        n = flash_ops.launches
+        got = flash_ops.flash_attention(q, k, v, **kw)
+        if flash_ops.launches != n + 1:
+            raise AssertionError(f"{name}: the bf16 flash kernel did not "
+                                 "launch")
+        want = flash_ref.attention(q, k, v, **kw)
+        err = check_rms(name, got, want, FLASH_BF16_RMS_REL)
+        check_flash_plants(name, q, k, v, want, **kw)
+        del got, want
+        # causal only where S == T: the lower triangle; else every pair
+        pairs = s * (s + 1) / 2 if causal else s * t
+        flops = 4.0 * hd * b * h * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound, by = _bound(nbytes, flops, torch.bfloat16, products=True)
+        fwd = lambda: flash_ops.flash_attention(q, k, v, **kw)  # noqa: E731
+        ms, on_card = time_ms(fwd), device_ms(fwd, bound)
+        plain = time_ms(lambda: flash_ref.attention(q, k, v, **kw))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal)
+        lib, lib_dev = time_ms(sdpa), device_ms(sdpa, bound)
+        say(f"    {ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} ({by}; "
+            f"{flops / on_card / 1e9:.1f} TFLOP/s on the device); device "
+            f"{on_card:.4f}, SDPA device {lib_dev:.4f} (kernel / SDPA "
+            f"{on_card / lib_dev:.2f}x)")
+        out.append(dict(shape=name, max_abs_err=err, ms=ms,
+                        device_ms=on_card, plain_ms=plain, library_ms=lib,
+                        library_device_ms=lib_dev, bound_ms=bound,
+                        bound_by=by))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    state["encdec_flash"] = out
+    for causal in (False, True):
+        mask = "causal" if causal else "non-causal"
+        flash_grad_case(state, f"encdec_flash_bwd_{mask}",
+                        f"flash grad B{TRAIN_B} T{s_tr} H16 Kh16 hd64 {mask} "
+                        "bf16", TRAIN_B, s_tr, h, h, hd, dict(causal=causal),
+                        torch.bfloat16, g)
+
+
+def _encdec_inputs(cfg, b, t, dev, seed):
+    """(tokens (b, t) int64, frames (b, t // 2, frontend_dim) fp32) from a
+    seed: the serve launcher's frames, random tokens."""
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(3, cfg.vocab, (b, t), generator=g)
+    frames = torch.randn((b, t // 2, cfg.frontend_dim), generator=g) * 0.3
+    return tokens.to(dev), frames.to(dev)
+
+
+def _encdec_p1(model, dcfg, params, x, frames, label, plant=False):
+    """Prefill over x (B, p + 1) against prefill over x[:, :p] into a self
+    cache of capacity p + 1 and one decode step of x[:, p] at p, the same
+    frames (p + 1) // 2 of them.  Returns (want logits, got logits, launch
+    counts of the long prefill and of the decode step, and with `plant`
+    the logits of the same decode from a cache whose cross keys and values
+    are the decoder's self keys and values of the first S_src positions,
+    not the memory's)."""
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train import serve as SV
+    b, t = x.shape
+    shape = ShapeConfig("p", t, b, "prefill")
+    pos = torch.full((b,), t - 1, dtype=torch.int64, device=x.device)
+    with torch.inference_mode():
+        _reset_counts()
+        want, full = model.prefill_local(
+            params, {"tokens": x, "frames": frames}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        counts = dict(prefill=_train_counts())
+        del full
+        _, cache = model.prefill_local(
+            params, {"tokens": x[:, :-1], "frames": frames}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        planted = None
+        if plant:
+            bad = PG.kv_map(torch.clone, cache)
+            for a, s_ in zip(bad["cross"], bad["self"]):
+                a.copy_(s_[:, :, :a.shape[2]])
+            planted, _ = model.decode_local(params, bad, x[:, -1], pos, dcfg)
+            del bad
+        _reset_counts()
+        got, cache = model.decode_local(params, cache, x[:, -1], pos, dcfg)
+        counts["decode"] = _train_counts()
+    top2 = want.float().topk(2, dim=-1).values
+    say(f"  {label}: logits RMS {want.float().pow(2).mean().sqrt().item():.4e}"
+        f", max|logit| {want.abs().max().item():.4f}, max abs err "
+        f"{max_err(got, want):.4e}, top-2 gaps "
+        f"{[round(v, 5) for v in (top2[:, 0] - top2[:, 1]).tolist()]}, "
+        f"argmax {want.argmax(-1).tolist()} vs {got.argmax(-1).tolist()}")
+    return want, got, counts, planted
+
+
+def _check_encdec_serve_counts(counts, model, what, route, prefills=0,
+                               decodes=0):
+    """rmsnorm and flash's `route` ("flash" or "flash_f32") launched for
+    `prefills` prefills and `decodes` decode steps, and no other kernel: a
+    prefill 2 norms an encoder layer, 3 a decoder layer, the encoder's and
+    the final norm, one flash forward an encoder layer and two a decoder
+    layer; a decode step 3 norms a decoder layer and the final norm, no
+    flash."""
+    norms = 2 * model.n_enc + 3 * model.n_dec + 2
+    want = {"rmsnorm": prefills * norms
+            + decodes * (3 * model.n_dec + 1),
+            route: prefills * (model.n_enc + 2 * model.n_dec)}
+    got = {k: counts[k] for k in want}
+    off = [k for k, v in counts.items()
+           if v and k not in (*want, *COLLECTIVES)]
+    if got != want or off:
+        raise AssertionError(f"{what}: launches {counts}, want {want} and "
+                             "no other kernel")
+
+
+def phase_encdec_smoke(state):
+    """seamless-m4t-large-v2 SMOKE in fp32 with the same numpy-seeded
+    weights on the card and on the CPU: the loss and every gradient of one
+    loss step at seq 32 (16 frames, 16 target tokens) on the vanilla and
+    the prefetch stack (the decoder's carry {"h", "mem"}), the encoder's
+    leaves included; prefill of 20 target tokens over 10 frames and 3
+    decode steps, logits and both caches; on the card, the p+1 check at p
+    = 19; all at TOL32, on flash's fp32 routes."""
+    from repro_torch.core.api import parallelize
+    from repro_torch.core.dist import DistConfig, single_device_config
+    from repro_torch.core.meta import named_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4, \
+        adapt_batch
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import serve as SV
+    cfg, model = get_arch(ENCDEC, smoke=True)
+    tree = _numpy_params(model, single_device_config(
+        param_dtype=torch.float32), seed=0)
+    b, t = 4, 32
+    shape = ShapeConfig("t", t, b, "train")
+    batch = adapt_batch(SyntheticC4(DataConfig(
+        vocab=cfg.vocab, seq_len=t, global_batch=b, seed=0)).batch(0),
+        model.input_specs(shape, DistConfig()), 0)
+    off = ("flash", "flash_bwd", "ssd", "ssd_f32", "ssd_bwd", "ssd_bwd_f32")
+    for reorder in (False, True):
+        label = "prefetch" if reorder else "vanilla"
+        dcfg = DistConfig(param_dtype=torch.float32, reorder=reorder)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            par = parallelize(model, dcfg, shape, device=dev)
+            storage = _storage_from_full(model, dcfg, tree, dev)
+            _reset_counts()
+            loss, grads = par.loss_step()(storage, batch)
+            runs[dev] = (loss, grads, _train_counts())
+        counts = runs["cuda"][2]
+        say(f"  encdec smoke {label} loss step: launches on the card "
+            f"{counts}")
+        if min(counts[k] for k in ("rmsnorm", "flash_f32", "flash_bwd_f32",
+                                   "xent_fwd", "xent_bwd")) <= 0 \
+                or any(counts[k] for k in off):
+            raise AssertionError(f"encdec smoke {label}: launches {counts}")
+        if max(v for k, v in runs["cpu"][2].items()
+               if k not in COLLECTIVES) > 0:
+            raise AssertionError("the CPU loss step launched a kernel")
+        check_close(f"encdec smoke {label} loss cuda vs cpu",
+                    runs["cuda"][0].cpu(), runs["cpu"][0], TOL32)
+        errs = []
+        for (n, a), (_, b_) in zip(named_leaves(runs["cuda"][1]),
+                                   named_leaves(runs["cpu"][1])):
+            if n.split("/")[0] in ("enc_blocks", "front_proj", "enc_norm") \
+                    and not float(b_.abs().max()) > 0:
+                raise AssertionError(f"encdec smoke: zero gradient {n}")
+            errs.append(check_close(f"encdec smoke {label} grad {n}", a.cpu(),
+                                    b_, TOL32))
+        say(f"  encdec smoke {label}: loss {float(runs['cuda'][0]):.6f}, "
+            f"{len(errs)} gradient leaves, max abs err {max(errs):.3e}")
+
+    prompt, gen = 17, 3
+    t_len = prompt + gen
+    dcfg = single_device_config(param_dtype=torch.float32)
+    x, frames = _encdec_inputs(cfg, 2, t_len, "cpu", seed=1)
+    x[:, prompt:] = 3                     # padded as the launchers pad
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = SV.serve_params_from_jax(tree, model, dcfg, device=dev)
+        pf = SV.make_prefill_step(model, dcfg,
+                                  ShapeConfig("p", t_len, 2, "prefill"))
+        dec = SV.make_decode_step(model, dcfg,
+                                  ShapeConfig("d", t_len, 2, "decode"))
+        _reset_counts()
+        logits, cache = pf(params, {"tokens": x.to(dev),
+                                    "frames": frames.to(dev)})
+        runs[dev] = dict(params=params, dec=dec, cache=cache,
+                         logits=[logits.cpu()], prefill=_train_counts())
+    _check_encdec_serve_counts(runs["cuda"]["prefill"], model,
+                               "the card's fp32 prefill", "flash_f32",
+                               prefills=1)
+    check_close("encdec smoke prefill logits cuda vs cpu",
+                runs["cuda"]["logits"][0], runs["cpu"]["logits"][0], TOL32)
+
+    def caches(what):
+        for part in ("self", "cross"):
+            for name, a, b_ in zip("kv", runs["cuda"]["cache"][part],
+                                   runs["cpu"]["cache"][part]):
+                check_close(f"{what} {part} {name} cuda vs cpu", a.cpu(), b_,
+                            TOL32)
+    caches("encdec smoke prefill")
+    for i in range(3):
+        tok = runs["cpu"]["logits"][-1].argmax(-1)
+        if not torch.equal(runs["cuda"]["logits"][-1].argmax(-1), tok):
+            raise AssertionError(f"encdec: greedy tokens differ at {i}")
+        pos = torch.full((2,), prompt + i, dtype=torch.int64)
+        for dev, r in runs.items():
+            logits, r["cache"] = r["dec"](r["params"], r["cache"],
+                                          tok.to(dev), pos.to(dev))
+            r["logits"].append(logits.cpu())
+        check_close(f"encdec smoke decode {i} logits cuda vs cpu",
+                    runs["cuda"]["logits"][-1], runs["cpu"]["logits"][-1],
+                    TOL32)
+        caches(f"encdec smoke decode {i}")
+    params = runs["cuda"]["params"]
+    xc, fc = _encdec_inputs(cfg, 2, t_len, "cuda", seed=2)
+    want, got, per_call, planted = _encdec_p1(
+        model, dcfg, params, xc, fc, f"encdec smoke p+1 at p {t_len - 1}",
+        plant=True)
+    check_close("encdec smoke: prefill vs prefill + decode", got, want,
+                TOL32)
+    check_rejects("encdec smoke p+1 planted: a cross cache of the decoder's "
+                  "keys", planted, want, TOL32)
+    _check_encdec_serve_counts(per_call["decode"], model,
+                               "an fp32 decode step", "flash_f32", decodes=1)
+    state["encdec_smoke_launches"] = runs["cuda"]["prefill"]
+
+
+def phase_full_encdec_train(state):
+    """seamless-m4t-large-v2 at every published width and depth (24 + 24
+    layers), B4 at seq 2048 (S_src = S_tgt = 1024), bf16 compute, fp32
+    storage, remat fsdp_only, block buckets, through `parallelize(...)
+    .train_step` on the vanilla stack and on the prefetch stack (bf16 wire):
+    the readings of 8 with MFU on `_encdec_flops`, the memory plan's
+    modeled peak (H100 profile) beside the measured, and launches a step:
+    flash forward one an attention call (72) on the vanilla stack and two
+    (144) on the prefetch stack, which recomputes each layer in its
+    backward; one flash backward an attention call; rmsnorm 2 an encoder
+    layer + 3 a decoder layer (+ their recompute) + the encoder's and the
+    final norm; xent 1 + 1; AdamW one a storage leaf."""
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.core.memory import plan_memory
+    from repro_torch.models.common import ShapeConfig
+    for reorder, key in ((False, "train_encdec"),
+                         (True, "train_encdec_prefetch")):
+        par, storage, opt = _full_train(state, key,
+                                        DistConfig(reorder=reorder),
+                                        arch=ENCDEC)
+        del storage, opt
+        torch.cuda.empty_cache()
+        model, r = par.model, state[key]
+        counts = state[f"{key}_launches"]
+        times = 2 if reorder else 1
+        norms = 2 * model.n_enc + 3 * model.n_dec
+        want = dict(flash=times * _attn_calls(model),
+                    flash_bwd=_attn_calls(model),
+                    rmsnorm=times * norms + 2, xent_fwd=1, xent_bwd=1,
+                    adamw=len(list(_leaves(model.metas(par.dcfg)))))
+        per_step = {k: counts[k] / TRAIN_STEPS for k in want}
+        say(f"  launches a step {per_step} (want {want})")
+        if per_step != want:
+            raise AssertionError(f"launches a step {per_step}, want {want}")
+        mem = par.plan.memory
+        say(f"  modeled peak {mem.peak / 2**30:.2f} GiB ({mem.describe()}) "
+            f"against max_memory_allocated "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB (modeled / "
+            f"measured {mem.peak / r['max_memory_allocated']:.3f})")
+        for b_ in mem.breakdown:
+            say(f"    {b_.describe()}")
+        # the reference prices the decoder block's workload and the logits
+        # at the cell's seq rows, where each stack sees seq / 2: the same
+        # plan priced at seq / 2
+        half = plan_memory(model, par.dcfg, ShapeConfig(
+            "train", TRAIN_T // 2, TRAIN_B, "train"))
+        say(f"  the same plan priced at seq {TRAIN_T // 2} (the rows each "
+            f"stack sees): {half.peak / 2**30:.2f} GiB (modeled / measured "
+            f"{half.peak / r['max_memory_allocated']:.3f})")
+        r.update(modeled_peak=mem.peak, modeled_peak_half_seq=half.peak,
+                 model_tflop=_encdec_flops(model.cfg, model, TRAIN_B,
+                                           TRAIN_T) / 1e12)
+
+
+def phase_full_encdec_serve(state):
+    """seamless-m4t-large-v2 served at its published depth: bf16 weights
+    made on the card, B 4, prompt 2000 padded to T 2064 over 1032 seeded
+    frames, 64 generated tokens through `repro_torch.launch.serve`:
+    prefill ms, decode ms/token beside its byte bound, the device time of a
+    decode step, peak memory, launch counts (`_check_encdec_serve_counts`);
+    then the p+1 check at p = 2063 over the same 1032 frames, in bf16
+    (ENCDEC_BF16_CONSISTENCY_REL of the logits' RMS, the argmax where the
+    top-2 gap is clear; a cross cache of the decoder's keys planted must
+    fail it) and on the weights widened to fp32 at TOL32."""
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.meta import tree_map
+    from repro_torch.launch import serve as launch
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, model, dcfg, params, prefill, decode = launch.setup(
+        ENCDEC, False, B, PROMPT, GEN, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    n = sum(a.numel() for a in _leaves(params))
+    wbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    say(f"{cfg.name} bf16, {model.n_enc} + {model.n_dec} layers: "
+        f"{n / 1e9:.3f}B params, {wbytes / 1e9:.2f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
+    frames = launch.make_frames(model, dcfg, B, T, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN,
+                                frames)
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step reads the decoder's weights, the final norm, the head
+    # and B rows of the embedding; the self keys and values up to its
+    # position and the whole cross cache; it writes one self key and value
+    # a row and layer (2 bytes an element)
+    it = 2
+    dec_w = sum(a.numel() for a in _leaves(params["dec_blocks"])) \
+        + cfg.d_model + params["head"].numel() + B * cfg.d_model
+    kv_row = model.n_dec * B * cfg.n_kv_heads * cfg.head_dim * 2
+    step_bytes = it * (dec_w + kv_row * (PROMPT + 1) + kv_row * (T // 2)
+                       + kv_row)
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"serve B={B} prompt={PROMPT} gen={GEN} T={T} frames={T // 2}: "
+        f"prefill {t['prefill_s'] * 1e3:.2f} ms (warm-up "
+        f"{t['prefill_warmup_s'] * 1e3:.2f}), decode "
+        f"{t['decode_step_s'] * 1e3:.3f} ms/token (warm-up "
+        f"{t['decode_warmup_s'] * 1e3:.2f}), {t['decode_tok_s']:.1f} "
+        f"tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"  decode byte bound {bound:.4f} ms/token ({step_bytes / 1e9:.4f} "
+        f"GB a step at position {PROMPT})")
+    say(f"launches in the serve run (2 prefills, {GEN - 1} decode steps): "
+        f"{counts}")
+    state["serve_encdec_launches"] = counts
+    if tokens.shape != (B, GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
+    _check_encdec_serve_counts(counts, model, "the serve run", "flash",
+                               prefills=2, decodes=GEN - 1)
+    logits, cache = prefill(params, {"tokens": padded, "frames": frames})
+    pos = torch.full((B,), PROMPT, dtype=torch.int64, device=dev)
+    busy, dev_s = _profile("decode step", lambda: decode(
+        params, cache, logits.argmax(-1), pos), 8, top=12)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    state["serve_encdec"] = dict(
+        t, max_memory_allocated=peak, decode_bound_ms=bound,
+        decode_device_ms=None if dev_s is None else dev_s * 1e3,
+        decode_busy=busy)
+    del cache, logits
+
+    x, fr = _encdec_inputs(cfg, B, T, dev, seed=3)
+    want, got, per_call, planted = _encdec_p1(
+        model, dcfg, params, x, fr, f"bf16, {model.n_dec} decoder layers, p "
+        f"{T - 1}, {T // 2} frames", plant=True)
+    _check_encdec_serve_counts(per_call["prefill"], model, "one prefill",
+                               "flash", prefills=1)
+    _check_encdec_serve_counts(per_call["decode"], model, "one decode step",
+                               "flash", decodes=1)
+    rms = want.float().pow(2).mean().sqrt().item()
+    err = max_err(got, want)
+    rel, planted_rel = err / rms, max_err(planted, want) / rms
+    say(f"  bf16 p+1: max abs err {err:.4e} = {rel:.4e} x the logits' RMS "
+        f"(limit {ENCDEC_BF16_CONSISTENCY_REL:g}); planted (a cross cache "
+        f"of the decoder's keys) {planted_rel:.4e}")
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    say(f"  bf16: argmax equal {same.tolist()}, top-2 gap above 2 x "
+        f"{err:.3e} {clear.tolist()}")
+    dcfg32 = single_device_config(param_dtype=torch.float32)
+    params32 = tree_map(lambda a: a.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    want32, got32, per32, _ = _encdec_p1(
+        model, dcfg32, params32, x, fr,
+        f"fp32 (the weights widened, all {cfg.n_layers} layers)")
+    del params32
+    torch.cuda.empty_cache()
+    say(f"  bf16 prefill vs fp32 prefill, same weights: max abs err "
+        f"{max_err(want, want32):.4e} (for scale, not a limit)")
+    state["encdec_consistency"] = dict(
+        bf16_rel=rel, planted_rel=planted_rel, fp32=max_err(got32, want32),
+        bf16_vs_fp32=max_err(want, want32))
+    _check_encdec_serve_counts(per32["prefill"], model, "one fp32 prefill",
+                               "flash_f32", prefills=1)
+    check_close("fp32: prefill vs prefill + decode", got32, want32, TOL32)
+    if not torch.equal(got32.argmax(-1), want32.argmax(-1)):
+        raise AssertionError("fp32: argmax differs")
+    if rel > ENCDEC_BF16_CONSISTENCY_REL:
+        raise AssertionError("bf16: prefill vs prefill + decode")
+    if planted_rel <= ENCDEC_BF16_CONSISTENCY_REL:
+        raise AssertionError("the planted fault (a cross cache of the "
+                             "decoder's keys) passed the bf16 limit")
+    if not bool(same[clear].all()):
+        raise AssertionError("bf16: argmax differs where the gap is clear")
+
+
 # kernel families summed in every profiler window
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
@@ -5903,16 +6456,23 @@ def kernels_line(state):
     run's (`serve_zamba2`: two prefills and 63 decode steps) and the
     xlstm-1.3b runs' (`train_xlstm`: 2 timed steps at 48 layers;
     `serve_xlstm`: two prefills and 63 decode steps; xlstm launches
-    rmsnorm, xent and AdamW and no other kernel); the flash
+    rmsnorm, xent and AdamW and no other kernel) and the
+    seamless-m4t-large-v2 runs' (`train_encdec`, `train_encdec_prefetch`:
+    6 timed steps at 48 layers on each stack; `serve_encdec`: two prefills
+    and 63 decode steps; the fp32 routes' `encdec_smoke_prefill_f32`: the
+    SMOKE prefill on the card); the flash
     row carries
     its readings at qwen3-moe's group-8
     shape (`group8`) and at gemma2's four shapes (`gemma2`), the
     flash_attention_bwd row (the backward alone, at qwen3's layer shape;
     `fwd_bwd` the gradient's forward + backward) its readings at the group-8
     shape and gemma2's local layer, the adamw row at the moe path's largest
-    leaf (`moe_leaf`), at gemma2's embedding (`gemma2_leaf`) and at
-    xlstm's (`xlstm_leaf`), the rmsnorm and xent rows at gemma2's shapes
-    (`gemma2`) and at xlstm's (`xlstm`).
+    leaf (`moe_leaf`), at gemma2's embedding (`gemma2_leaf`), at
+    xlstm's (`xlstm_leaf`) and at seamless-m4t-large-v2's
+    (`encdec_leaf`), the rmsnorm and xent rows at gemma2's shapes
+    (`gemma2`), at xlstm's (`xlstm`) and at seamless-m4t-large-v2's
+    (`encdec`), which the flash rows also carry (its three forward shapes,
+    its two backward ones).
     flash_attention_f32, flash_attention_bwd_f32, ssd_fwd_f32 and
     ssd_bwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
@@ -5939,9 +6499,12 @@ def kernels_line(state):
                        train_qwen2_moe=state[
                            "train_qwen2_moe_a2_7b_launches"][key],
                        train_gemma2=state["train_gemma2_27b_launches"][key],
-                       train_xlstm=state["train_xlstm_1_3b_launches"][key])
+                       train_xlstm=state["train_xlstm_1_3b_launches"][key],
+                       train_encdec=state["train_encdec_launches"][key],
+                       train_encdec_prefetch=state[
+                           "train_encdec_prefetch_launches"][key])
         for path in ("serve_paged", "serve_batcher", "serve_paged_smoke",
-                     "serve_zamba2", "serve_xlstm"):
+                     "serve_zamba2", "serve_xlstm", "serve_encdec"):
             by_path[path] = state[f"{path}_launches"][key]
         if serve_key:
             by_path["serve"] = serve[serve_key]
@@ -5951,6 +6514,8 @@ def kernels_line(state):
                 serve_key]
         if key in ("flash_f32", "flash_bwd_f32"):
             by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
+            by_path["encdec_smoke_prefill_f32"] = state[
+                "encdec_smoke_launches"][key]
         if key.startswith("ssd"):
             by_path["zamba2_smoke_f32"] = state["zamba_smoke_launches"][key]
             by_path["zamba2_serve_smoke_f32"] = state[
@@ -5963,10 +6528,11 @@ def kernels_line(state):
     rows = [
         row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
             "rmsnorm", gemma2=state["gemma2_rmsnorm"],
-            xlstm=state["xlstm_rmsnorm"]),
+            xlstm=state["xlstm_rmsnorm"], encdec=state["encdec_rmsnorm"]),
         row("flash_attention", "flash", "flash_attention_sm90.cu",
             "flash_attention/kernel.py:77", "flash",
-            group8=state["flash_group8"], gemma2=state["gemma2_flash"]),
+            group8=state["flash_group8"], gemma2=state["gemma2_flash"],
+            encdec=state["encdec_flash"]),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_f32", "flash_f32", "flash_attention.cu",
             "flash_attention/kernel.py:77", "flash_f32",
@@ -5976,6 +6542,8 @@ def kernels_line(state):
             "flash_attention/ops.py:62", "flash_bwd",
             group8=state["flash_bwd_group8"],
             gemma2=state["flash_bwd_gemma2"],
+            encdec=[state["encdec_flash_bwd_non-causal"],
+                    state["encdec_flash_bwd_causal"]],
             kernel="flash_bwd_dq_sm90_kernel (D, dQ), then "
                    "flash_bwd_dkdv_sm90_kernel (dK, dV): wgmma, TMA"),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
@@ -5985,14 +6553,15 @@ def kernels_line(state):
                    "flash_bwd_dkdv_tf32_kernel: mma.sync m16n8k8 TF32 x3"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:61", gemma2=state["gemma2_xent_fwd"],
-            xlstm=state["xlstm_xent_fwd"]),
+            xlstm=state["xlstm_xent_fwd"], encdec=state["encdec_xent_fwd"]),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:96", gemma2=state["gemma2_xent_bwd"],
-            xlstm=state["xlstm_xent_bwd"]),
+            xlstm=state["xlstm_xent_bwd"], encdec=state["encdec_xent_bwd"]),
         row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40",
             moe_leaf=state["adamw_moe_leaf"],
             gemma2_leaf=state["gemma2_adamw_leaf"],
-            xlstm_leaf=state["xlstm_adamw_leaf"]),
+            xlstm_leaf=state["xlstm_adamw_leaf"],
+            encdec_leaf=state["encdec_adamw_leaf"]),
         row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46",
             kernel="quant_kernel (RTN); seed_kernel + quant_kernel (SR)"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
@@ -6076,7 +6645,13 @@ def main() -> int:
                         ("full-width xlstm-1.3b training",
                          phase_full_xlstm_train),
                         ("full-width xlstm-1.3b serve",
-                         phase_full_xlstm_serve)]:
+                         phase_full_xlstm_serve),
+                        ("encdec kernels vs plain", phase_encdec_kernels),
+                        ("encdec smoke cuda vs cpu", phase_encdec_smoke),
+                        ("full-width seamless-m4t-large-v2 training",
+                         phase_full_encdec_train),
+                        ("full-width seamless-m4t-large-v2 serve",
+                         phase_full_encdec_serve)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

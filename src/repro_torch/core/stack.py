@@ -39,7 +39,11 @@
       gradient) one layer later, so at most two layers' are in flight.
 
 Block contract: block_fn(params_full, consts, x) -> (y, aux) with aux a
-dict of scalars summed over layers.  Segmented contract
+dict of scalars summed over layers.  The carry x may be a structure (a
+dict or tuple of tensors, y of the same structure: encdec's decoder
+carries {"h", "mem"}); the prefetch stack saves every layer's carry and
+hands each of its tensors a cotangent, summed over the layers that read
+it.  Segmented contract
 (models/common.BlockSegments): fns[s](params, consts, state) -> state,
 where params holds only segment s's gathered tensors.
 """
@@ -180,8 +184,11 @@ def _prefetch_stack(block_fn, metas_tree, cfg, plan, stacked, consts, x,
                     segments, policies):
     sched = _Schedule(block_fn, metas_tree, cfg, plan, consts, segments,
                       policies)
-    outs = _PrefetchStack.apply(sched, x, *leaves(stacked))
-    return outs[0], dict(zip(sched.aux_keys, outs[1:]))
+    sched.carry = x
+    xt = _tensors(x)
+    outs = _PrefetchStack.apply(sched, len(xt), *xt, *leaves(stacked))
+    return (_rebuild(x, iter(outs[:len(xt)])),
+            dict(zip(sched.aux_keys, outs[len(xt):])))
 
 
 class _Schedule:
@@ -308,7 +315,7 @@ class _Schedule:
         G = len(self.flat_groups)
         records: list = [None] * S
         prefetched = None
-        state = _grad_leaf(xl)
+        state = _rebuild(xl, iter([_grad_leaf(t) for t in _tensors(xl)]))
         g = self.wait_gather(g_works, 0)
         with torch.enable_grad():
             for s in range(S):
@@ -387,20 +394,28 @@ class _Schedule:
 
 
 class _PrefetchStack(torch.autograd.Function):
-    """y, *aux = stack(x); the stacked shards' gradients come from the
-    schedule's own backward (collectives included)."""
+    """(*y, *aux) = stack(*x): the carry's n_x tensors in, the stacked
+    shards after them; the stacked shards' gradients come from the
+    schedule's own backward (collectives included), and each carry tensor
+    gets its own cotangent.  `sched.carry` is the carry's structure (one
+    tensor, or a dict / tuple of them), which every layer keeps."""
 
     @staticmethod
-    def forward(ctx, sched, x, *stacked):
-        y, aux, xs = sched.forward(stacked, x.detach())
+    def forward(ctx, sched, n_x, *args):
+        xt, stacked = args[:n_x], args[n_x:]
+        x = _rebuild(sched.carry, iter([t.detach() for t in xt]))
+        y, aux, xs = sched.forward(stacked, x)
         sched.aux_keys = sorted(aux)
-        ctx.sched, ctx.xs = sched, xs[1:]
-        ctx.save_for_backward(x, *stacked)
-        return (y, *(aux[k] for k in sched.aux_keys))
+        ctx.sched, ctx.n_x, ctx.xs = sched, n_x, xs[1:]
+        ctx.save_for_backward(*xt, *stacked)
+        return (*_tensors(y), *(aux[k] for k in sched.aux_keys))
 
     @staticmethod
-    def backward(ctx, dy, *daux):
-        x, *stacked = ctx.saved_tensors
-        dstack, dx = ctx.sched.backward(stacked, [x.detach(), *ctx.xs],
-                                        dy, daux)
-        return (None, dx, *dstack)
+    def backward(ctx, *grads):
+        n, carry = ctx.n_x, ctx.sched.carry
+        saved = ctx.saved_tensors
+        x = _rebuild(carry, iter([t.detach() for t in saved[:n]]))
+        dstack, dx = ctx.sched.backward(
+            saved[n:], [x, *ctx.xs], _rebuild(carry, iter(grads[:n])),
+            grads[n:])
+        return (None, None, *_tensors(dx), *dstack)

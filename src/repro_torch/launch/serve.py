@@ -8,13 +8,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --int8-kv --metrics-jsonl serve.jsonl
 
-Serves the dense, moe, zamba and xlstm families (`--arch` any id in
-`models.registry.PORTED`):
+Serves the dense, moe, zamba, xlstm and encdec families (`--arch` any id
+in `models.registry.PORTED`):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1_2b \
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1_3b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless_m4t_large_v2 --smoke --device cpu
 
 Mirrors `repro.launch.serve` at world size 1: seeded weights, prompts of
 random tokens padded with token 3 up to T = prompt_len + gen (so the first
@@ -23,12 +25,14 @@ reference), one untimed warm-up call of each step, then timed windows that
 end in a device synchronize.  The padding is kept so that the two
 launchers' timings compare; for zamba2 the pads enter the SSD and conv
 states, for xlstm the mLSTM, sLSTM and conv states, before decode starts
-at prompt_len (attention's decode overwrites their keys instead).  The first call on the card also builds the
-kernels.  `--int8-kv` stores the KV cache as int8 with per-128-chunk
-scales (the quant kernels on the card); `--metrics-jsonl` appends one
-`MetricsRegistry` line of `serve/*` gauges with the reference launcher's
-keys (its `*_compile_s` are the port's warm-up calls, the kernel build
-included).
+at prompt_len (attention's decode overwrites their keys instead).  encdec's
+prefill also takes seeded frames (`make_frames`: T // 2 of them, as its
+`input_specs` sizes a prefill cell).  The first call on the card also
+builds the kernels.  `--int8-kv` stores the KV cache as int8 with
+per-128-chunk scales (the quant kernels on the card); `--metrics-jsonl`
+appends one `MetricsRegistry` line of `serve/*` gauges with the
+reference launcher's keys (its `*_compile_s` are the port's warm-up
+calls, the kernel build included).
 """
 
 from __future__ import annotations
@@ -75,25 +79,43 @@ def make_prompts(cfg, batch: int, prompt_len: int, gen: int, device,
     return F.pad(prompts, (0, gen), value=3).to(device)
 
 
+def make_frames(model, dcfg, batch: int, seq_len: int, device,
+                seed: int = 2):
+    """encdec's stub frontend input for a prefill over `seq_len` target
+    tokens: (B, seq_len // 2, frontend_dim) fp32 frames, the shape its
+    `input_specs` gives a prefill cell, 0.3 x a seeded normal (the scale
+    `data.pipeline.adapt_batch` synthesises frames at).  The reference's
+    launcher passes no frames, so it cannot serve encdec."""
+    spec = model.input_specs(ShapeConfig("p", seq_len, batch, "prefill"),
+                             dcfg)["frames"]
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(spec.shape, generator=g) * 0.3).to(device)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def generate(params, prefill, decode, padded, prompt_len: int, gen: int):
-    """Warm-up, then timed prefill and greedy decode.
+def generate(params, prefill, decode, padded, prompt_len: int, gen: int,
+             frames=None):
+    """Warm-up, then timed prefill and greedy decode; `frames` (encdec)
+    join the prefill's batch.
 
     Returns (tokens (B, gen), timings) with timings in seconds:
     prefill_warmup_s, decode_warmup_s, prefill_s, decode_step_s (the mean
     of gen - 2 steady steps) and decode_tok_s (tokens per second)."""
     dev = padded.device
     B = padded.shape[0]
+    batch = {"tokens": padded}
+    if frames is not None:
+        batch["frames"] = frames
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": padded})
+    logits, cache = prefill(params, batch)
     _sync(dev)
     t_pf_warm = time.perf_counter() - t0
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": padded})
+    logits, cache = prefill(params, batch)
     _sync(dev)
     t_pf = time.perf_counter() - t0
 
@@ -139,10 +161,12 @@ def main(argv=None):
         args.arch, args.smoke, args.batch, args.prompt_len, args.gen,
         device=args.device, dtype=args.dtype,
         kv_codec="int8" if args.int8_kv else None)
-    padded = make_prompts(cfg, args.batch, args.prompt_len, args.gen,
-                          resolve_device(args.device))
+    dev = resolve_device(args.device)
+    padded = make_prompts(cfg, args.batch, args.prompt_len, args.gen, dev)
+    frames = make_frames(model, dcfg, args.batch, padded.shape[1], dev) \
+        if cfg.family == "encdec" else None
     tokens, t = generate(params, prefill, decode, padded, args.prompt_len,
-                         args.gen)
+                         args.gen, frames)
     print("generated:", tokens.cpu().numpy())
     print(f"warm-up: prefill {t['prefill_warmup_s']*1e3:.1f}ms, "
           f"first-decode {t['decode_warmup_s']*1e3:.1f}ms")

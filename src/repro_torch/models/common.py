@@ -1,5 +1,5 @@
-"""Architecture config schema (the dense, moe, zamba and xlstm subsets of
-`repro.models.common`).
+"""Architecture config schema (the dense, moe, zamba, xlstm and encdec
+subsets of `repro.models.common`).
 
 `ArchConfig` keeps the reference's field names, defaults and derived head
 layout (`gqa_layout`) so that parameter shapes line up exactly with the
@@ -57,7 +57,7 @@ class BlockSegments:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # 'dense' | 'moe' | 'zamba' | 'xlstm'
+    family: str               # 'dense' | 'moe' | 'zamba' | 'xlstm' | 'encdec'
     n_layers: int
     d_model: int
     n_heads: int
@@ -96,6 +96,11 @@ class ArchConfig:
     ssm_chunk: int = 128
     shared_attn_every: int = 0            # zamba2: shared block period
     slstm_every: int = 0                  # xlstm: 1 sLSTM per N blocks
+
+    # enc-dec ----------------------------------------------------------------
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    frontend_dim: int = 0                 # stub frontend embedding width
 
     # recommended pipeline-parallel degree on the production mesh (the
     # reference's launch.mesh reads it); 1 = no pipelining.  Nothing in the

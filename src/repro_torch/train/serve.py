@@ -8,11 +8,12 @@
     mesh: the serving plan prices them; for zamba2 its serving state (SSD
     and conv states, the shared block's keys and values) and for xlstm
     its recurrent states (mLSTM C, n, m and conv, sLSTM h, c, n, m) at
-    tp = 1;
+    tp = 1, and for encdec its self and cross caches;
   * `alloc_cache` — the dense KV cache, one (k, v) pair a layer of a
     local/global pair; under a KV codec ({"k", "ks", "v", "vs"} leaves)
     int8 / fp8 wire values and their per-128-chunk f32 scales; zamba2's
-    and xlstm's states, zeroed (a prefill writes every leaf);
+    and xlstm's states, zeroed (a prefill writes every leaf); encdec's
+    self and cross caches;
   * `paged_abstracts` / `alloc_arena` — the paged arena (core/serving) of
     the same leaves, and its page table;
   * `make_prefill_step` / `make_decode_step` / `make_paged_step` — plain
@@ -110,15 +111,26 @@ def cache_abstract(model, shape: ShapeConfig, dcfg: DistConfig):
     head counts, as the reference's: any mesh.  zamba2: `init_state`'s
     {"S", "conv_x", "conv_bc", "sh_kv"} (the reference's leaves) at tp =
     1; xlstm: `init_state`'s {"m0".."m6": {"C", "n", "m", "conv"}, "s":
-    {"h", "c", "n", "m"}}, fp32, stacked over the superblocks, at tp = 1.
-    Neither takes a KV codec (the reference's caches ignore one; the port
-    raises)."""
+    {"h", "c", "n", "m"}}, fp32, stacked over the superblocks, at tp = 1;
+    encdec: {"self": (k, v), "cross": (k, v)}, the decoder's self cache
+    (n_dec, B, T, kv heads, hd) and its cross cache over S_src = T // 2
+    frames.  None of the three takes a KV codec (the reference's caches
+    ignore one; the port raises)."""
     cfg = model.cfg
+    if cfg.family in ("zamba", "xlstm", "encdec") and dcfg.kv_codec:
+        raise ValueError(f"{cfg.name}: the {cfg.family} cache takes no "
+                         f"KV codec (got {dcfg.kv_codec!r})")
     if cfg.family in ("zamba", "xlstm"):
-        if dcfg.kv_codec:
-            raise ValueError(f"{cfg.name}: the {cfg.family} cache takes no "
-                             f"KV codec (got {dcfg.kv_codec!r})")
         return model.init_state(shape.global_batch, dcfg, shape.seq_len)
+    if cfg.family == "encdec":
+        heads = _kl_total(cfg, dcfg.tp_size)
+
+        def kv(t_len):
+            a = torch.empty((model.n_dec, shape.global_batch, t_len, heads,
+                             cfg.head_dim), dtype=dcfg.param_dtype,
+                            device="meta")
+            return (a, a)
+        return {"self": kv(shape.seq_len), "cross": kv(shape.seq_len // 2)}
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: serving the {cfg.family} family is not yet ported "
@@ -179,16 +191,21 @@ def alloc_arena(model, dcfg: DistConfig, *, page: int, n_pages_local: int,
 # Step builders
 # ---------------------------------------------------------------------------
 def make_prefill_step(model, dcfg: DistConfig, shape: ShapeConfig):
-    """step(params, {"tokens": (B, T)}) -> (last logits (B, V), cache)."""
+    """step(params, {"tokens": (B, T)}) -> (last logits (B, V), cache);
+    encdec's batch also holds {"frames": (B, T // 2, frontend_dim)}, the
+    shape its `input_specs` gives the frames of a prefill cell."""
     check_world_size_one(dcfg)
-    want = (shape.global_batch, shape.seq_len)
+    want = {"tokens": (shape.global_batch, shape.seq_len)}
+    if model.cfg.family == "encdec":
+        want["frames"] = model.input_specs(shape, dcfg)["frames"].shape
 
     @torch.inference_mode()
     def step(params, batch):
         tokens = batch["tokens"]
-        if tuple(tokens.shape) != want:
-            raise ValueError(f"tokens {tuple(tokens.shape)}, step built for "
-                             f"{want}")
+        got = {k: tuple(batch[k].shape) if k in batch else None
+               for k in want}
+        if got != want:
+            raise ValueError(f"batch {got}, step built for {want}")
         cache = alloc_cache(model, shape, dcfg, tokens.device)
         return model.prefill_local(params, batch, dcfg, cache)
 

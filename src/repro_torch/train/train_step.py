@@ -4,9 +4,10 @@ global-norm clipping + AdamW + LR schedule.
 
 The steps are plain callables built from a `Parallelized` bundle
 (`core/api.py`); they run the plan's `exec_dcfg`, the config with the
-memory plan's resolved remat written back, and hand the stack the blocks'
-bucket plan the `ParallelPlan` reports, so the plan that runs (and the
-error-feedback mask read from it) is the one `describe()` prints.  Storage and optimizer state
+memory plan's resolved remat written back, and hand each layer stack the
+bucket plan the `ParallelPlan` reports for it (`stack_plans`), so the plan
+that runs (and the error-feedback mask read from it) is the one
+`describe()` prints.  Storage and optimizer state
 are this rank's shards; a batch is global and each rank takes its rows.
 The logged loss is the mean over the data-parallel ranks, as the
 reference's `pmean`.
@@ -54,6 +55,15 @@ def step_wire_metrics(model, plan) -> dict:
     return {"total_bytes": total, "by_precision": by_prec}
 
 
+def stack_plans(plan):
+    """What a model's `loss_local` takes as its plan: the blocks' bucket
+    plan, or, for a model of more than one layer stack (encdec), every
+    stack's {key: plan}."""
+    if len(plan.stacked_keys) > 1:
+        return dict(plan.bucket_plans)
+    return plan.bucket_plan("blocks")
+
+
 def _loss_and_grads(par, storage, batch):
     """(loss, grads, aux) of the model's local loss w.r.t. every storage
     leaf; `aux` holds the model's aux sums apart, detached (moe: the
@@ -62,7 +72,7 @@ def _loss_and_grads(par, storage, batch):
     dcfg = par.plan.exec_dcfg
     params = [a.detach().requires_grad_() for a in leaves(storage)]
     loss, aux = par.model.loss_local(unflatten_like(storage, params), batch,
-                                     dcfg, par.plan.bucket_plan("blocks"))
+                                     dcfg, stack_plans(par.plan))
     grads = torch.autograd.grad(loss, params)
     return (loss.detach(), unflatten_like(storage, grads),
             {k: v.detach() for k, v in aux.items()})

@@ -430,6 +430,56 @@ def test_flash_bwd_takes_expanded_and_strided_cotangents(dev, dtype, form):
         torch.testing.assert_close(a.float(), b.float(), **tol)
 
 
+# seamless-m4t-large-v2's attentions: hd 64, 16 heads on 16 kv heads; the
+# encoder's self-attention and the cross-attention are non-causal, the
+# decoder's self-attention causal, at S = T = 1024 (the training shape,
+# half its batch), in both dtypes (fp32: the card-vs-CPU checks); the
+# serve prefill's cross-attention reads the padded prompt's 2064 queries
+# against the 1032 frames' keys; (300, 150) and (150, 300) put ragged
+# tiles on either side of S != T
+SEAMLESS_FLASH = [(1024, 1024, False), (1024, 1024, True),
+                  (2064, 1032, False), (300, 150, False), (150, 300, False)]
+
+
+@pytest.mark.parametrize("S,T,causal", SEAMLESS_FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_seamless_shapes(dev, S, T, causal, dtype):
+    q = _randn(dev, 2, S, 16, 64, dtype=dtype)
+    k = _randn(dev, 2, T, 16, 64, dtype=dtype, seed=1)
+    v = _randn(dev, 2, T, 16, 64, dtype=dtype, seed=2)
+    _check_flash(q, k, v, dict(causal=causal))
+
+
+@pytest.mark.parametrize("S,T,causal", [c for c in SEAMLESS_FLASH
+                                        if c[0] <= 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_at_seamless_shapes(dev, S, T, causal, dtype):
+    """The backward kernels against the plain reverse pass and autograd
+    through the plain version, as `test_flash_bwd_kernels_match_plain`,
+    with q over S rows and k, v over T."""
+    kw = dict(causal=causal)
+    q = _randn(dev, 2, S, 16, 64, dtype=dtype)
+    k = _randn(dev, 2, T, 16, 64, dtype=dtype, seed=1)
+    v = _randn(dev, 2, T, 16, 64, dtype=dtype, seed=2)
+    ct = _randn(dev, 2, S, 16, 64, dtype=dtype, seed=3)
+    o, lse = _fwd_lse(q, k, v, kw)
+    torch.testing.assert_close(lse, flash_ref.attention_lse(q, k, **kw),
+                               **TOL32)
+    bf16 = dtype == torch.bfloat16
+    n = (flash_ops.bwd_launches, flash_ops.bwd_launches_f32)
+    got = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct, **kw)
+    assert (flash_ops.bwd_launches - n[0],
+            flash_ops.bwd_launches_f32 - n[1]) == ((1, 0) if bf16 else (0, 1))
+    want = flash_ref.attention_bwd(q, k, v, o, lse, ct, **kw)
+    auto = _grads(lambda *a: flash_ref.attention(*a, **kw), (q, k, v), ct)
+    tol = TOL if bf16 else TOL32
+    for a, b, c in zip(got, want, auto[1:]):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+        torch.testing.assert_close(a.float(), c.float(), **tol)
+        if bf16:
+            assert _rms_rel(a, b) <= FLASH_BF16_GRAD_RMS_REL
+
+
 def test_flash_bwd_rejects_what_the_forward_rejects(dev):
     q, k, v, ct = _flash_bwd_inputs(dev, 1, 64, 2, 2, 64, torch.bfloat16)
     o, lse = _fwd_lse(q, k, v, dict(causal=True))
