@@ -335,6 +335,30 @@ without printing the final line):
      (ENCDEC_BF16_CONSISTENCY_REL of the logits' RMS; a cross cache of the
      decoder's keys, planted, must fail it) and on the weights widened to
      fp32 at TOL32.
+ 10ac. vlm kernels vs plain (the main path of the seventeenth slice,
+     internvl2-26b: an image prefix of 1025 positions, GQA 48 on 8 heads):
+     rmsnorm at d 6144 (training and prefill rows), xent at V 92560 with
+     the image rows masked (their dlogits exactly 0), AdamW at the
+     568,688,640-element embedding, the bf16 flash forward at a GQA group
+     of 6 at the training shape (B2 T2048) and the prefill's (B4 T3089)
+     with its plants, the flash backward at the training shape.
+ 10ad. vlm smoke, card vs CPU: SMOKE fp32 on the same numpy-seeded
+     weights, loss and every gradient (the projector's too) on the vanilla
+     and prefetch stacks; prefill over 8 images + 20 text tokens and 3
+     decode steps from position 8 + 17; the p+1 check on the card with the
+     reference launcher's decode position (no image offset) planted.
+ 10ae. full-width internvl2-26b training: every published width, 6 of 48
+     layers (VLM_TRAIN_LAYERS), B2 at seq 2048 (1025 image positions +
+     1023 text tokens), vanilla and prefetch: step ms, tokens/s, MFU
+     (`_model_flops`, the projector over the image positions), peak against
+     the modeled peak, busy share, launches a step.
+ 10af. full-width internvl2-26b serve: all 48 layers in bf16, B 4, 1025
+     images + a 2000-token prompt padded to 2064 (a cell of 3089), 64
+     generated tokens, decode from position 1025 + 2000: prefill ms, decode
+     ms/token against its byte bound and its device time, peak, launches;
+     the p+1 check at p = 2063 in bf16 (VLM_BF16_CONSISTENCY_REL of the
+     logits' RMS, the decode at p planted), and on the first
+     VLM_F32_LAYERS layers widened to fp32 at TOL32.
  11. a {"kernels": [...]} line, then {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons run in full
@@ -2194,20 +2218,23 @@ def _model_flops(cfg, model, batch, seq):
     applied per token x tokens (for moe the active ones), plus causal
     attention (4*hd a pair, inside the window on gemma2's local layers)
     and, for zamba, the SSD's own products; xlstm: `_xlstm_flops`; encdec:
-    `_encdec_flops`."""
+    `_encdec_flops`.  The vlm's backbone and head apply at every position
+    of the sequence, image and text (the reference computes logits at the
+    image positions too), its projector at the n_img_tokens image
+    positions only."""
     if cfg.family == "encdec":
         return _encdec_flops(cfg, model, batch, seq)
     tokens = batch * seq
     lay = cfg.gqa_layout(1)
     hd = cfg.head_dim
     pairs = seq * (seq + 1) / 2
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         d = cfg.d_model
         if cfg.local_global_alternate:   # half the layers are windowed
             pairs = (_attn_pairs(seq, cfg.sliding_window) + pairs) / 2
         elif cfg.sliding_window:
             pairs = _attn_pairs(seq, cfg.sliding_window)
-        if cfg.family == "dense":
+        if cfg.family != "moe":
             ffn = (2 if cfg.gated_mlp == "gelu" else 3) * d * cfg.d_ff
         else:
             # the k routed experts a token visits, the router over the
@@ -2220,7 +2247,8 @@ def _model_flops(cfg, model, batch, seq):
         mm = cfg.n_layers * (2 * d * lay["hq"] * hd + 2 * d * lay["kvp"] * hd
                              + ffn) + cfg.vocab * d
         attn = 3 * cfg.n_layers * 4.0 * batch * lay["hq"] * hd * pairs
-        return 6.0 * mm * tokens + attn
+        proj = 6.0 * (cfg.vit_dim * d + d * d) * batch * cfg.n_img_tokens
+        return 6.0 * mm * tokens + attn + proj
     # zamba: the Mamba layers once, the shared block once per invocation
     # (on the 2d-wide concat), the head once; the lookup has none
     if cfg.family == "xlstm":
@@ -2306,8 +2334,10 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
     data = SyntheticC4(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch, seed=0))
     batches = [data.batch(i) for i in range(steps + 1)]
-    if cfg.family == "encdec":
-        # frames synthesised, token fields cropped to S_tgt = seq / 2
+    if cfg.family in ("encdec", "vlm"):
+        # encdec: frames synthesised, token fields cropped to S_tgt = seq /
+        # 2; vlm: image embeddings synthesised, token fields cropped to the
+        # seq - n_img_tokens text positions
         from repro_torch.data.pipeline import adapt_batch
         specs = model.input_specs(shape, dcfg)
         batches = [adapt_batch(b_, specs, i) for i, b_ in enumerate(batches)]
@@ -5173,13 +5203,17 @@ def _cold(fn, x):
     return lambda: kept.append(fn(next(ring)))
 
 
-def _path_kernels(state, prefix, arch, rms_rows, xent_rows):
+def _path_kernels(state, prefix, arch, rms_rows, xent_rows, xent_valid=None,
+                  adamw_n=None):
     """rmsnorm at each (rows, path) of `rms_rows` bf16 at `arch`'s width,
     xent forward and backward at (xent_rows, vocab) fp32 and AdamW at the
-    arch's largest flat storage leaf, each against its plain version, with
-    the kernel's wall and device ms, the plain version's, a PyTorch call's
-    and the bound; the readings go to state[prefix + "_rmsnorm" | "_xent_fwd"
-    | "_xent_bwd" | "_adamw_leaf"]."""
+    arch's largest flat storage leaf (or at `adamw_n` elements), each
+    against its plain version, with the kernel's wall and device ms, the
+    plain version's, a PyTorch call's and the bound; the readings go to
+    state[prefix + "_rmsnorm" | "_xent_fwd" | "_xent_bwd" | "_adamw_leaf"].
+    `xent_valid` (xent_rows,) masks rows as a loss's `valid` does: their
+    cotangent is 0, so their dlogits must be exactly 0 and the masked mean
+    of the losses equal the plain version's."""
     import torch.nn.functional as F
     from repro_torch.core.dist import DistConfig
     from repro_torch.kernels.adamw import ops as adamw_ops
@@ -5233,21 +5267,40 @@ def _path_kernels(state, prefix, arch, rms_rows, xent_rows):
     x = randn(R, V) * 3
     tg = torch.randint(0, V, (R,), device=dev, generator=g)
     gr = randn(R) / R
+    live = slice(None)
+    if xent_valid is not None:
+        gr = gr * xent_valid
+        live = xent_valid > 0
     name = f"xent ({R}, {V}) fp32"
     n = xent_ops.fwd_launches, xent_ops.bwd_launches
     loss, lse = xent_ops.xent_fwd_cuda(x, tg)
     want_loss, want_lse = xent_ref.xent(x, tg)
     err_f = max(check_close(f"{name} loss", loss, want_loss, TOL32),
                 check_close(f"{name} lse", lse, want_lse, TOL32))
-    want_dx = per_g(xent_ref.dlogits(x, tg, want_lse, gr), gr)
-    got_dx = per_g(xent_ops.xent_bwd_cuda(x, tg, lse, gr), gr)
+    want_dx = xent_ref.dlogits(x, tg, want_lse, gr)
+    got_dx = xent_ops.xent_bwd_cuda(x, tg, lse, gr)
     if (xent_ops.fwd_launches, xent_ops.bwd_launches) != (n[0] + 1,
                                                            n[1] + 1):
         raise AssertionError("the xent kernels did not launch")
-    err_b = check_close(f"{name} dlogits / |g|", got_dx, want_dx, TOL32)
+    if xent_valid is not None:
+        dead = ~live
+        nz = int(got_dx[dead].count_nonzero())
+        mean = lambda a: (a * xent_valid).sum() / xent_valid.sum()
+        say(f"  {name}: {int(dead.sum())} of {R} rows masked: non-zero "
+            f"dlogits in them {nz}; masked mean loss "
+            f"{mean(loss).item():.6f} against the plain "
+            f"{mean(want_loss).item():.6f}")
+        if nz or int(want_dx[dead].count_nonzero()):
+            raise AssertionError(f"{name}: masked rows have dlogits")
+        check_close(f"{name} masked mean loss", mean(loss), mean(want_loss),
+                    TOL32)
+    err_b = check_close(f"{name} dlogits / |g|", per_g(got_dx[live],
+                                                       gr[live]),
+                        per_g(want_dx[live], gr[live]), TOL32)
     onehot_only = torch.zeros_like(x).scatter_(1, tg[:, None], -gr[:, None])
-    check_rejects(f"{name} planted -onehot*g", per_g(onehot_only, gr),
-                  want_dx, TOL32)
+    check_rejects(f"{name} planted -onehot*g", per_g(onehot_only[live],
+                                                     gr[live]),
+                  per_g(want_dx[live], gr[live]), TOL32)
     del got_dx, want_dx, onehot_only, want_loss, want_lse
     torch.cuda.empty_cache()
     # forward: read the logits and targets, write loss and lse, ~4
@@ -5289,9 +5342,10 @@ def _path_kernels(state, prefix, arch, rms_rows, xent_rows):
     del x, xr, tg, gr, loss, lse
     torch.cuda.empty_cache()
 
-    n = max(a.numel() for a in _leaves(model_abstract_storage(
+    n = adamw_n or max(a.numel() for a in _leaves(model_abstract_storage(
         model, DistConfig())))
-    say(f"adamw kernel vs plain at {cfg.name}'s largest flat leaf (n={n}; "
+    say(f"adamw kernel vs plain at {cfg.name}'s "
+        f"{'leaf' if adamw_n else 'largest flat leaf'} (n={n}; "
         "ms: kernel / plain / AdamW(fused=True) / bound):")
     p, gd, m = randn(n), randn(n), randn(n) * 0.1
     v = randn(n).abs() * 0.01
@@ -6352,6 +6406,500 @@ def phase_full_encdec_serve(state):
         raise AssertionError("bf16: argmax differs where the gap is clear")
 
 
+# ---------------------------------------------------------------------------
+# The vlm family (the main path of the seventeenth slice)
+# ---------------------------------------------------------------------------
+VLM = "internvl2_26b"
+# full-width training: B 2 at seq 2048 (1025 image positions + 1023 text
+# tokens), 6 of the 48 layers: the fp32 training state is 17.8 GiB for the
+# embedding, head and projector and 5.81 GiB a layer, so 8 layers would
+# leave ~8 GiB of the card for activations, logits and the gathered bf16
+# weights (the memory plan prints its modeled peak at 6 and at 8 layers)
+VLM_TRAIN_LAYERS, VLM_TRAIN_B = 6, 2
+# the full-width serve's p+1 check in fp32: the first layers widened
+VLM_F32_LAYERS = 8
+# the p+1 check of the full-width bf16 serve (48 layers over 1025 image
+# positions and 2064 text tokens): max |prefill(p+1) - prefill(p)+decode|
+# over the logits' RMS.  The two paths round differently in bf16 (the
+# flash kernel's P against the decode's fp32 softmax cast once, products
+# over B x T rows against B rows), and 48 residual layers carry that on.
+# Set before the first full-width run, from seamless-m4t-large-v2's 24
+# decoder layers (7.45e-2 of the RMS on a sound build) and xlstm-1.3b's 48
+# (up to 0.37): half the RMS leaves room for twice the depth, while the
+# reference launcher's decode position (p, no image offset: the token
+# overwrites an image position and sees the images only), the planted
+# fault, moves every logit by about its RMS
+VLM_BF16_CONSISTENCY_REL = 0.5
+
+
+def phase_vlm_kernels(state):
+    """The kernels internvl2-26b's path runs, at its shapes: rmsnorm at
+    (4096, 6144) bf16 (the training rows: B2 x 2048 positions) and (12356,
+    6144) (the serve prefill's: B4 x 3089), xent forward and backward at
+    (4096, 92560) fp32 with the 1025 image rows of every 2048 masked as
+    `stage_loss` masks them, AdamW at the 568,688,640-element embedding
+    (`_path_kernels`); the bf16 flash forward at a GQA group of 6 (H48 on
+    Kh8, hd128, causal) at the training shape B2 T2048 and the serve
+    prefill's B4 T3089, each against its plain version (FLASH_BF16_RMS_REL
+    with its two planted faults), with wall and device ms beside SDPA's
+    and the bound; the flash backward (`flash_grad_case`) at the training
+    shape, dK and dV summed over a group of 6."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models.registry import get_arch
+    cfg, _ = get_arch(VLM)
+    n_img, dev = cfg.n_img_tokens, torch.device("cuda")
+    rows, cell = VLM_TRAIN_B * TRAIN_T, n_img + T
+    valid = (torch.arange(rows, device=dev) % TRAIN_T >= n_img).float()
+    _path_kernels(state, "vlm", VLM, ((rows, "training"),
+                                      (B * cell, "prefill")), rows,
+                  xent_valid=valid, adamw_n=cfg.vocab * cfg.d_model)
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    say("flash kernel vs plain at internvl2-26b's shapes, a GQA group of "
+        f"{h // kh} (ms: kernel / plain / SDPA / bound; the kernel's and "
+        "SDPA's device time):")
+    out = []
+    for b, s_, by_heads in ((VLM_TRAIN_B, TRAIN_T, False),
+                            (B, cell, True)):
+        name = f"B{b} T{s_} H{h} Kh{kh} hd{hd} causal bf16"
+        q, k, v = randn(b, s_, h, hd), randn(b, s_, kh, hd), \
+            randn(b, s_, kh, hd)
+        n = flash_ops.launches
+        got = flash_ops.flash_attention(q, k, v, causal=True)
+        if flash_ops.launches != n + 1:
+            raise AssertionError(f"{name}: the bf16 flash kernel did not "
+                                 "launch")
+        ref = lambda *a: flash_ref.attention(*a, causal=True)  # noqa: E731
+        plain = (lambda: _by_kv_heads(ref, q, k, v)) if by_heads else \
+            (lambda: ref(q, k, v))
+        want = plain()
+        err = check_rms(name, got, want, FLASH_BF16_RMS_REL)
+        if by_heads:
+            for pname, planted in _by_kv_heads(
+                    lambda *a: flash_plants(*a, causal=True), q, k,
+                    v).items():
+                check_plant_rejected(f"{name}, {pname}", planted, want,
+                                     FLASH_BF16_RMS_REL)
+                del planted
+        else:
+            check_flash_plants(name, q, k, v, want, causal=True)
+        del got, want
+        torch.cuda.empty_cache()
+        flops = 4.0 * hd * b * h * s_ * (s_ + 1) / 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound, by = _bound(nbytes, flops, torch.bfloat16, products=True)
+        fwd = lambda: flash_ops.flash_attention(q, k, v,  # noqa: E731
+                                                causal=True)
+        ms, on_card = time_ms(fwd), device_ms(fwd, bound)
+        plain_ms = time_ms(plain)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib, lib_dev = time_ms(sdpa), device_ms(sdpa, bound)
+        say(f"    {name}: {ms:.4f} / {plain_ms:.4f} / {lib:.4f} / "
+            f"{bound:.4f} ({by}; {flops / on_card / 1e9:.1f} TFLOP/s on the "
+            f"device); device {on_card:.4f}, SDPA device {lib_dev:.4f} "
+            f"(kernel / SDPA {on_card / lib_dev:.2f}x)")
+        out.append(dict(shape=name, max_abs_err=err, ms=ms,
+                        device_ms=on_card, plain_ms=plain_ms,
+                        library_ms=lib, library_device_ms=lib_dev,
+                        bound_ms=bound, bound_by=by))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    state["vlm_flash"] = out
+    say(f"flash backward kernels at the training shape (a GQA group of "
+        f"{h // kh}: dK and dV summed over {h // kh} query heads):")
+    flash_grad_case(state, "vlm_flash_bwd", f"flash grad B{VLM_TRAIN_B} "
+                    f"T{TRAIN_T} H{h} Kh{kh} hd{hd} causal bf16",
+                    VLM_TRAIN_B, TRAIN_T, h, kh, hd, dict(causal=True),
+                    torch.bfloat16, g)
+
+
+def _vlm_inputs(cfg, b, t, dev, seed):
+    """(text tokens (b, t) int64, image embeddings (b, n_img, vit_dim)
+    fp32 at 0.3 x N(0, 1), the launcher's scale) from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(3, cfg.vocab, (b, t), generator=gen)
+    img = torch.randn((b, cfg.n_img_tokens, cfg.vit_dim), generator=gen) \
+        * 0.3
+    return tokens.to(dev), img.to(dev)
+
+
+def _vlm_p1(model, dcfg, params, x, img, label, plant=False):
+    """Prefill over the images and x (B, p + 1) against prefill over the
+    images and x[:, :p] into a cache of capacity n_img + p + 1 and one
+    decode of x[:, p] at position n_img + p.  Returns (want logits, got
+    logits, launch counts of the long prefill and of the decode step, and
+    with `plant` the logits of the same decode at position p, the
+    reference launcher's, from a copy of the cache)."""
+    from repro_torch.core.serving import pages as PG
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train import serve as SV
+    b, t = x.shape
+    n_img = model.cfg.n_img_tokens
+    shape = ShapeConfig("p", n_img + t, b, "prefill")
+    at = lambda p: torch.full((b,), p, dtype=torch.int64,  # noqa: E731
+                              device=x.device)
+    with torch.inference_mode():
+        _reset_counts()
+        want, full = model.prefill_local(
+            params, {"tokens": x, "img_embeds": img}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        counts = dict(prefill=_train_counts())
+        del full
+        _, cache = model.prefill_local(
+            params, {"tokens": x[:, :-1], "img_embeds": img}, dcfg,
+            SV.alloc_cache(model, shape, dcfg, x.device))
+        planted = None
+        if plant:
+            bad = PG.kv_map(torch.clone, cache)
+            planted, _ = model.decode_local(params, bad, x[:, -1], at(t - 1),
+                                            dcfg)
+            del bad
+        _reset_counts()
+        got, cache = model.decode_local(params, cache, x[:, -1],
+                                        at(n_img + t - 1), dcfg)
+        counts["decode"] = _train_counts()
+    top2 = want.float().topk(2, dim=-1).values
+    say(f"  {label}: logits RMS {want.float().pow(2).mean().sqrt().item():.4e}"
+        f", max|logit| {want.abs().max().item():.4f}, max abs err "
+        f"{max_err(got, want):.4e}, top-2 gaps "
+        f"{[round(v, 5) for v in (top2[:, 0] - top2[:, 1]).tolist()]}, "
+        f"argmax {want.argmax(-1).tolist()} vs {got.argmax(-1).tolist()}")
+    return want, got, counts, planted
+
+
+def _check_vlm_serve_counts(counts, model, what, route, prefills=0,
+                            decodes=0):
+    """rmsnorm and flash's `route` ("flash" or "flash_f32") launched for
+    `prefills` prefills and `decodes` decode steps, and no other kernel: 2
+    norms a layer and the final norm a call, one flash forward a layer a
+    prefill, none in a decode step."""
+    layers = model.cfg.n_layers
+    want = {"rmsnorm": (prefills + decodes) * (2 * layers + 1),
+            route: prefills * layers}
+    got = {k: counts[k] for k in want}
+    off = [k for k, v in counts.items()
+           if v and k not in (*want, *COLLECTIVES)]
+    if got != want or off:
+        raise AssertionError(f"{what}: launches {counts}, want {want} and "
+                             "no other kernel")
+
+
+def phase_vlm_smoke(state):
+    """internvl2-26b SMOKE in fp32 with the same numpy-seeded weights on the
+    card and on the CPU: the loss and every gradient (the projector's
+    included) of one loss step at seq 40 (8 image positions + 32 text
+    tokens) on the vanilla and the prefetch stack; prefill of 8 images +
+    20 text tokens and 3 decode steps from position 8 + 17, logits and
+    cache; on the card, the p+1 check at p = 19 with the reference
+    launcher's decode position planted; all at TOL32, on flash's fp32
+    routes."""
+    from repro_torch.core.api import parallelize
+    from repro_torch.core.dist import DistConfig, single_device_config
+    from repro_torch.core.meta import named_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4, \
+        adapt_batch
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import serve as SV
+    cfg, model = get_arch(VLM, smoke=True)
+    n_img = cfg.n_img_tokens
+    tree = _numpy_params(model, single_device_config(
+        param_dtype=torch.float32), seed=0)
+    b, t = 2, 40
+    shape = ShapeConfig("t", t, b, "train")
+    batch = adapt_batch(SyntheticC4(DataConfig(
+        vocab=cfg.vocab, seq_len=t, global_batch=b, seed=0)).batch(0),
+        model.input_specs(shape, DistConfig()), 0)
+    off = ("flash", "flash_bwd", "ssd", "ssd_f32", "ssd_bwd", "ssd_bwd_f32")
+    for reorder in (False, True):
+        label = "prefetch" if reorder else "vanilla"
+        dcfg = DistConfig(param_dtype=torch.float32, reorder=reorder)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            par = parallelize(model, dcfg, shape, device=dev)
+            storage = _storage_from_full(model, dcfg, tree, dev)
+            _reset_counts()
+            loss, grads = par.loss_step()(storage, batch)
+            runs[dev] = (loss, grads, _train_counts())
+        counts = runs["cuda"][2]
+        say(f"  vlm smoke {label} loss step: launches on the card {counts}")
+        if min(counts[k] for k in ("rmsnorm", "flash_f32", "flash_bwd_f32",
+                                   "xent_fwd", "xent_bwd")) <= 0 \
+                or any(counts[k] for k in off):
+            raise AssertionError(f"vlm smoke {label}: launches {counts}")
+        if max(v for k, v in runs["cpu"][2].items()
+               if k not in COLLECTIVES) > 0:
+            raise AssertionError("the CPU loss step launched a kernel")
+        check_close(f"vlm smoke {label} loss cuda vs cpu",
+                    runs["cuda"][0].cpu(), runs["cpu"][0], TOL32)
+        errs = []
+        for (n, a), (_, b_) in zip(named_leaves(runs["cuda"][1]),
+                                   named_leaves(runs["cpu"][1])):
+            if n.startswith("proj_") and not float(b_.abs().max()) > 0:
+                raise AssertionError(f"vlm smoke: zero gradient {n}")
+            errs.append(check_close(f"vlm smoke {label} grad {n}", a.cpu(),
+                                    b_, TOL32))
+        say(f"  vlm smoke {label}: loss {float(runs['cuda'][0]):.6f}, "
+            f"{len(errs)} gradient leaves, max abs err {max(errs):.3e}")
+
+    prompt, gen = 17, 3
+    t_len = prompt + gen
+    cell = n_img + t_len
+    dcfg = single_device_config(param_dtype=torch.float32)
+    x, img = _vlm_inputs(cfg, 2, t_len, "cpu", seed=1)
+    x[:, prompt:] = 3                     # padded as the launchers pad
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = SV.serve_params_from_jax(tree, model, dcfg, device=dev)
+        pf = SV.make_prefill_step(model, dcfg,
+                                  ShapeConfig("p", cell, 2, "prefill"))
+        dec = SV.make_decode_step(model, dcfg,
+                                  ShapeConfig("d", cell, 2, "decode"))
+        _reset_counts()
+        logits, cache = pf(params, {"tokens": x.to(dev),
+                                    "img_embeds": img.to(dev)})
+        runs[dev] = dict(params=params, dec=dec, cache=cache,
+                         logits=[logits.cpu()], prefill=_train_counts())
+    _check_vlm_serve_counts(runs["cuda"]["prefill"], model,
+                            "the card's fp32 prefill", "flash_f32",
+                            prefills=1)
+    check_close("vlm smoke prefill logits cuda vs cpu",
+                runs["cuda"]["logits"][0], runs["cpu"]["logits"][0], TOL32)
+
+    def caches(what):
+        for name, a, b_ in zip("kv", runs["cuda"]["cache"],
+                               runs["cpu"]["cache"]):
+            check_close(f"{what} {name} cuda vs cpu", a.cpu(), b_, TOL32)
+    caches("vlm smoke prefill")
+    for i in range(3):
+        tok = runs["cpu"]["logits"][-1].argmax(-1)
+        if not torch.equal(runs["cuda"]["logits"][-1].argmax(-1), tok):
+            raise AssertionError(f"vlm: greedy tokens differ at {i}")
+        pos = torch.full((2,), n_img + prompt + i, dtype=torch.int64)
+        for dev, r in runs.items():
+            logits, r["cache"] = r["dec"](r["params"], r["cache"],
+                                          tok.to(dev), pos.to(dev))
+            r["logits"].append(logits.cpu())
+        check_close(f"vlm smoke decode {i} logits cuda vs cpu",
+                    runs["cuda"]["logits"][-1], runs["cpu"]["logits"][-1],
+                    TOL32)
+        caches(f"vlm smoke decode {i}")
+    params = runs["cuda"]["params"]
+    xc, ic = _vlm_inputs(cfg, 2, t_len, "cuda", seed=2)
+    want, got, per_call, planted = _vlm_p1(
+        model, dcfg, params, xc, ic, f"vlm smoke p+1 at p {t_len - 1}",
+        plant=True)
+    check_close("vlm smoke: prefill vs prefill + decode", got, want, TOL32)
+    check_rejects("vlm smoke p+1 planted: the decode at p, the reference "
+                  "launcher's position", planted, want, TOL32)
+    _check_vlm_serve_counts(per_call["decode"], model,
+                            "an fp32 decode step", "flash_f32", decodes=1)
+    state["vlm_smoke_launches"] = runs["cuda"]["prefill"]
+
+
+def phase_full_vlm_train(state):
+    """internvl2-26b at every published width, VLM_TRAIN_LAYERS of its 48
+    layers, B 2 at seq 2048 (1025 image positions + 1023 text tokens),
+    bf16 compute, fp32 storage, remat fsdp_only, block buckets, through
+    `parallelize(...).train_step` on the vanilla stack and on the prefetch
+    stack (bf16 wire): `_full_train`'s readings with MFU on `_model_flops`
+    (the projector over the image positions only), the memory plan's
+    modeled peak (H100 profile) beside the measured, and launches a step:
+    flash forward one a layer on the vanilla stack and two on the prefetch
+    stack, which recomputes each layer in its backward; one flash backward
+    a layer; rmsnorm 2 a layer (+ their recompute) + the final norm; xent
+    1 + 1; AdamW one a storage leaf."""
+    import dataclasses
+    from repro_torch.core.dist import DistConfig
+    from repro_torch.core.memory import plan_memory
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import build_model, get_arch
+    cfg, _ = get_arch(VLM)
+    shape = ShapeConfig("train", TRAIN_T, VLM_TRAIN_B, "train")
+    for layers in (VLM_TRAIN_LAYERS, 8):
+        mem = plan_memory(build_model(dataclasses.replace(
+            cfg, n_layers=layers)), DistConfig(), shape)
+        say(f"  memory plan at {layers} of {cfg.n_layers} layers, B"
+            f"{VLM_TRAIN_B} seq {TRAIN_T} (H100 profile): modeled peak "
+            f"{mem.peak / 2**30:.2f} GiB")
+    for reorder, key in ((False, "train_vlm"), (True, "train_vlm_prefetch")):
+        par, storage, opt = _full_train(state, key,
+                                        DistConfig(reorder=reorder),
+                                        arch=VLM, layers=VLM_TRAIN_LAYERS,
+                                        batch=VLM_TRAIN_B)
+        del storage, opt
+        torch.cuda.empty_cache()
+        model, r = par.model, state[key]
+        counts = state[f"{key}_launches"]
+        times = 2 if reorder else 1
+        layers = model.cfg.n_layers
+        want = dict(flash=times * layers, flash_bwd=layers,
+                    rmsnorm=times * 2 * layers + 1, xent_fwd=1, xent_bwd=1,
+                    adamw=len(list(_leaves(model.metas(par.dcfg)))))
+        per_step = {k: counts[k] / TRAIN_STEPS for k in want}
+        say(f"  launches a step {per_step} (want {want})")
+        if per_step != want:
+            raise AssertionError(f"launches a step {per_step}, want {want}")
+        mem = par.plan.memory
+        say(f"  {cfg.name} x{layers} layers: "
+            f"{model.cfg.n_params() / 1e9:.4f}B params; modeled peak "
+            f"{mem.peak / 2**30:.2f} GiB ({mem.describe()}) against "
+            f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} "
+            f"GiB (modeled / measured "
+            f"{mem.peak / r['max_memory_allocated']:.3f})")
+        for b_ in mem.breakdown:
+            say(f"    {b_.describe()}")
+        r.update(modeled_peak=mem.peak, layers=layers,
+                 model_tflop=_model_flops(model.cfg, model, VLM_TRAIN_B,
+                                          TRAIN_T) / 1e12)
+
+
+def phase_full_vlm_serve(state):
+    """internvl2-26b served at its published depth: bf16 weights made on
+    the card layer by layer, B 4, 1025 seeded image embeddings and a
+    2000-token prompt padded to 2064 text tokens (a cell of 3089
+    positions), 64 generated tokens through `repro_torch.launch.serve`,
+    decode from position 1025 + 2000: prefill ms, decode ms/token beside
+    its byte bound, the device time of a decode step, peak memory, launch
+    counts (`_check_vlm_serve_counts`); then the p+1 check at p = 2063
+    over the same images, in bf16 on all 48 layers
+    (VLM_BF16_CONSISTENCY_REL of the logits' RMS, the argmax where the
+    top-2 gap is clear; the decode at p, the reference launcher's
+    position, planted, must fail it) and on the first VLM_F32_LAYERS
+    layers widened to fp32 at TOL32."""
+    import dataclasses
+    from repro_torch.core.dist import single_device_config
+    from repro_torch.core.meta import tree_map
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.registry import build_model
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, model, dcfg, params, prefill, decode = launch.setup(
+        VLM, False, B, PROMPT, GEN, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    n_img = cfg.n_img_tokens
+    cell = n_img + T
+    n = sum(a.numel() for a in _leaves(params))
+    wbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    say(f"{cfg.name} bf16, {cfg.n_layers} layers: {n / 1e9:.3f}B params, "
+        f"{wbytes / 1e9:.2f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    padded = launch.make_prompts(cfg, B, PROMPT, GEN, dev)
+    img = launch.make_img_embeds(model, dcfg, B, cell, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tokens, t = launch.generate(params, prefill, decode, padded, PROMPT, GEN,
+                                img_embeds=img)
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step reads the blocks' weights, the final norm, the head and
+    # B rows of the embedding (the projector runs in the prefill only);
+    # the keys and values up to its position; it writes one key and value
+    # a row and layer (2 bytes an element)
+    it = 2
+    dec_w = sum(a.numel() for a in _leaves(params["blocks"])) \
+        + cfg.d_model + params["head"].numel() + B * cfg.d_model
+    kv_row = cfg.n_layers * B * cfg.n_kv_heads * cfg.head_dim * 2
+    step_bytes = it * (dec_w + kv_row * (n_img + PROMPT + 1) + kv_row)
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"serve B={B} images={n_img} prompt={PROMPT} gen={GEN} cell={cell}:"
+        f" prefill {t['prefill_s'] * 1e3:.2f} ms (warm-up "
+        f"{t['prefill_warmup_s'] * 1e3:.2f}), decode "
+        f"{t['decode_step_s'] * 1e3:.3f} ms/token (warm-up "
+        f"{t['decode_warmup_s'] * 1e3:.2f}), {t['decode_tok_s']:.1f} "
+        f"tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"  decode byte bound {bound:.4f} ms/token ({step_bytes / 1e9:.4f} "
+        f"GB a step at position {n_img + PROMPT})")
+    say(f"launches in the serve run (2 prefills, {GEN - 1} decode steps): "
+        f"{counts}")
+    state["serve_vlm_launches"] = counts
+    if tokens.shape != (B, GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(tokens.shape)}")
+    _check_vlm_serve_counts(counts, model, "the serve run", "flash",
+                            prefills=2, decodes=GEN - 1)
+    batch = {"tokens": padded, "img_embeds": img}
+    logits, cache = prefill(params, batch)
+    _profile("prefill", lambda: prefill(params, batch), 1)
+    pos = torch.full((B,), n_img + PROMPT, dtype=torch.int64, device=dev)
+    busy, dev_s = _profile("decode step", lambda: decode(
+        params, cache, logits.argmax(-1), pos), 8, top=12)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    state["serve_vlm"] = dict(
+        t, max_memory_allocated=peak, decode_bound_ms=bound,
+        decode_device_ms=None if dev_s is None else dev_s * 1e3,
+        decode_busy=busy)
+    del cache, logits
+
+    x, im = _vlm_inputs(cfg, B, T, dev, seed=3)
+    want, got, per_call, planted = _vlm_p1(
+        model, dcfg, params, x, im, f"bf16, {cfg.n_layers} layers, p "
+        f"{T - 1} after {n_img} image positions", plant=True)
+    _check_vlm_serve_counts(per_call["prefill"], model, "one prefill",
+                            "flash", prefills=1)
+    _check_vlm_serve_counts(per_call["decode"], model, "one decode step",
+                            "flash", decodes=1)
+    rms = want.float().pow(2).mean().sqrt().item()
+    err = max_err(got, want)
+    rel, planted_rel = err / rms, max_err(planted, want) / rms
+    say(f"  bf16 p+1: max abs err {err:.4e} = {rel:.4e} x the logits' RMS "
+        f"(limit {VLM_BF16_CONSISTENCY_REL:g}); planted (the decode at p "
+        f"{T - 1}, the reference launcher's position) {planted_rel:.4e}")
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    say(f"  bf16: argmax equal {same.tolist()}, top-2 gap above 2 x "
+        f"{err:.3e} {clear.tolist()}")
+    # the first layers, in bf16 and widened to fp32: in fp32 the two paths
+    # must agree to fp32 rounding, which separates a fault from bf16 noise
+    kept = {k: v for k, v in params.items() if k != "blocks"}
+    kept["blocks"] = tree_map(lambda a: a[:VLM_F32_LAYERS].clone(),
+                              params["blocks"])
+    del params
+    torch.cuda.empty_cache()
+    short = build_model(dataclasses.replace(cfg, n_layers=VLM_F32_LAYERS))
+    runs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        runs[dt] = _vlm_p1(short, single_device_config(param_dtype=dt),
+                           tree_map(lambda a: a.to(dt), kept), x, im,
+                           f"{str(dt)[6:]}, the first {VLM_F32_LAYERS} "
+                           "layers")
+        torch.cuda.empty_cache()
+    del kept
+    want32, got32, per32, _ = runs[torch.float32]
+    say(f"  bf16 prefill vs fp32 prefill, the first {VLM_F32_LAYERS} "
+        f"layers, same weights: max abs err "
+        f"{max_err(runs[torch.bfloat16][0], want32):.4e} (for scale, not a "
+        "limit)")
+    state["vlm_consistency"] = dict(
+        bf16_rel=rel, planted_rel=planted_rel, fp32=max_err(got32, want32),
+        bf16_vs_fp32_short=max_err(runs[torch.bfloat16][0], want32))
+    _check_vlm_serve_counts(per32["prefill"], short, "one fp32 prefill",
+                            "flash_f32", prefills=1)
+    check_close(f"fp32 ({VLM_F32_LAYERS} layers): prefill vs prefill + "
+                "decode", got32, want32, TOL32)
+    if not torch.equal(got32.argmax(-1), want32.argmax(-1)):
+        raise AssertionError("fp32: argmax differs")
+    if rel > VLM_BF16_CONSISTENCY_REL:
+        raise AssertionError("bf16: prefill vs prefill + decode")
+    if planted_rel <= VLM_BF16_CONSISTENCY_REL:
+        raise AssertionError("the planted fault (the decode at the "
+                             "reference launcher's position) passed the "
+                             "bf16 limit")
+    if not bool(same[clear].all()):
+        raise AssertionError("bf16: argmax differs where the gap is clear")
+
+
 # kernel families summed in every profiler window
 FAMILIES = {"quant codec (seed + quant + dequant kernels)":
             ("quant_kernel", "seed_kernel", "dequant_kernel"),
@@ -6469,10 +7017,17 @@ def kernels_line(state):
     shape and gemma2's local layer, the adamw row at the moe path's largest
     leaf (`moe_leaf`), at gemma2's embedding (`gemma2_leaf`), at
     xlstm's (`xlstm_leaf`) and at seamless-m4t-large-v2's
-    (`encdec_leaf`), the rmsnorm and xent rows at gemma2's shapes
-    (`gemma2`), at xlstm's (`xlstm`) and at seamless-m4t-large-v2's
-    (`encdec`), which the flash rows also carry (its three forward shapes,
-    its two backward ones).
+    (`encdec_leaf`) and at internvl2-26b's embedding (`vlm_leaf`), the
+    rmsnorm and xent rows at gemma2's shapes (`gemma2`), at xlstm's
+    (`xlstm`), at seamless-m4t-large-v2's (`encdec`) and at internvl2-26b's
+    (`vlm`: xent with the image rows masked), which the flash rows also
+    carry (encdec: its three forward shapes, its two backward ones; vlm:
+    the training and prefill forwards at a GQA group of 6, the training
+    backward).  `launches_by_path` also holds the internvl2-26b runs'
+    (`train_vlm`, `train_vlm_prefetch`: 6 timed steps at 6 of 48 layers
+    on each stack; `serve_vlm`: two prefills and 63 decode steps at 48
+    layers; the fp32 routes' `vlm_smoke_prefill_f32`: the SMOKE prefill on
+    the card).
     flash_attention_f32, flash_attention_bwd_f32, ssd_fwd_f32 and
     ssd_bwd_f32 are the fp32 routes: no bf16 path runs them (their count is
     0 on each, and each path asserts so); `launches_by_path` adds the fp32
@@ -6502,9 +7057,13 @@ def kernels_line(state):
                        train_xlstm=state["train_xlstm_1_3b_launches"][key],
                        train_encdec=state["train_encdec_launches"][key],
                        train_encdec_prefetch=state[
-                           "train_encdec_prefetch_launches"][key])
+                           "train_encdec_prefetch_launches"][key],
+                       train_vlm=state["train_vlm_launches"][key],
+                       train_vlm_prefetch=state[
+                           "train_vlm_prefetch_launches"][key])
         for path in ("serve_paged", "serve_batcher", "serve_paged_smoke",
-                     "serve_zamba2", "serve_xlstm", "serve_encdec"):
+                     "serve_zamba2", "serve_xlstm", "serve_encdec",
+                     "serve_vlm"):
             by_path[path] = state[f"{path}_launches"][key]
         if serve_key:
             by_path["serve"] = serve[serve_key]
@@ -6516,6 +7075,8 @@ def kernels_line(state):
             by_path["smoke_train_f32"] = state["smoke_train_launches"][key]
             by_path["encdec_smoke_prefill_f32"] = state[
                 "encdec_smoke_launches"][key]
+            by_path["vlm_smoke_prefill_f32"] = state[
+                "vlm_smoke_launches"][key]
         if key.startswith("ssd"):
             by_path["zamba2_smoke_f32"] = state["zamba_smoke_launches"][key]
             by_path["zamba2_serve_smoke_f32"] = state[
@@ -6528,11 +7089,12 @@ def kernels_line(state):
     rows = [
         row("rmsnorm", "rmsnorm", "rmsnorm.cu", "rmsnorm/kernel.py:29",
             "rmsnorm", gemma2=state["gemma2_rmsnorm"],
-            xlstm=state["xlstm_rmsnorm"], encdec=state["encdec_rmsnorm"]),
+            xlstm=state["xlstm_rmsnorm"], encdec=state["encdec_rmsnorm"],
+            vlm=state["vlm_rmsnorm"]),
         row("flash_attention", "flash", "flash_attention_sm90.cu",
             "flash_attention/kernel.py:77", "flash",
             group8=state["flash_group8"], gemma2=state["gemma2_flash"],
-            encdec=state["encdec_flash"]),
+            encdec=state["encdec_flash"], vlm=state["vlm_flash"]),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_f32", "flash_f32", "flash_attention.cu",
             "flash_attention/kernel.py:77", "flash_f32",
@@ -6544,6 +7106,7 @@ def kernels_line(state):
             gemma2=state["flash_bwd_gemma2"],
             encdec=[state["encdec_flash_bwd_non-causal"],
                     state["encdec_flash_bwd_causal"]],
+            vlm=state["vlm_flash_bwd"],
             kernel="flash_bwd_dq_sm90_kernel (D, dQ), then "
                    "flash_bwd_dkdv_sm90_kernel (dK, dV): wgmma, TMA"),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
@@ -6553,15 +7116,18 @@ def kernels_line(state):
                    "flash_bwd_dkdv_tf32_kernel: mma.sync m16n8k8 TF32 x3"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:61", gemma2=state["gemma2_xent_fwd"],
-            xlstm=state["xlstm_xent_fwd"], encdec=state["encdec_xent_fwd"]),
+            xlstm=state["xlstm_xent_fwd"], encdec=state["encdec_xent_fwd"],
+            vlm=state["vlm_xent_fwd"]),
         row("xent_bwd", "xent_bwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:96", gemma2=state["gemma2_xent_bwd"],
-            xlstm=state["xlstm_xent_bwd"], encdec=state["encdec_xent_bwd"]),
+            xlstm=state["xlstm_xent_bwd"], encdec=state["encdec_xent_bwd"],
+            vlm=state["vlm_xent_bwd"]),
         row("adamw_flat", "adamw", "adamw.cu", "adamw/kernel.py:40",
             moe_leaf=state["adamw_moe_leaf"],
             gemma2_leaf=state["gemma2_adamw_leaf"],
             xlstm_leaf=state["xlstm_adamw_leaf"],
-            encdec_leaf=state["encdec_adamw_leaf"]),
+            encdec_leaf=state["encdec_adamw_leaf"],
+            vlm_leaf=state["vlm_adamw_leaf"]),
         row("quant_fwd", "quant_fwd", "quant.cu", "quant/kernel.py:46",
             kernel="quant_kernel (RTN); seed_kernel + quant_kernel (SR)"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
@@ -6651,7 +7217,13 @@ def main() -> int:
                         ("full-width seamless-m4t-large-v2 training",
                          phase_full_encdec_train),
                         ("full-width seamless-m4t-large-v2 serve",
-                         phase_full_encdec_serve)]:
+                         phase_full_encdec_serve),
+                        ("vlm kernels vs plain", phase_vlm_kernels),
+                        ("vlm smoke cuda vs cpu", phase_vlm_smoke),
+                        ("full-width internvl2-26b training",
+                         phase_full_vlm_train),
+                        ("full-width internvl2-26b serve",
+                         phase_full_vlm_serve)]:
         say(f"== {name}")
         t0 = time.perf_counter()
         try:

@@ -96,8 +96,9 @@ def put_tokens(pool, pid, slot, val):
 
 
 def put_layer(leaf, i: int, val) -> None:
-    """leaf[i] = val, in place (a prefill's layer into a stacked cache)."""
-    _raw(leaf[i]).copy_(_raw(val.to(leaf.dtype)))
+    """leaf[i, :, :S] = val (B, S, ...), in place: a prefill's layer into
+    the first S positions of a stacked cache (L, B, T, ...)."""
+    _raw(leaf[i, :, :val.shape[1]]).copy_(_raw(val.to(leaf.dtype)))
 
 
 def take_tokens(pool, idx, batch: int):

@@ -8,8 +8,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --int8-kv --metrics-jsonl serve.jsonl
 
-Serves the dense, moe, zamba, xlstm and encdec families (`--arch` any id
-in `models.registry.PORTED`):
+Serves the dense, moe, zamba, xlstm, encdec and vlm families (`--arch`
+any id in `models.registry.PORTED`):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1_2b \
       --smoke --device cpu
@@ -17,6 +17,8 @@ in `models.registry.PORTED`):
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch seamless_m4t_large_v2 --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2_26b \
+      --smoke --device cpu
 
 Mirrors `repro.launch.serve` at world size 1: seeded weights, prompts of
 random tokens padded with token 3 up to T = prompt_len + gen (so the first
@@ -27,7 +29,12 @@ launchers' timings compare; for zamba2 the pads enter the SSD and conv
 states, for xlstm the mLSTM, sLSTM and conv states, before decode starts
 at prompt_len (attention's decode overwrites their keys instead).  encdec's
 prefill also takes seeded frames (`make_frames`: T // 2 of them, as its
-`input_specs` sizes a prefill cell).  The first call on the card also
+`input_specs` sizes a prefill cell).  The vlm's prefill takes seeded
+image embeddings ahead of the text (`make_img_embeds`: n_img_tokens of
+them), so its cell spans n_img_tokens + T positions and decode starts at
+n_img_tokens + prompt_len; the reference's launcher passes no images and
+decodes at prompt_len, so it cannot serve the vlm.  The first call on the
+card also
 builds the kernels.  `--int8-kv` stores the KV cache as int8 with
 per-128-chunk scales (the quant kernels on the card); `--metrics-jsonl`
 appends one `MetricsRegistry` line of `serve/*` gauges with the
@@ -61,7 +68,8 @@ def setup(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
     dcfg = single_device_config(param_dtype=DTYPES[dtype],
                                 kv_cache_codec=kv_codec)
     cfg, model = get_arch(arch, smoke=smoke)
-    T = prompt_len + gen
+    # the vlm's cell counts its image positions ahead of the text
+    T = cfg.n_img_tokens + prompt_len + gen
     generator = torch.Generator(device=dev).manual_seed(seed)
     params = SV.init_serve_params(model, dcfg, generator, dev)
     prefill = SV.make_prefill_step(model, dcfg,
@@ -92,15 +100,30 @@ def make_frames(model, dcfg, batch: int, seq_len: int, device,
     return (torch.randn(spec.shape, generator=g) * 0.3).to(device)
 
 
+def make_img_embeds(model, dcfg, batch: int, seq_len: int, device,
+                    seed: int = 2):
+    """The vlm's stub frontend input for a prefill cell of `seq_len`
+    positions (image and text): (B, n_img_tokens, vit_dim) fp32 patch
+    embeddings, the shape its `input_specs` gives a prefill cell, 0.3 x a
+    seeded normal (the scale `data.pipeline.adapt_batch` synthesises them
+    at)."""
+    spec = model.input_specs(ShapeConfig("p", seq_len, batch, "prefill"),
+                             dcfg)["img_embeds"]
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(spec.shape, generator=g) * 0.3).to(device)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def generate(params, prefill, decode, padded, prompt_len: int, gen: int,
-             frames=None):
+             frames=None, img_embeds=None):
     """Warm-up, then timed prefill and greedy decode; `frames` (encdec)
-    join the prefill's batch.
+    and `img_embeds` (vlm) join the prefill's batch, and the images take
+    the positions ahead of the text, so decode starts at n_img +
+    prompt_len.
 
     Returns (tokens (B, gen), timings) with timings in seconds:
     prefill_warmup_s, decode_warmup_s, prefill_s, decode_step_s (the mean
@@ -110,6 +133,10 @@ def generate(params, prefill, decode, padded, prompt_len: int, gen: int,
     batch = {"tokens": padded}
     if frames is not None:
         batch["frames"] = frames
+    start = prompt_len
+    if img_embeds is not None:
+        batch["img_embeds"] = img_embeds
+        start += img_embeds.shape[1]
     t0 = time.perf_counter()
     logits, cache = prefill(params, batch)
     _sync(dev)
@@ -121,7 +148,7 @@ def generate(params, prefill, decode, padded, prompt_len: int, gen: int,
 
     tok = logits.argmax(-1)
     outs = [tok]
-    pos = torch.full((B,), prompt_len, dtype=torch.int64, device=dev)
+    pos = torch.full((B,), start, dtype=torch.int64, device=dev)
     t0 = time.perf_counter()
     logits, cache = decode(params, cache, tok, pos)
     _sync(dev)
@@ -165,8 +192,11 @@ def main(argv=None):
     padded = make_prompts(cfg, args.batch, args.prompt_len, args.gen, dev)
     frames = make_frames(model, dcfg, args.batch, padded.shape[1], dev) \
         if cfg.family == "encdec" else None
+    img = make_img_embeds(model, dcfg, args.batch,
+                          cfg.n_img_tokens + padded.shape[1], dev) \
+        if cfg.family == "vlm" else None
     tokens, t = generate(params, prefill, decode, padded, args.prompt_len,
-                         args.gen, frames)
+                         args.gen, frames, img)
     print("generated:", tokens.cpu().numpy())
     print(f"warm-up: prefill {t['prefill_warmup_s']*1e3:.1f}ms, "
           f"first-decode {t['decode_warmup_s']*1e3:.1f}ms")

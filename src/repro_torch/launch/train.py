@@ -17,10 +17,15 @@
 `--arch` takes every id of `models.registry.PORTED`: the dense family
 (llama3_8b, qwen3_1_7b, deepseek_coder_33b, phi3_medium_14b), the moe
 family (qwen3_moe_30b_a3b, qwen2_moe_a2_7b; each step logs the router's
-load-balance term apart as `moe_aux`), zamba2_1_2b and xlstm_1_3b:
+load-balance term apart as `moe_aux`), zamba2_1_2b, xlstm_1_3b,
+seamless_m4t_large_v2 and internvl2_26b (the vlm family: its batches carry
+seeded image embeddings, and `--seq` counts the n_img_tokens image
+positions ahead of the text):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_1_3b \
       --smoke --device cpu --steps 3 --dtype float32 --seq 40 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2_26b \
+      --smoke --device cpu --steps 3 --dtype float32 --seq 40 --batch 2
 
 Runs on the card unless `--device cpu` is given.  At world size 1 it
 creates its own one-rank process group on an in-process store (no

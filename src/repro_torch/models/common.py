@@ -1,5 +1,5 @@
-"""Architecture config schema (the dense, moe, zamba, xlstm and encdec
-subsets of `repro.models.common`).
+"""Architecture config schema (the dense, moe, zamba, xlstm, encdec and
+vlm subsets of `repro.models.common`).
 
 `ArchConfig` keeps the reference's field names, defaults and derived head
 layout (`gqa_layout`) so that parameter shapes line up exactly with the
@@ -58,6 +58,7 @@ class BlockSegments:
 class ArchConfig:
     name: str
     family: str               # 'dense' | 'moe' | 'zamba' | 'xlstm' | 'encdec'
+    #                           | 'vlm'
     n_layers: int
     d_model: int
     n_heads: int
@@ -101,6 +102,10 @@ class ArchConfig:
     n_enc_layers: int = 0
     n_dec_layers: int = 0
     frontend_dim: int = 0                 # stub frontend embedding width
+
+    # vlm --------------------------------------------------------------------
+    vit_dim: int = 0                      # stub ViT output width
+    n_img_tokens: int = 0
 
     # recommended pipeline-parallel degree on the production mesh (the
     # reference's launch.mesh reads it); 1 = no pipelining.  Nothing in the

@@ -405,33 +405,39 @@ class DenseLM:
 
     @staticmethod
     def _store_kv(kv, i, k, v, dcfg):
-        """Write a prefill layer's (B, T, Kl, hd) k and v into layer i of
-        its cache: a (k, v) pair, or under a KV codec the {"k", "ks",
-        "v", "vs"} wire values and scales."""
+        """Write a prefill layer's (B, S, Kl, hd) k and v into positions 0
+        .. S-1 of layer i of its cache (a capacity of T >= S positions): a
+        (k, v) pair, or under a KV codec the {"k", "ks", "v", "vs"} wire
+        values and scales."""
         codec = dcfg.kv_codec
         if not codec:
-            kv[0][i].copy_(k)
-            kv[1][i].copy_(v)
+            kv[0][i, :, :k.shape[1]].copy_(k)
+            kv[1][i, :, :v.shape[1]].copy_(v)
             return
         for name, x in (("k", k), ("v", v)):
             q, sc = LY.kv_quantize(x, codec)
             PG.put_layer(kv[name], i, q)
-            kv[name + "s"][i].copy_(sc)
+            kv[name + "s"][i, :, :sc.shape[1]].copy_(sc)
 
     def prefill_local(self, params, batch, dcfg: DistConfig, cache):
         """params: full params, blocks stacked (n_steps, ...); batch:
-        {"tokens": (B, T) int64}; cache: `train.serve.alloc_cache`'s (k, v)
-        pair of (n_steps, B, T, Kl, hd) buffers (under a KV codec, the
-        {"k", "ks", "v", "vs"} wire values and scales), one a layer of a
-        step, that this call fills.
+        {"tokens": (B, S) int64}; cache: `train.serve.alloc_cache`'s (k, v)
+        pair of (n_steps, B, T, Kl, hd) buffers, T >= S (under a KV codec,
+        the {"k", "ks", "v", "vs"} wire values and scales), one a layer of
+        a step, whose first S positions this call fills.
 
         Returns (last-position logits (B, V) fp32, cache)."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        rope = LY.rope_cache(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
-                             tokens.device)
-        x = LY.embed_apply(params["embed"], tokens, cfg, dcfg,
+        x = LY.embed_apply(params["embed"], batch["tokens"], self.cfg, dcfg,
                            scale=self._embed_scale)
+        return self._prefill_from(params, x, dcfg, cache)
+
+    def _prefill_from(self, params, x, dcfg, cache):
+        """`prefill_local` from the embedded sequence x (B, S, D): every
+        block over positions 0 .. S-1, their keys and values into the
+        cache, the last position's logits."""
+        cfg = self.cfg
+        rope = LY.rope_cache(x.shape[1], cfg.head_dim, cfg.rope_theta,
+                             x.device)
         for i in range(self.n_steps):
             p = tree_map(lambda a: a[i], params["blocks"])
             for (key, window), kv in zip(self._subs,

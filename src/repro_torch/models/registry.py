@@ -1,7 +1,7 @@
 """Model registry: arch id -> (ArchConfig, model instance).
 
-Knows the reference's eleven arch ids; the one not ported yet raises a
-clear error instead of failing deep inside a model.
+Knows the reference's eleven arch ids, all of them ported; an id outside
+them raises a clear error instead of failing deep inside a model.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ ARCH_IDS = (
 )
 PORTED = ("llama3_8b", "qwen3_1_7b", "zamba2_1_2b", "qwen3_moe_30b_a3b",
           "qwen2_moe_a2_7b", "deepseek_coder_33b", "phi3_medium_14b",
-          "gemma2_27b", "xlstm_1_3b", "seamless_m4t_large_v2")
+          "gemma2_27b", "xlstm_1_3b", "seamless_m4t_large_v2",
+          "internvl2_26b")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
@@ -39,6 +40,9 @@ def build_model(cfg):
     if cfg.family == "encdec":
         from repro_torch.models.encdec import EncDecLM
         return EncDecLM(cfg)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import VLM
+        return VLM(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not yet ported to repro_torch")
 

@@ -8,7 +8,8 @@
     mesh: the serving plan prices them; for zamba2 its serving state (SSD
     and conv states, the shared block's keys and values) and for xlstm
     its recurrent states (mLSTM C, n, m and conv, sLSTM h, c, n, m) at
-    tp = 1, and for encdec its self and cross caches;
+    tp = 1, and for encdec its self and cross caches (the vlm's is the
+    dense cache over its image and text positions);
   * `alloc_cache` — the dense KV cache, one (k, v) pair a layer of a
     local/global pair; under a KV codec ({"k", "ks", "v", "vs"} leaves)
     int8 / fp8 wire values and their per-128-chunk f32 scales; zamba2's
@@ -115,7 +116,9 @@ def cache_abstract(model, shape: ShapeConfig, dcfg: DistConfig):
     encdec: {"self": (k, v), "cross": (k, v)}, the decoder's self cache
     (n_dec, B, T, kv heads, hd) and its cross cache over S_src = T // 2
     frames.  None of the three takes a KV codec (the reference's caches
-    ignore one; the port raises)."""
+    ignore one; the port raises).  The vlm's is the dense cache, whose T
+    counts the image positions first (`input_specs`: the text spans T -
+    n_img_tokens)."""
     cfg = model.cfg
     if cfg.family in ("zamba", "xlstm", "encdec") and dcfg.kv_codec:
         raise ValueError(f"{cfg.name}: the {cfg.family} cache takes no "
@@ -131,7 +134,7 @@ def cache_abstract(model, shape: ShapeConfig, dcfg: DistConfig):
                             device="meta")
             return (a, a)
         return {"self": kv(shape.seq_len), "cross": kv(shape.seq_len // 2)}
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: serving the {cfg.family} family is not yet ported "
             "to repro_torch")
@@ -192,12 +195,16 @@ def alloc_arena(model, dcfg: DistConfig, *, page: int, n_pages_local: int,
 # ---------------------------------------------------------------------------
 def make_prefill_step(model, dcfg: DistConfig, shape: ShapeConfig):
     """step(params, {"tokens": (B, T)}) -> (last logits (B, V), cache);
-    encdec's batch also holds {"frames": (B, T // 2, frontend_dim)}, the
-    shape its `input_specs` gives the frames of a prefill cell."""
+    encdec's batch also holds {"frames": (B, T // 2, frontend_dim)} and the
+    vlm's is {"tokens": (B, T - n_img), "img_embeds": (B, n_img,
+    vit_dim)}, the shapes their `input_specs` give a prefill cell."""
     check_world_size_one(dcfg)
     want = {"tokens": (shape.global_batch, shape.seq_len)}
     if model.cfg.family == "encdec":
         want["frames"] = model.input_specs(shape, dcfg)["frames"].shape
+    if model.cfg.family == "vlm":
+        want = {k: v.shape for k, v in model.input_specs(shape,
+                                                         dcfg).items()}
 
     @torch.inference_mode()
     def step(params, batch):

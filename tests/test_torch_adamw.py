@@ -24,6 +24,8 @@ from repro_torch.kernels.adamw import ops, ref
 from repro_torch.optim import adamw
 from repro_torch.optim import schedule
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
 

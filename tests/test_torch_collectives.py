@@ -24,6 +24,8 @@ from repro_torch.models.registry import get_arch
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import default_schedule
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 B, S = 4, 16
 DP2 = DistConfig(mesh_shape=(2, 1), param_dtype=torch.float32,

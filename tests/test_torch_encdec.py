@@ -37,10 +37,6 @@ the batch is SyntheticC4's fitted to `input_specs` by `adapt_batch`
 
 import functools
 import itertools
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -83,12 +79,13 @@ from repro_torch.train.train_step import init_train_state, \
     step_wire_metrics
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 ARCH = "seamless_m4t_large_v2"
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 TOL = dict(rtol=2e-2, atol=2e-2)
 B, S, STEPS, WARMUP = 2, 32, 3, 1
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-SRC = Path(__file__).resolve().parents[1] / "src"
 STACKS = ("enc_blocks", "dec_blocks")
 
 
@@ -509,15 +506,12 @@ def test_chained_steps_and_checkpoint_resume_match_reference(tmp_path):
             assert torch.equal(a, b), f"{name}/{n}"
 
 
-def test_train_launcher_trains_encdec_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
-         "--smoke", "--device", "cpu", "--steps", "2", "--seq", "20",
-         "--batch", "2", "--dtype", "float32", "--ckpt-dir", str(tmp_path)],
-        env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
-    lines = r.stdout.splitlines()
+def test_train_launcher_trains_encdec_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train as launch_train
+    launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                       "--steps", "2", "--seq", "20", "--batch", "2",
+                       "--dtype", "float32", "--ckpt-dir", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("plan: mesh[data=1xmodel=1]")
     assert "buckets[enc_blocks:1,dec_blocks:1]" in lines[0]
     losses = [float(l.split()[3]) for l in lines if l.startswith("step ")]

@@ -22,6 +22,8 @@ from repro.models.layers import attention_ref
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention as ref_attention
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -63,6 +63,8 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import serve as SV
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 ARCH = "gemma2_27b"
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 B, S, STEPS, WARMUP = 4, 16, 3, 1

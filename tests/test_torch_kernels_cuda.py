@@ -70,15 +70,16 @@ def _randn(dev, *shape, dtype=torch.float32, seed=0):
 
 
 # Rows of whole 16-byte vectors up to 2048 of them are held in registers:
-# the model widths 128, 2048, 4096 and 7168 (20001, 5001 and 1001 rows: more
-# than one pass of the grid-stride loop), and other widths, some of which
+# the model widths 128, 2048, 4096, 6144 (internvl2-26b) and 7168 (20001,
+# 5001 and 1001 rows: more than one pass of the grid-stride loop), and
+# other widths, some of which
 # leave lanes idle (40, 384 in bf16); 100 (bf16) and 16384 (fp32) take the
 # generic kernel
 @pytest.mark.parametrize("rows,d", [(8, 128), (9, 384), (33, 4096),
                                     (5, 7168), (7, 100), (20001, 128),
                                     (257, 2048), (5001, 4096), (1001, 7168),
                                     (6, 40), (300, 1536), (17, 5120),
-                                    (3, 16384)])
+                                    (3, 16384), (9, 6144), (4097, 6144)])
 @pytest.mark.parametrize("xdt,wdt", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32)])
@@ -480,6 +481,49 @@ def test_flash_bwd_kernels_at_seamless_shapes(dev, S, T, causal, dtype):
             assert _rms_rel(a, b) <= FLASH_BF16_GRAD_RMS_REL
 
 
+# internvl2-26b's attention: 48 query heads on 8 kv heads of 128, a GQA
+# group of 6 (the kv head of query head h is h // 6, and the dK / dV
+# kernel walks 6 query heads' Q tiles a kv head).  The `group` cases above
+# take 8 // group kv heads, so 6 is not among them: a short case, 12 heads
+# on 2, beside the training shape B2 T2048 and the serve prefill's length,
+# 1025 image positions + 2064 text tokens
+VLM_GROUP6 = [(2, 300, 12, 2), (1, 3089, 12, 2), (2, 2048, 48, 8)]
+
+
+@pytest.mark.parametrize("B,T,H,Kh", VLM_GROUP6)
+def test_flash_bf16_kernel_at_a_gqa_group_of_6(dev, B, T, H, Kh):
+    q = _randn(dev, B, T, H, 128, dtype=torch.bfloat16)
+    k = _randn(dev, B, T, Kh, 128, dtype=torch.bfloat16, seed=1)
+    v = _randn(dev, B, T, Kh, 128, dtype=torch.bfloat16, seed=2)
+    _check_flash(q, k, v, dict(causal=True))
+
+
+@pytest.mark.parametrize("B,T,H,Kh", [c for c in VLM_GROUP6 if c[1] <= 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_at_a_gqa_group_of_6(dev, B, T, H, Kh, dtype):
+    """The backward kernels at a group of 6 against the plain reverse pass
+    and autograd through the plain version, as
+    `test_flash_bwd_kernels_match_plain`."""
+    kw = dict(causal=True)
+    q, k, v, ct = _flash_bwd_inputs(dev, B, T, H, Kh, 128, dtype)
+    o, lse = _fwd_lse(q, k, v, kw)
+    torch.testing.assert_close(lse, flash_ref.attention_lse(q, k, **kw),
+                               **TOL32)
+    bf16 = dtype == torch.bfloat16
+    n = (flash_ops.bwd_launches, flash_ops.bwd_launches_f32)
+    got = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct, **kw)
+    assert (flash_ops.bwd_launches - n[0],
+            flash_ops.bwd_launches_f32 - n[1]) == ((1, 0) if bf16 else (0, 1))
+    want = flash_ref.attention_bwd(q, k, v, o, lse, ct, **kw)
+    auto = _grads(lambda *a: flash_ref.attention(*a, **kw), (q, k, v), ct)
+    tol = TOL if bf16 else TOL32
+    for a, b, c in zip(got, want, auto[1:]):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+        torch.testing.assert_close(a.float(), c.float(), **tol)
+        if bf16:
+            assert _rms_rel(a, b) <= FLASH_BF16_GRAD_RMS_REL
+
+
 def test_flash_bwd_rejects_what_the_forward_rejects(dev):
     q, k, v, ct = _flash_bwd_inputs(dev, 1, 64, 2, 2, 64, torch.bfloat16)
     o, lse = _fwd_lse(q, k, v, dict(causal=True))
@@ -532,6 +576,33 @@ def test_xent_kernels_match_plain(dev, R, V, dtype, tdtype):
     onehot_only = torch.zeros_like(x).scatter_(
         1, t.long().clamp(0, V - 1)[:, None], -g[:, None].to(dtype))
     assert not torch.allclose(_per_g(onehot_only, g), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xent_kernels_at_the_vlm_vocab_with_masked_rows(dev, dtype):
+    """internvl2-26b's vocabulary, 92560 (not a multiple of 128: a ragged
+    last tile), on two sequences of 40 rows whose first 17 are image
+    positions: `valid` 0 there, so their cotangent is 0 and their dlogits
+    exactly 0, and the masked mean of the losses the plain version's."""
+    R, V, n_img = 80, 92_560, 17
+    x = _randn(dev, R, V, dtype=dtype) * 3
+    t = torch.randint(0, V, (R,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(4))
+    t[1] = V - 1                       # a target in the last tile
+    valid = (torch.arange(R, device=dev) % 40 >= n_img).float()
+    g = _randn(dev, R, seed=5) * valid
+    loss, lse = xent_ops.xent_fwd_cuda(x, t)
+    dx = xent_ops.xent_bwd_cuda(x, t, lse, g)
+    want_loss, want_lse = xent_ref.xent(x, t)
+    torch.testing.assert_close(loss, want_loss, **TOL32)
+    torch.testing.assert_close(lse, want_lse, **TOL32)
+    mean = lambda a: (a * valid).sum() / valid.sum()  # noqa: E731
+    torch.testing.assert_close(mean(loss), mean(want_loss), **TOL32)
+    assert int(dx[valid == 0].count_nonzero()) == 0
+    live = valid > 0
+    want = _per_g(xent_ref.dlogits(x, t, want_lse, g)[live], g[live])
+    tol = TOL32 if dtype == torch.float32 else TOL
+    torch.testing.assert_close(_per_g(dx[live], g[live]), want, **tol)
 
 
 def test_xent_autograd_function_matches_plain(dev):

@@ -49,6 +49,8 @@ from repro_torch.data.pipeline import DataConfig, SyntheticC4, adapt_batch
 from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import PORTED, get_arch
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = tuple(sorted(PORTED))
 GIB = 1024**3

@@ -1,17 +1,12 @@
-"""MoE family parity at pp = 1, tp = 1: the PyTorch port's `MoELM` against
-the JAX reference's (`repro.models.moe`) on the CPU, for qwen3-moe-30b-a3b
-(top-8 of 128, renormalised, qk-norm; SMOKE: top-2 of 8) and qwen2-moe-a2.7b
-(top-4 of 60 padded to 64, a gated shared expert; SMOKE: top-2 of 6 padded
-to 8).  Weights are drawn with numpy from a seed; the training runs take
-them through the plain-layout checkpoint the reference writes.
+"""MoE family training parity at pp = 1, tp = 1: the PyTorch port's
+`MoELM` against the JAX reference's (`repro.models.moe`) on the CPU, for
+qwen3-moe-30b-a3b (top-8 of 128, renormalised, qk-norm; SMOKE: top-2 of 8)
+and qwen2-moe-a2.7b (top-4 of 60 padded to 64, a gated shared expert;
+SMOKE: top-2 of 6 padded to 8).  Weights are drawn with numpy from a seed;
+the training runs take them through the plain-layout checkpoint the
+reference writes.  Routing, the FFN and serving are held in
+tests/test_torch_moe_serve.py, which shares this file's helpers.
 
-  * `_route`: expert ids EXACTLY equal, weights and the aux at TOL32 (rtol
-    2e-4, atol 2e-5), with planted ties: all-zero rows (every real expert
-    equally likely) and two equal router columns;
-  * the dispatch's pos, keep and slot EXACTLY the reference's formulas on
-    the reference's ids (its `_moe_ffn` does not return them);
-  * `_moe_ffn` and its gradients at TOL32, at capacity_factor 1.0 (tokens
-    ARE dropped) and router_aux_coef 1e-2;
   * the loss and every storage gradient of the loss step on the vanilla
     and the prefetch stack at TOL32 (the router's included), and that the
     aux's gradient reaches the router;
@@ -20,21 +15,14 @@ them through the plain-layout checkpoint the reference writes.
     moments at TOL32, the aux and the drop count logged apart;
   * storage byte-equal to the reference's `shard_params`; the manual
     bucket units equal the reference's plan;
-  * prefill and decode logits against the reference's serve steps
-    (SMOKE's capacity_factor 8 drops nothing);
   * the parameter counts: the port sums the metas (padded experts, q/k
     norms, the shared gate, the final norm), the reference's formula
     does not;
-  * the launchers train and serve both MoE archs on the CPU and raise
-    without `--device cpu` when there is no card; tp > 1 raises.
+  * the launcher trains qwen2-moe on the CPU; tp > 1 raises.
 """
 
 import dataclasses
 import functools
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -52,20 +40,20 @@ from repro.models.common import ShapeConfig as JShapeConfig
 from repro.models.registry import build_model as jax_build_model
 from repro.models.registry import get_arch as jax_get_arch
 from repro.optim.adamw import AdamWConfig as JAdamWConfig, init_opt_state
-from repro.train import serve as JSV
 from repro.train.train_step import default_schedule as jax_default_schedule
 
 from repro_torch.core import api
 from repro_torch.core import bucketing as bk
-from repro_torch.core.dist import DistConfig, single_device_config
+from repro_torch.core.dist import DistConfig
 from repro_torch.core.meta import named_leaves
 from repro_torch.models.common import ShapeConfig
 from repro_torch.models import runtime as RT
 from repro_torch.models.moe import MoELM, capacity, experts_padded
 from repro_torch.models.registry import build_model, get_arch
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train import serve as SV
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
 
 ARCHS = ("qwen3_moe_30b_a3b", "qwen2_moe_a2_7b")
 TOL32 = dict(rtol=2e-4, atol=2e-5)
@@ -73,7 +61,6 @@ B, S, STEPS, WARMUP = 4, 16, 3, 1
 # drops tokens at B*S = 64 (capacity 16 a padded expert) and puts the aux
 # into the loss; the SMOKE configs have capacity_factor 8, coefficient 0
 DROPPING = dict(capacity_factor=1.0, router_aux_coef=1e-2)
-SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _models(arch, **kw):
@@ -120,103 +107,6 @@ def _tokens(rng, n, d, zero_rows=()):
     x = rng.standard_normal((n, d)).astype(np.float32)
     x[list(zero_rows)] = 0.0
     return x
-
-
-# ---------------------------------------------------------------------------
-# routing and dispatch
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
-def test_route_ids_exact_and_ties_rank_by_index(arch):
-    jmodel, model = _models(arch, **DROPPING)
-    cfg = model.cfg
-    rng = np.random.default_rng(1)
-    x = _tokens(rng, 64, cfg.d_model, zero_rows=(3, 17))
-    router = _ffn_params_np(jmodel, 2)["router"]
-    router[:, 4] = router[:, 1]          # experts 1 and 4 always tie
-    jw, jids, jaux = jmodel._route(jnp.asarray(x), jnp.asarray(router))
-    w, ids, aux = model._route(torch.from_numpy(x), torch.from_numpy(router))
-    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
-    np.testing.assert_allclose(w.numpy(), np.asarray(jw), **TOL32)
-    np.testing.assert_allclose(float(aux), float(jaux), **TOL32)
-    k = cfg.n_experts_active
-    # a zero row sees every real expert equally likely: the lowest k win
-    for r in (3, 17):
-        assert ids[r].tolist() == list(range(k))
-    # where the tied pair is chosen, the lower index ranks first
-    both = [r for r in range(64) if {1, 4} <= set(ids[r].tolist())]
-    assert both and all(ids[r].tolist().index(1) < ids[r].tolist().index(4)
-                        for r in both)
-    # padded experts are never chosen
-    assert int(ids.max()) < cfg.n_experts
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_dispatch_slots_exact(arch):
-    """pos, keep and slot of the reference's `_moe_ffn` (its lines that
-    compute them, on its own ids) against the port's `_dispatch`."""
-    jmodel, model = _models(arch, **DROPPING)
-    cfg = model.cfg
-    rng = np.random.default_rng(3)
-    T = 64
-    x = _tokens(rng, T, cfg.d_model)
-    router = _ffn_params_np(jmodel, 4)["router"]
-    _, jids, _ = jmodel._route(jnp.asarray(x), jnp.asarray(router))
-    ep, k = router.shape[1], cfg.n_experts_active
-    C = max(4, int(-(-T * k * cfg.capacity_factor // ep)))
-    C = -(-C // 4) * 4
-    flat_ids = jids.reshape(-1)
-    onehot = jax.nn.one_hot(flat_ids, ep, dtype=jnp.int32)
-    jpos = jnp.take_along_axis(jnp.cumsum(onehot, axis=0) - 1,
-                               flat_ids[:, None], axis=1)[:, 0]
-    jkeep = jpos < C
-    jslot = jnp.where(jkeep, flat_ids * C + jpos, ep * C)
-
-    assert capacity(cfg, T, ep) == C == 16
-    pos, keep, slot = model._dispatch(torch.from_numpy(np.array(jids))
-                                      .long(), C, ep)
-    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
-    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
-    np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
-    assert not bool(keep.all())              # tokens are dropped here
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_moe_ffn_and_gradients_match_reference(arch):
-    jmodel, model = _models(arch, **DROPPING)
-    cfg = model.cfg
-    jd, d = jax_single_device_config(), single_device_config()
-    rng = np.random.default_rng(5)
-    x = _tokens(rng, B * S, cfg.d_model).reshape(B, S, cfg.d_model)
-    p = _ffn_params_np(jmodel, 6)
-    ct = rng.standard_normal(x.shape).astype(np.float32)
-
-    def jloss(xx, pp):
-        def one(x1):     # vmap binds the TP axis name the shared MLP uses
-            out, aux = jmodel._ffn_apply(pp, x1, jd)
-            return out, aux["moe_aux"]
-        out, aux = jax.vmap(one, axis_name=jd.tp_axis)(xx[None])
-        return jnp.sum(out[0] * ct) + aux[0], (out[0], aux[0])
-
-    (jl, (jout, jaux)), (jdx, jdp) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(
-        jnp.asarray(x), jax.tree.map(jnp.asarray, p))
-
-    xt = torch.from_numpy(x).requires_grad_()
-    pt = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
-    out, aux = model._ffn_apply(pt, xt, d)
-    loss = (out * torch.from_numpy(ct)).sum() + aux["moe_aux"]
-    grads = torch.autograd.grad(loss, [xt, *pt.values()])
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
-                               **TOL32)
-    drops = float(aux["moe_drops"])
-    aux = float(aux["moe_aux"].detach())
-    np.testing.assert_allclose(aux, float(jaux), **TOL32)
-    assert aux > 0 and drops > 0
-    np.testing.assert_allclose(grads[0].numpy(), np.asarray(jdx), **TOL32)
-    for (name, _), g in zip(pt.items(), grads[1:]):
-        np.testing.assert_allclose(g.numpy(), np.asarray(jdp[name]),
-                                   err_msg=name, **TOL32)
-    assert float(grads[1 + list(pt).index("router")].abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -351,53 +241,6 @@ def test_chained_steps_from_reference_checkpoint(arch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# serving
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_and_decode_match_reference(arch):
-    jmodel, model = _models(arch)
-    prompt, gen = 12, 3
-    T = prompt + gen
-    jd = jax_single_device_config(param_dtype=jnp.float32,
-                                  reduce_dtype=jnp.float32)
-    metas = jmodel.metas(jd)
-    full = _full_np(jmodel, seed=9)
-    storage = {k: japi.shard_params(jax.tree.map(jnp.asarray, full[k]),
-                                    metas[k], jd) for k in metas}
-    jparams = JSV.serve_params_from_storage(jmodel, storage, jd)
-    jpf, mesh = JSV.make_prefill_step(jmodel, jd,
-                                      JShapeConfig("p", T, B, "prefill"))
-    jdec, _ = JSV.make_decode_step(jmodel, jd,
-                                   JShapeConfig("d", T, B, "decode"),
-                                   mesh=mesh)
-    rng = np.random.default_rng(0)
-    tokens = np.pad(rng.integers(3, model.cfg.vocab, (B, prompt)),
-                    ((0, 0), (0, gen)), constant_values=3)
-    jlogits, jcache = jpf(jparams, {"tokens": jnp.asarray(tokens,
-                                                          jnp.int32)})
-
-    dcfg = single_device_config(param_dtype=torch.float32)
-    params = SV.serve_params_from_jax(jax.tree.map(np.asarray, jparams),
-                                      model, dcfg, device="cpu")
-    pf = SV.make_prefill_step(model, dcfg, ShapeConfig("p", T, B, "prefill"))
-    dec = SV.make_decode_step(model, dcfg, ShapeConfig("d", T, B, "decode"))
-    logits, cache = pf(params, {"tokens": torch.from_numpy(tokens)})
-    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL32)
-    for i in range(gen):
-        tok = logits.argmax(-1)
-        assert np.array_equal(tok.numpy(), np.asarray(jlogits).argmax(-1))
-        pos = torch.full((B,), prompt + i, dtype=torch.int64)
-        logits, cache = dec(params, cache, tok, pos)
-        jlogits, jcache = jdec(jparams, jcache,
-                               jnp.asarray(tok.numpy(), jnp.int32),
-                               jnp.asarray(pos.numpy(), jnp.int32))
-        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
-                                   err_msg=f"decode {i}", **TOL32)
-    for got, want in zip(cache, jcache):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
-
-
-# ---------------------------------------------------------------------------
 # sizes, launcher, unported layouts
 # ---------------------------------------------------------------------------
 def test_full_config_sizes_and_layout():
@@ -429,16 +272,12 @@ def test_full_config_sizes_and_layout():
     assert capacity(q3, 4 * 2048, 128) == 640
 
 
-def test_train_launcher_trains_moe_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen2_moe_a2_7b", "--smoke", "--device", "cpu", "--steps", "2",
-         "--seq", "16", "--batch", "2", "--dtype", "float32", "--ckpt-dir",
-         str(tmp_path)], env=env, capture_output=True, text=True,
-        timeout=300)
-    assert r.returncode == 0, r.stderr
-    lines = r.stdout.splitlines()
+def test_train_launcher_trains_moe_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train as launch_train
+    launch_train.main(["--arch", "qwen2_moe_a2_7b", "--smoke", "--device",
+                       "cpu", "--steps", "2", "--seq", "16", "--batch", "2",
+                       "--dtype", "float32", "--ckpt-dir", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("plan: mesh[data=1xmodel=1]")
     steps = [l.split() for l in lines if l.startswith("step ")]
     assert len(steps) == 2 and np.isfinite([float(s[3]) for s in steps]).all()
@@ -446,22 +285,6 @@ def test_train_launcher_trains_moe_on_cpu(tmp_path):
     assert all(s[-4:] == ["moe_aux", "0", "moe_drops", "0"] for s in steps)
     assert (tmp_path / "step_00000002" / "params__blocks__mlp__we_g.npy") \
         .exists()
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_launchers_run_moe_on_cpu_and_raise_without_cuda(arch, tmp_path,
-                                                         capsys):
-    from repro_torch.launch import serve as launch_serve
-    from repro_torch.launch import train as launch_train
-    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                       "--batch", "2", "--prompt-len", "6", "--gen", "3"])
-    assert "generated:" in capsys.readouterr().out
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            launch_serve.main(["--arch", arch, "--smoke"])
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            launch_train.main(["--arch", arch, "--smoke", "--steps", "1",
-                               "--ckpt-dir", str(tmp_path)])
 
 
 def test_tp_above_one_raises_pointedly():

@@ -44,6 +44,8 @@ from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import PORTED, get_arch
 from repro_torch.train.train_step import step_wire_metrics
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 # xlstm's plans are held in tests/test_torch_xlstm.py at SMOKE: over its
 # 67-leaf superblock the joint precision DP (auto_dp with comm_precision
 # auto) takes ~9 s a SMOKE plan and ~70 s a full-width plan on each side.

@@ -27,6 +27,8 @@ from repro_torch.models.dense import DenseLM
 from repro_torch.models.registry import ARCH_IDS, PORTED, get_arch
 from repro_torch.train import serve as SV
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -51,7 +53,8 @@ def test_imports_neither_jax_nor_the_reference():
         "for m in ('kernels.cross_entropy.ops', 'kernels.adamw.ops',\n"
         "          'kernels.quant.ops', 'kernels.quant.ref',\n"
         "          'kernels.ssd.ops', 'kernels.ssd.ref', 'models.zamba2',\n"
-        "          'models.xlstm', 'configs.zamba2_1_2b',\n"
+        "          'models.xlstm', 'configs.zamba2_1_2b', 'models.vlm',\n"
+        "          'configs.internvl2_26b',\n"
         "          'core.collectives', 'core.stack', 'core.api',\n"
         "          'core.hw', 'core.irgraph', 'core.autowrap',\n"
         "          'core.bucketing', 'core.memory', 'core.memory.simulator',\n"
@@ -86,11 +89,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_launcher_runs_end_to_end_on_cpu():
-    r = _run(["-m", "repro_torch.launch.serve", "--smoke", "--device",
-              "cpu", "--gen", "3"])
-    assert r.returncode == 0, r.stderr
-    lines = r.stdout.splitlines()
+def test_launcher_runs_end_to_end_on_cpu(capsys):
+    launch.main(["--smoke", "--device", "cpu", "--gen", "3"])
+    lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("generated:")
     assert any(l.startswith("steady:") for l in lines)
 
@@ -110,10 +111,11 @@ def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
-    """Each ported arch builds its family's model class; the other one
-    raises "not yet ported"."""
+    """Every one of the reference's eleven archs is ported and builds its
+    family's model class; an unknown id raises."""
     from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.moe import MoELM
+    from repro_torch.models.vlm import VLM
     from repro_torch.models.xlstm import XLSTMLM
     from repro_torch.models.zamba2 import Zamba2LM
     want = {"llama3_8b": ("dense", DenseLM), "qwen3_1_7b": ("dense", DenseLM),
@@ -124,17 +126,15 @@ def test_registry_ports_two_archs_and_names_the_rest():
             "qwen2_moe_a2_7b": ("moe", MoELM),
             "zamba2_1_2b": ("zamba", Zamba2LM),
             "xlstm_1_3b": ("xlstm", XLSTMLM),
-            "seamless_m4t_large_v2": ("encdec", EncDecLM)}
-    assert set(PORTED) == set(want)
+            "seamless_m4t_large_v2": ("encdec", EncDecLM),
+            "internvl2_26b": ("vlm", VLM)}
+    assert set(PORTED) == set(want) == set(ARCH_IDS)
+    assert len(PORTED) == len(ARCH_IDS) == 11
     for arch in PORTED:
         for smoke in (True, False):
             cfg, model = get_arch(arch, smoke=smoke)
             family, cls = want[arch]
             assert cfg.family == family and type(model) is cls, arch
-    assert len(set(ARCH_IDS) - set(PORTED)) == 1
-    for arch in set(ARCH_IDS) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("no_such_arch")
 
@@ -172,29 +172,28 @@ def test_full_width_llama3_layout_and_size():
     assert m["head"].global_shape == (4096, 128_256)
 
 
-def test_train_launcher_runs_end_to_end_on_cpu(tmp_path):
-    r = _run(["-m", "repro_torch.launch.train", "--smoke", "--no-reorder",
-              "--device", "cpu", "--steps", "2", "--seq", "16", "--batch",
-              "2", "--dtype", "float32", "--ckpt-dir", str(tmp_path)])
-    assert r.returncode == 0, r.stderr
-    lines = r.stdout.splitlines()
+def test_train_launcher_runs_end_to_end_on_cpu(tmp_path, capsys):
+    launch_train.main(["--smoke", "--no-reorder", "--device", "cpu",
+                       "--steps", "2", "--seq", "16", "--batch", "2",
+                       "--dtype", "float32", "--ckpt-dir", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("plan: mesh[data=1xmodel=1]")
     assert [l.split()[:2] for l in lines if l.startswith("step ")] == \
         [["step", "1"], ["step", "2"]]
     assert (tmp_path / "step_00000002" / "manifest.json").exists()
 
 
-def test_train_launcher_runs_the_planners_on_cpu(tmp_path):
+def test_train_launcher_runs_the_planners_on_cpu(tmp_path, capsys):
     """--bucket-mode auto_dp, --comm-precision auto and --remat auto:<GB>
     resolve and train 3 steps: the printed plan shows the per-bucket
     precisions and the memory plan."""
-    r = _run(["-m", "repro_torch.launch.train", "--smoke", "--device",
-              "cpu", "--steps", "3", "--seq", "16", "--batch", "4",
-              "--dtype", "float32", "--bucket-mode", "auto_dp",
-              "--comm-precision", "auto", "--remat", "auto:0.5",
-              "--ckpt-dir", str(tmp_path)])
-    assert r.returncode == 0, r.stderr
-    plan = r.stdout.splitlines()[0]
+    launch_train.main(["--smoke", "--device", "cpu", "--steps", "3",
+                       "--seq", "16", "--batch", "4", "--dtype", "float32",
+                       "--bucket-mode", "auto_dp", "--comm-precision",
+                       "auto", "--remat", "auto:0.5", "--ckpt-dir",
+                       str(tmp_path)])
+    out = capsys.readouterr().out
+    plan = out.splitlines()[0]
     assert plan.startswith("plan: mesh[data=1xmodel=1]")
     # at one rank every candidate costs 0, so the memory plan keeps the
     # per-param partition (the smallest gathered peak), as the reference;
@@ -202,7 +201,7 @@ def test_train_launcher_runs_the_planners_on_cpu(tmp_path):
     # describe() omits them)
     assert " remat=auto:0.5 buckets[blocks:11] comm=auto(bf16) " in plan
     assert " mem[remat[" in plan and "budget=0.50GiB" in plan
-    losses = [float(l.split()[3]) for l in r.stdout.splitlines()
+    losses = [float(l.split()[3]) for l in out.splitlines()
               if l.startswith("step ")]
     assert len(losses) == 3 and all(np.isfinite(losses))
 
@@ -258,19 +257,20 @@ def test_quantized_prefetch_training_runs_on_cpu_without_the_build(
     assert (tmp_path / "step_00000002" / "ef__blocks__mlp__wg.npy").exists()
 
 
-def test_train_launcher_obs_flags_write_their_files(tmp_path):
+def test_train_launcher_obs_flags_write_their_files(tmp_path, capsys):
     """--metrics-jsonl, --trace-out, --profile-out and --replan-threshold /
     --replan-patience / --replan-apply on the CPU: a registry line a step,
     the profile JSON, the trace, the drift report and the replan line."""
     out = {k: tmp_path / f"{k}" for k in ("m.jsonl", "p.json", "t.json")}
-    r = _run(["-m", "repro_torch.launch.train", "--smoke", "--device",
-              "cpu", "--steps", "4", "--seq", "16", "--batch", "4",
-              "--dtype", "float32", "--ckpt-dir", str(tmp_path / "ck"),
-              "--metrics-jsonl", str(out["m.jsonl"]),
-              "--profile-out", str(out["p.json"]),
-              "--trace-out", str(out["t.json"]), "--replan-threshold", "0",
-              "--replan-patience", "2", "--replan-apply"])
-    assert r.returncode == 0, r.stderr
+    launch_train.main(["--smoke", "--device", "cpu", "--steps", "4",
+                       "--seq", "16", "--batch", "4", "--dtype", "float32",
+                       "--ckpt-dir", str(tmp_path / "ck"),
+                       "--metrics-jsonl", str(out["m.jsonl"]),
+                       "--profile-out", str(out["p.json"]),
+                       "--trace-out", str(out["t.json"]),
+                       "--replan-threshold", "0", "--replan-patience", "2",
+                       "--replan-apply"])
+    stdout = capsys.readouterr().out
     rows = [json.loads(l) for l in out["m.jsonl"].read_text().splitlines()]
     assert [row["step"] for row in rows] == [1, 2, 3, 4]
     m = rows[-1]["metrics"]
@@ -280,7 +280,7 @@ def test_train_launcher_obs_flags_write_their_files(tmp_path):
         {"attn", "mlp"}
     doc = json.loads(out["t.json"].read_text())
     assert {e["pid"] for e in doc["traceEvents"]} == {1, 2}   # + overlay
-    lines = r.stdout.splitlines()
+    lines = stdout.splitlines()
     assert any(l.startswith("drift report (4 observations)") for l in lines)
     assert any(l.startswith("replan: changed=True applied=True")
                for l in lines)

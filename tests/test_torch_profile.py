@@ -55,6 +55,8 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import trainer as trainer_mod
 from repro_torch.train.train_step import step_wire_metrics
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 DENSE = ("llama3_8b", "qwen3_1_7b")
 PEAK = re.compile(r"peak=[0-9.]+GiB")
 

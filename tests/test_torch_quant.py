@@ -91,6 +91,8 @@ from repro_torch.optim.adamw import AdamWConfig, error_feedback, \
     init_opt_state
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 B, S, LR, STEPS = 4, 16, 1e-3, 2
 ARCH = "qwen3_1_7b"

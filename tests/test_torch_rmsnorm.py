@@ -16,6 +16,8 @@ from repro.kernels.rmsnorm import ops as jops, ref as jref
 
 from repro_torch.kernels.rmsnorm import ops
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 DTYPES = {"float32": (jnp.float32, torch.float32),

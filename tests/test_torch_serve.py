@@ -11,9 +11,7 @@ in summation order.
 import dataclasses
 import json
 import os
-import subprocess
 import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +31,9 @@ from repro_torch.models.dense import DenseLM
 from repro_torch.models.registry import get_arch
 from repro_torch.train import serve as TSV
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
-SRC = Path(__file__).resolve().parents[1] / "src"
 B, PROMPT, GEN = 2, 12, 4
 T = PROMPT + GEN
 # The attention flags the port's dense model threads through to the
@@ -142,25 +141,26 @@ def test_init_serve_params_follows_the_reference_distributions(arch):
         assert abs(std(params["head"]) - scaled) < 0.1 * scaled
 
 
-def _launch(args, timeout=300):
-    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
-    return subprocess.run([sys.executable, "-m", *args], env=env,
-                          capture_output=True, text=True, timeout=timeout)
-
-
-def test_launcher_int8_kv_and_metrics_jsonl_match_reference(tmp_path):
+def test_launcher_int8_kv_and_metrics_jsonl_match_reference(tmp_path, capsys,
+                                                           monkeypatch):
     """`--int8-kv` and `--metrics-jsonl` on the CPU: the port's launcher
     serves with the int8 cache and writes one registry line whose keys,
-    `serve/*` gauges and their kinds are the reference launcher's."""
+    `serve/*` gauges and their kinds are the reference launcher's.  Both
+    run in this process, the reference's on its one CPU device (it reads
+    sys.argv and prepends its device count to XLA_FLAGS, restored after)."""
+    from repro.launch import serve as jlaunch
+    from repro_torch.launch import serve as launch
     mine, ref = tmp_path / "mine.jsonl", tmp_path / "ref.jsonl"
     common = ["--smoke", "--gen", "3", "--int8-kv"]
-    r = _launch(["repro_torch.launch.serve", *common, "--device", "cpu",
-                 "--metrics-jsonl", str(mine)])
-    assert r.returncode == 0, r.stderr
-    assert "int8_kv=True" in r.stdout and f"metrics: {mine}" in r.stdout
-    r = _launch(["repro.launch.serve", *common, "--devices", "1", "--mesh",
-                 "1,1", "--metrics-jsonl", str(ref)])
-    assert r.returncode == 0, r.stderr
+    launch.main([*common, "--device", "cpu", "--metrics-jsonl", str(mine)])
+    out = capsys.readouterr().out
+    assert "int8_kv=True" in out and f"metrics: {mine}" in out
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    monkeypatch.setattr(sys, "argv", ["serve", *common, "--devices", "1",
+                                      "--mesh", "1,1", "--metrics-jsonl",
+                                      str(ref)])
+    jlaunch.main()
+    assert f"metrics: {ref}" in capsys.readouterr().out
     rows = [json.loads(p.read_text()) for p in (mine, ref)]
     assert all(len(p.read_text().splitlines()) == 1 for p in (mine, ref))
     got, want = rows

@@ -51,6 +51,8 @@ from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import get_arch
 from repro_torch.train import serve as SV
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 # logits under a KV codec, port vs reference: both quantize K/V that agree
 # to fp32 rounding, so a code may land one step apart where a value sits

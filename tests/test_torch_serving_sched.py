@@ -54,6 +54,8 @@ from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import get_arch
 from repro_torch.train import serve as SV
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 
 

@@ -42,6 +42,8 @@ from repro.kernels.ssd import ref as jref
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ops, ref
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL_REF = dict(rtol=1e-4, atol=1e-4)
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 SHAPES = [  # T, H, P, G, N, chunk

@@ -41,6 +41,8 @@ from repro_torch.models import runtime as RT
 from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import get_arch
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 TOL = dict(rtol=2e-2, atol=2e-2)
 B, S = 4, 16

@@ -37,6 +37,8 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.train_step import init_train_state
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 B, S, STEPS, WARMUP = 4, 16, 3, 1
 

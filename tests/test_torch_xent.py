@@ -18,6 +18,8 @@ from repro.kernels.cross_entropy import ops as jops, ref as jref
 
 from repro_torch.kernels.cross_entropy import ops, ref
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 
 

@@ -31,10 +31,6 @@ reach the port through `storage_from_jax`.
 
 import functools
 import itertools
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -63,12 +59,13 @@ from repro_torch.models import xlstm as X
 from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import get_arch
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 ARCH = "xlstm_1_3b"
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 TOL = dict(rtol=2e-2, atol=2e-2)
 B, S = 2, 40
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _np(a):
@@ -330,15 +327,12 @@ def test_plans_and_exposure_equal_reference(mode):
         assert p.describe() == jp.describe(), case
 
 
-def test_train_launcher_trains_xlstm_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
-         "--smoke", "--device", "cpu", "--steps", "2", "--seq", "20",
-         "--batch", "2", "--dtype", "float32", "--ckpt-dir", str(tmp_path)],
-        env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
-    lines = r.stdout.splitlines()
+def test_train_launcher_trains_xlstm_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train as launch_train
+    launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                       "--steps", "2", "--seq", "20", "--batch", "2",
+                       "--dtype", "float32", "--ckpt-dir", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("plan: mesh[data=1xmodel=1]")
     losses = [float(l.split()[3]) for l in lines if l.startswith("step ")]
     assert len(losses) == 2 and np.isfinite(losses).all()

@@ -46,6 +46,8 @@ from repro_torch.models.registry import get_arch
 from repro_torch.models.xlstm import MLSTM_STATE, SLSTM_STATE
 from repro_torch.train import serve as SV
 
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
+
 ARCH = "xlstm_1_3b"
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 TOL = dict(rtol=2e-2, atol=2e-2)

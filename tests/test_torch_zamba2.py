@@ -11,23 +11,19 @@ runs.
     `parallelize(...).loss_step()` in fp32 at TOL32 (rtol 2e-4, atol
     2e-5) for remat in {none, fsdp_only, full} x reorder in {False, True}
     (remat and the schedule do not change the reference's numbers, so it
-    runs once), and once in bf16 at TOL (2e-2);
-  * 3 chained AdamW steps through the port's `Trainer` at TOL32, and a
-    checkpoint written by the reference after step 2 resumed by the port;
+    runs once);
   * collectives per loss step: each Mamba layer's bucket once, or twice
     when the layer is recomputed; the shared block's 9 leaves once per
     invocation (2 in SMOKE), twice when the invocation is rematerialised;
-  * the launcher trains zamba2 on the CPU end to end;
   * the full config's size (1,245,814,912 parameters, the sum of the
     metas; the reference's `n_params` says 3,318,898,688) and layout;
   * the parts not ported yet raise.
+
+The bf16 loss step, the chained steps and the launcher are in
+tests/test_torch_zamba2_steps.py, which shares this file's helpers.
 """
 
 import functools
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
 from repro.core import api as japi
 from repro.core.dist import single_device_config as jax_single_device_config
 from repro.data.pipeline import DataConfig, SyntheticC4
@@ -43,8 +38,6 @@ from repro.models import runtime as JRT
 from repro.models.common import ShapeConfig as JShapeConfig
 from repro.models.registry import get_arch as jax_get_arch
 from repro.models.xlstm import causal_conv1d as jax_causal_conv1d
-from repro.optim.adamw import AdamWConfig as JAdamWConfig, init_opt_state
-from repro.train.train_step import default_schedule as jax_default_schedule
 
 from repro_torch.core import api
 from repro_torch.core import collectives as coll
@@ -56,16 +49,14 @@ from repro_torch.models.common import ShapeConfig
 from repro_torch.models.registry import get_arch
 from repro_torch.models.xlstm import causal_conv1d
 from repro_torch.models.zamba2 import Zamba2LM
-from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.train_step import init_train_state
-from repro_torch.train.trainer import Trainer, TrainerConfig
+
+torch.set_num_threads(1)  # small tensors: spare the test workers' cores
 
 ARCH = "zamba2_1_2b"
 TOL32 = dict(rtol=2e-4, atol=2e-5)
 TOL = dict(rtol=2e-2, atol=2e-2)
 B, S, STEPS, WARMUP = 4, 24, 3, 1
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _batch(vocab, step=0):
@@ -170,15 +161,6 @@ def test_loss_and_grads_match_reference(remat, reorder):
     _close(grads, want_grads, f"remat={remat} reorder={reorder} grad")
 
 
-def test_bf16_loss_and_grads_match_reference():
-    storage_np, batch, want_loss, want_grads = _reference(torch.bfloat16)
-    model, dcfg, par = _port(dtype=torch.bfloat16)
-    storage = RT.storage_from_jax(storage_np, model, dcfg, device="cpu")
-    loss, grads = par.loss_step()(storage, batch)
-    np.testing.assert_allclose(float(loss), want_loss, **TOL)
-    _close(grads, want_grads, "bf16 grad", TOL)
-
-
 @pytest.mark.parametrize("remat", ["none", "fsdp_only"])
 @pytest.mark.parametrize("reorder", [False, True])
 def test_collective_counts_per_step(remat, reorder):
@@ -200,69 +182,6 @@ def test_collective_counts_per_step(remat, reorder):
     assert coll.gathers - g0 == twice * layers + (
         2 if remat != "none" else 1) * shared + 3
     assert coll.reduce_scatters - r0 == layers + shared + 3
-
-
-def test_chained_steps_and_checkpoint_resume_match_reference(tmp_path):
-    jcfg, jmodel = jax_get_arch(ARCH, smoke=True)
-    jdcfg = jax_single_device_config(param_dtype=jnp.float32,
-                                     reduce_dtype=jnp.float32, reorder=False)
-    ocfg = JAdamWConfig()
-    par = japi.parallelize(jmodel, jdcfg, JShapeConfig("t", S, B, "train"))
-    step_fn = par.train_step(ocfg, jax_default_schedule(ocfg, STEPS, WARMUP),
-                             donate=False)
-    storage = JRT.init_storage(jmodel, jax.random.PRNGKey(0), jdcfg)
-    opt = init_opt_state(storage)
-    init = jax.tree.map(np.asarray, storage)
-    want = []
-    for step in range(STEPS):
-        if step == STEPS - 1:
-            JCheckpointer(str(tmp_path)).save(step, storage, opt, jmodel,
-                                              jdcfg)
-        storage, opt, m = step_fn(storage, opt, {
-            k: jnp.asarray(v) for k, v in _batch(jcfg.vocab, step).items()})
-        want.append(jax.tree.map(float, m))
-
-    # the port's Trainer (the launcher's default schedule: the prefetch
-    # stack), chained from the same initial storage
-    _, model = get_arch(ARCH, smoke=True)
-    dcfg = DistConfig(param_dtype=torch.float32)
-    trainer = Trainer(model, dcfg, ShapeConfig("t", S, B, "train"),
-                      AdamWConfig(), TrainerConfig(
-                          total_steps=STEPS, log_every=1, warmup=WARMUP,
-                          ckpt_dir=str(tmp_path)), device="cpu")
-    tstore = RT.storage_from_jax(init, model, dcfg, device="cpu")
-    topt = init_train_state(trainer.par, torch.Generator())[1]
-    for step in range(STEPS):
-        tstore, topt, m = trainer.step_fn(tstore, topt,
-                                          _batch(jcfg.vocab, step))
-        for k in ("loss", "grad_norm", "lr"):
-            np.testing.assert_allclose(float(m[k]), want[step][k],
-                                       err_msg=f"step {step} {k}", **TOL32)
-    _close(tstore, storage, "storage")
-    _close(topt["m"], opt["m"], "m")
-    _close(topt["v"], opt["v"], "v")
-
-    # the reference's checkpoint of step 2, shared block included, resumed
-    rstore, ropt, hist = trainer.run()
-    assert [h["step"] for h in hist] == [STEPS]
-    np.testing.assert_allclose(hist[0]["loss"], want[-1]["loss"], **TOL32)
-    _close(rstore, storage, "resumed storage")
-    _close(ropt["v"], opt["v"], "resumed v")
-
-
-def test_train_launcher_trains_zamba2_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
-         "--smoke", "--device", "cpu", "--steps", "2", "--seq", "20",
-         "--batch", "2", "--dtype", "float32", "--ckpt-dir", str(tmp_path)],
-        env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
-    lines = r.stdout.splitlines()
-    assert lines[0].startswith("plan: mesh[data=1xmodel=1]")
-    losses = [float(l.split()[3]) for l in lines if l.startswith("step ")]
-    assert len(losses) == 2 and np.isfinite(losses).all()
-    assert (tmp_path / "step_00000002" / "params__shared__wq.npy").exists()
 
 
 def test_full_config_size_and_layout():
