@@ -31,8 +31,9 @@ without printing the final line):
      FLASH_BF16_GRAD_RMS_REL, which P or dS in one bf16 part, a query head
      left out of dK/dV and D = 0, planted there, must fail; fp32 at TOL32,
      which one TF32 product must miss), two backward calls bit-identical,
-     and the ms of fwd + bwd and of the backward alone (wall, device) beside
-     SDPA's backward and the bound.
+     (bf16) each dQ tile's count of key blocks' partials equal to
+     `ops.bwd_schedule`'s, and the ms of fwd + bwd and of the backward
+     alone (wall, device) beside SDPA's backward and the bound.
   3. quant kernels vs plain: the wire codec's quant and dequant kernels,
      fp8 / int8 x RTN / SR x f32 / bf16 inputs at 129, 5000, the largest
      bucket of the full-width path, one pass of the SR seed kernel's grid
@@ -384,6 +385,7 @@ bounds of tests/dist_harness.py's quant case (QUANT_LOSS_RTOL, drift).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import re
@@ -446,12 +448,13 @@ SSD_BF16_GRAD_RMS_REL = 3e-4
 # the error over RMS of the plain reverse pass's (`ref.attention_bwd` on
 # the forward's o and lse, fp32 inside, one rounding to bf16).  Autograd
 # through the plain version rounds its bf16 output before the cotangent
-# meets it, so it is no yardstick at this grain.  The backward kernels read
-# 1.1e-4 (dq) to 4.4e-4 (dk, dv at qwen3-moe's group of 8: the longest
-# sums) at this script's three training shapes; P in one bf16 part reads
+# meets it, so it is no yardstick at this grain.  The one-pass backward
+# kernel reads 9.1e-5 (dq) to 5.7e-4 (dv at qwen3-moe's group of 8: the
+# longest sums) at this script's six bf16 shapes (the two-kernel one
+# before it read 1.1e-4 to 4.4e-4 at three); P in one bf16 part reads
 # 2.48e-3 to 2.51e-3 (dv), dS in one bf16 part 2.56e-3 to 2.63e-3 (dq,
-# dk), and TOL passes both (NVIDIA H100 80GB HBM3, 700 W).  The limit sits
-# between, ~2.3x above the kernels' highest reading.
+# dk), and TOL passes both (NVIDIA H100 80GB HBM3, 700 W).  The limit
+# sits between, ~1.8x above the kernel's highest reading.
 FLASH_BF16_GRAD_RMS_REL = 1e-3
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 rate and peak rates;
 # PEAK_FLOPS for elementwise work (fp32 on the CUDA cores)
@@ -707,6 +710,10 @@ def phase_device(state):
             f"{spills[0]} / {spills[1]}")
         if any(spills) and ("flash" in name or "rmsnorm" in name):
             spilled.append(name)
+    smem = lib.cdll.flash_attention_bwd_sm90_smem
+    smem.restype = ctypes.c_int
+    say("  flash_bwd_sm90_kernel dynamic shared memory a block: " + ", ".join(
+        f"hd {hd} {smem(hd)} B" for hd in (16, 32, 64, 128)))
     if spilled:
         raise AssertionError(f"the flash or rmsnorm kernels spill: {spilled}")
 
@@ -963,7 +970,22 @@ def flash_grad_case(state, key, what, b, s, h, kh, hd, kw, dtype, g,
 
     bwd = lambda: flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct,
                                                      **kw)
-    got, again = bwd(), bwd()
+    if bf16:
+        *got, counts = flash_ops.flash_attention_bwd_cuda(
+            q, k, v, o, lse, ct, with_counts=True, **kw)
+        want_counts = torch.tensor(
+            [len(x) for x in flash_ops.bwd_schedule(
+                s, s, kw.get("causal", True), kw.get("window"))],
+            dtype=torch.int32, device=dev).expand(b, h, -1)
+        if not torch.equal(counts, want_counts):
+            raise AssertionError(f"{what}: the dQ tiles' counts of partials "
+                                 "differ from ops.bwd_schedule's")
+        say(f"  {what}: every dQ tile took the {int(want_counts.sum())} "
+            "key-block partials ops.bwd_schedule lists, in its order")
+        del counts, want_counts
+    else:
+        got = bwd()
+    again = bwd()
     if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
         raise AssertionError(f"{what}: two backward calls differ")
     say(f"  {what}: two backward calls bit-identical")
@@ -7107,8 +7129,10 @@ def kernels_line(state):
             encdec=[state["encdec_flash_bwd_non-causal"],
                     state["encdec_flash_bwd_causal"]],
             vlm=state["vlm_flash_bwd"],
-            kernel="flash_bwd_dq_sm90_kernel (D, dQ), then "
-                   "flash_bwd_dkdv_sm90_kernel (dK, dV): wgmma, TMA"),
+            kernel="flash_bwd_prep_sm90_kernel (lse, D), then one pass "
+                   "flash_bwd_sm90_kernel (S^T, dP^T once a pair; dK, dV; "
+                   "dQ partials summed in a fixed order by bulk reduce), "
+                   "then flash_bwd_dq_sm90_kernel (dq): wgmma, TMA"),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_bwd_f32", "flash_bwd_f32", "flash_attention.cu",
             "flash_attention/ops.py:62", "flash_bwd_f32",

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
 // (flash_attention_sm90.cu, the forward; flash_attention_bwd_sm90.cu, the
-// backward): mbarriers, TMA loads through tensor maps, wgmma with its
-// shared-memory descriptors, setmaxnreg, and the bf16 hi + lo split.
+// backward): mbarriers, TMA loads through tensor maps, bulk copies, wgmma
+// with its shared-memory descriptors, setmaxnreg, flags between blocks, and
+// the bf16 hi + lo split.
 #pragma once
 
 // CUtensorMap and its enums; the encoder is fetched through the runtime
@@ -108,6 +109,36 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Shared memory at 32-bit addresses (no 64-bit generic pointer kept live)
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts_f2(uint32_t addr, float2 v) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y)
+               : "memory");
+}
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ int lds_volatile(uint32_t addr) {
+  int v;
+  asm volatile("ld.volatile.shared.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts_volatile(uint32_t addr, int v) {
+  asm volatile("st.volatile.shared.s32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
 }
 
 // A barrier over the 128 threads of one warpgroup (`id` 1..15; 0 is
@@ -254,8 +285,141 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x N, fp32) (+)= A(64 x 16) B(16 x N), both in shared memory: A
+// K-major (TA = 0) or MN-major (TA = 1, its transpose bit set), B MN-major
+// (transpose bit set); scale_d = 0 overwrites.  N = 16, 32, 64 or 128 by
+// d's size.
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[8], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 1;\n}\n"
+      : R4(0), R4(4)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, 1;\n}\n"
+      : R16(0)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, %35, 1;\n}\n"
+      : R16(0), R16(16)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, 1;\n}\n"
+      : R16(0), R16(16), R16(32), R16(48)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
 #undef R16
 #undef R4
+
+// ---- bulk copies and flags between blocks ----------------------------------
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global memory
+// to shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared memory at `src` to global memory at `dst`: a copy, or (add) an
+// elementwise fp32 sum into what `dst` holds.  Completes with
+// bulk_commit(), then bulk_wait_read() / bulk_wait_all().
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_add_f32(float* dst, uint32_t src,
+                                             uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], "
+      "%2;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's committed bulk stores have read their sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Waits until this thread's committed bulk stores have completed, their
+// writes included.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy accesses of shared (global) memory
+// with the async proxy's (TMA, bulk copies, wgmma operands).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Spins until the counter at `flag` reads `value` or more (acquire, device
+// scope).  As mbar_wait, a wait of ~2^35 cycles traps instead of hanging
+// the card.
+__device__ __forceinline__ void wait_flag(const int* flag, int value) {
+  long long start = 0;
+  for (;;) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(flag)
+                 : "memory");
+    if (v >= value) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
+    }
+  }
+}
+// Adds one to the counter at `flag` (release, device scope).
+__device__ __forceinline__ void bump_flag(int* flag) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(flag)
+               : "memory");
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;

@@ -282,12 +282,14 @@ def test_flash_gradient_matches_plain_autograd(dev, S, T_chunk, dtype,
             a.float(), b.float(), **(TOL32 if dtype == torch.float32 else TOL))
 
 
-# The backward kernels (bf16: flash_attention_bwd_sm90.cu, 128-key dK/dV
-# blocks over 64-row Q tiles and 128-row dQ blocks over 64-key tiles; fp32:
-# flash_attention.cu, 64-row / 64-key blocks over 32-row / 32-key tiles) on
-# the forward's o and lse, against the plain reverse pass and autograd
-# through the plain version: tile edges, windows with a softcap, head dims
-# and groups, q_scale, non-causal, qwen3's S = T = 2048 at H16 / Kh8.
+# The backward kernels (bf16: flash_attention_bwd_sm90.cu, one pass over
+# work items of 128 keys of a (b, kv head) that walk 64-row Q / dO tiles for
+# the group's query heads, dQ summed over key blocks in a fixed order;
+# fp32: flash_attention.cu, 64-row / 64-key blocks over 32-row / 32-key
+# tiles) on the forward's o and lse, against the plain reverse pass and
+# autograd through the plain version: tile edges, windows with a softcap,
+# head dims and groups, q_scale, non-causal, qwen3's S = T = 2048 at H16 /
+# Kh8.
 FLASH_BWD_CASES = [  # (B, T, H, Kh, hd, kwargs)
     (1, 127, 4, 2, 128, dict(causal=True)),
     (1, 128, 4, 2, 128, dict(causal=True)),
@@ -359,6 +361,41 @@ def test_flash_bwd_kernels_are_deterministic(dev, dtype):
     a = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct)
     b = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# Many key blocks adding into each dQ tile in their fixed order: a GQA
+# group of 6 at T 2048 (16 key blocks), a window with a softcap at T 4096,
+# and a window edge at hd 64
+FLASH_BWD_ORDERED = [
+    (2, 2048, 12, 2, 128, dict(causal=True)),
+    (1, 4096, 4, 2, 128, dict(causal=True, window=1000, softcap=50.0,
+                              q_scale=1 / 16)),
+    (2, 600, 4, 2, 64, dict(causal=True, window=129, softcap=30.0)),
+]
+
+
+@pytest.mark.parametrize("B,T,H,Kh,hd,kw", FLASH_BWD_ORDERED)
+def test_flash_bwd_bf16_is_bit_identical_and_keeps_no_state(dev, B, T, H,
+                                                            Kh, hd, kw):
+    """Two bf16 backward calls agree bit for bit, with a call on other
+    inputs between them (its scratch, likely the same memory, carries
+    nothing over), and each dQ tile took as many key blocks' partials as
+    `ops.bwd_schedule` lists for it."""
+    q, k, v, ct = _flash_bwd_inputs(dev, B, T, H, Kh, hd, torch.bfloat16)
+    o, lse = _fwd_lse(q, k, v, kw)
+    first = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct,
+                                               with_counts=True, **kw)
+    q2, k2, v2, ct2 = (_randn(dev, *t.shape, dtype=torch.bfloat16,
+                              seed=10 + i)
+                       for i, t in enumerate((q, k, v, ct)))
+    o2, lse2 = _fwd_lse(q2, k2, v2, kw)
+    flash_ops.flash_attention_bwd_cuda(q2, k2, v2, o2, lse2, ct2, **kw)
+    again = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first[:3], again))
+    want = torch.tensor([len(x) for x in flash_ops.bwd_schedule(
+        T, T, kw["causal"], kw.get("window"))], dtype=torch.int32,
+        device=dev)
+    assert torch.equal(first[3], want.expand(B, H, -1))
 
 
 def test_flash_bwd_bf16_plants_miss_their_limits(dev):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The flash-attention gradient's readings at the three training shapes of
-`chip_smoke.py` (qwen3-1.7b's layer B4 T2048 H16 Kh8 hd128 causal, qwen3-moe's
-group of 8 H32 Kh4, gemma2-27b's local layer B1 T8192 H32 Kh16 window 4096
-softcap 50 q_scale 1/16; bf16), for the checkout whose root is given:
+"""The flash-attention gradient's readings at the six bf16 shapes of
+`chip_smoke.flash_grad_case` (qwen3-1.7b's layer B4 T2048 H16 Kh8 hd128
+causal, qwen3-moe's group of 8 H32 Kh4, gemma2-27b's local layer B1 T8192
+H32 Kh16 window 4096 softcap 50 q_scale 1/16, seamless-m4t-large-v2's hd 64
+B4 T1024 H16 Kh16 non-causal and causal, internvl2-26b's group of 6 B2 T2048
+H48 Kh8), for the checkout whose root is given:
 
     python3 tools/flash_grad_readings.py [ROOT]     # on the card; ROOT: .
 
@@ -12,7 +14,8 @@ heads at T 8192), SDPA (without the softcap, a boolean mask under the window)
 and the bound, then the backward alone: wall and device ms (CUDA events behind
 a sleep kernel) of the op's and of SDPA's, beside the bound. It reads only
 what every checkout since gemma2's port has (`ops`, `ref`, `chip_smoke`'s
-timers, `_grads` and `_sdpa_fn`), so a parent checkout gives the "was" line.
+timers, `_grads` and `_sdpa_fn`), so a parent checkout gives the "was" line:
+run it as parent, change, change, parent in one call to compare the two.
 Where the op's backward is slower than the sleep kernel covers, its device
 reading fails and only the fwd + bwd line is printed.
 """
@@ -36,6 +39,12 @@ SHAPES = [  # (label, B, T, H, Kh, hd, kwargs, plain by kv heads)
     ("gemma2-27b local B1 T8192 H32 Kh16 hd128 window 4096 softcap 50 "
      "q_scale 1/16", 1, 8192, 32, 16, 128,
      dict(causal=True, window=4096, softcap=50.0, q_scale=1 / 16), True),
+    ("seamless-m4t-large-v2 B4 T1024 H16 Kh16 hd64 non-causal", 4, 1024, 16,
+     16, 64, dict(causal=False), False),
+    ("seamless-m4t-large-v2 B4 T1024 H16 Kh16 hd64 causal", 4, 1024, 16, 16,
+     64, dict(causal=True), False),
+    ("internvl2-26b group 6 B2 T2048 H48 Kh8 hd128 causal", 2, 2048, 48, 8,
+     128, dict(causal=True), False),
 ]
 
 
@@ -48,7 +57,7 @@ def readings(label, b, s, h, kh, hd, kw, by_heads, g):
 
     q, k, v, ct = randn(b, s, h, hd), randn(b, s, kh, hd), \
         randn(b, s, kh, hd), randn(b, s, h, hd)
-    pairs = C._attn_pairs(s, kw.get("window"))
+    pairs = C._attn_pairs(s, kw.get("window")) if kw["causal"] else s * s
     bound, _ = C._bound(0, 3.5 * 4.0 * hd * b * h * pairs, torch.bfloat16,
                         products=True)
     bwd_bound = bound * 2.5 / 3.5
@@ -62,7 +71,8 @@ def readings(label, b, s, h, kh, hd, kw, by_heads, g):
         plain = lambda: C._grads(lambda *a: ref.attention(*a, **kw),
                                  (q, k, v), ct)
     leaves = [a.detach().requires_grad_() for a in (q, k, v)]
-    sd = C._sdpa_fn(*leaves, kw.get("window"), kw.get("q_scale"))
+    sd = C._sdpa_fn(*leaves, kw.get("window"), kw.get("q_scale"),
+                    causal=kw["causal"])
     ctt = ct.transpose(1, 2)
     print(f"  fwd+bwd ms op / plain / SDPA / bound: {C.time_ms(op):.4f} / "
           f"{C.time_ms(plain):.4f} / "
