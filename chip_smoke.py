@@ -84,8 +84,10 @@ without printing the final line):
      backward's own ms (wall, device) beside its bound and the plain
      version's; bf16 dx, ddt, dB and dC also held to SSD_BF16_GRAD_RMS_REL
      of the plain reverse-pass backward, which that backward with M and dM
-     o L in one bf16 part must fail; dA and dD planted from half the
-     chunks' partials and as 0 must fail their checks.
+     o L in one bf16 part must fail, and so must the bf16 backward kernel
+     run with M and the dCB sum in one bf16 part (`bf16_parts=1`); two
+     calls of the bf16 backward bit-identical; dA and dD planted from half
+     the chunks' partials and as 0 must fail their checks.
  6b. zamba2 smoke training, card vs CPU: the launcher's trainer, zamba2
      SMOKE (shared block hd 32, T 40: a ragged SSD chunk), fp32, 3 steps
      from one CPU-made checkpoint, vanilla and prefetch: loss, grad norm,
@@ -117,7 +119,9 @@ without printing the final line):
      block buckets; the same readings, MFU from the FLOPs the step applies
      (the Mamba layers once, the shared block once per invocation, the head,
      attention and the SSD products), ssd forward and backward launches
-     per step and none on the fp32 route.
+     per step and none on the fp32 route; the profiled step's SSD
+     backward on ssd_grad_sm90_kernel, one launch a backward call, and
+     none of the fp32 chunk_grad_kernel.
  10c. full-width auto-planned training (the main path of the eighth
      slice): qwen3-1.7b B4 T2048 through `Trainer` with bucket_mode
      auto_dp, comm_precision auto and remat auto:AUTO_BUDGET_GB under the
@@ -2438,8 +2442,10 @@ def _full_train(state, key, dcfg, need=(), arch="qwen3_1_7b", par=None,
             raise AssertionError(f"ef non-zero outside the *_ef buckets or "
                                  f"zero in all of them: {sorted(live - on)}"
                                  f" / {sorted(on)}")
+    names = {}
     busy, dev_s = _report(f"{key} step (the last timed one)", prof,
-                          times[-1], 1, top=24)
+                          times[-1], 1, top=24, launches=names)
+    state[f"{key}_kernel_names"] = names
     if dev_s is not None:
         # the profiler costs host time per op: set the device time against
         # the unprofiled median step as well
@@ -2459,6 +2465,17 @@ def phase_full_zamba_train(state):
     from repro_torch.core.dist import DistConfig
     _full_train(state, "train_zamba2", DistConfig(),
                 need=("ssd", "ssd_bwd"), arch="zamba2_1_2b")
+    # the profiled step's SSD backward ran on the wgmma kernel: one launch
+    # of ssd_grad_sm90_kernel a backward call, none of the fp32 FMA kernel
+    names = state["train_zamba2_kernel_names"]
+    per_step = state["train_zamba2_launches"]["ssd_bwd"] // TRAIN_STEPS
+    grads = sum(c for k, c in names.items() if "ssd_grad_sm90_kernel" in k)
+    old = sum(c for k, c in names.items() if "chunk_grad_kernel" in k)
+    say(f"  profiled step: ssd_grad_sm90_kernel {grads} launches "
+        f"(ssd_bwd calls a step {per_step}), chunk_grad_kernel {old}")
+    if names and (grads != per_step or old):
+        raise AssertionError("the zamba2 step's SSD backward did not run on "
+                             "ssd_grad_sm90_kernel alone")
 
 
 def _ssd_inputs(g, b, t, h, p, grp, n, dtype, zamba=False):
@@ -2501,6 +2518,39 @@ def _ssd_bwd_bound(b, t, h, p, grp, n, lc, dtype):
               + 4 * h * 4)                     # A, D; dA, dD
     flops = b * h * n_c * ((6 * n + 4 * p) * pairs + 4 * 2 * lc * p * n)
     return nbytes, flops
+
+
+def _check_ssd_bwd_kernel(ins, ct, lc, plain):
+    """The bf16 backward kernel itself (`csrc/ssd_bwd_sm90.cu`), given the
+    forward's states: two calls bit-identical, one launch counted a call,
+    and the kernel with M and the dCB sum in one bf16 part (`bf16_parts=1`,
+    a planted fault inside the kernel) must miss SSD_BF16_GRAD_RMS_REL on
+    dx, ddt, dB and dC against the plain reverse-pass backward `plain`."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    _, states, _ = ssd_ops._forward(*ins, lc)
+    n0 = ssd_ops.bwd_launches
+    one = ssd_ops.ssd_bwd_cuda(*ins, ct, lc, states=states)
+    two = ssd_ops.ssd_bwd_cuda(*ins, ct, lc, states=states)
+    if ssd_ops.bwd_launches != n0 + 2:
+        raise AssertionError("ssd backward: a call did not count one launch")
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    differ = [k for k, a, b in zip(names, one, two) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"ssd backward: two calls differ in {differ}")
+    Bsz, T, H, _ = ins[0].shape
+    G, N = ins[3].shape[2:]
+    say(f"    bf16 backward kernel: two calls bit-identical; "
+        f"{ssd_ops.bwd_heads(H, G)} heads a block, dB / dC partials "
+        f"{ssd_ops.bwd_buffers(Bsz, T, H, G, N, lc, True)['dBh']}")
+    planted = ssd_ops.ssd_bwd_cuda(*ins, ct, lc, states=states, bf16_parts=1)
+    for i, k in ((0, "dx"), (1, "ddt"), (3, "dB"), (4, "dC")):
+        rel = rms_rel(planted[i], plain[i])
+        if rel <= SSD_BF16_GRAD_RMS_REL:
+            raise AssertionError(f"ssd backward planted in the kernel (M and "
+                                 f"dCB in one bf16 part): {k} within "
+                                 f"SSD_BF16_GRAD_RMS_REL ({rel:.3e})")
+        say(f"    planted in the kernel, M and the dCB sum in one bf16 part: "
+            f"{k} rejected (RMS error / RMS {rel:.3e})")
 
 
 def _check_ssd_final(name, ins, lc, bf16, tol):
@@ -2675,6 +2725,7 @@ def phase_ssd_kernels(state):
                 check_plant_rejected(f"{k}, M and dM o L in one bf16 part",
                                      one_part[i].to(plain[i].dtype), plain[i],
                                      SSD_BF16_GRAD_RMS_REL)
+            _check_ssd_bwd_kernel(ins, ct, lc, plain)
             del plain, states, one_part
         else:
             terms = (ssd_ref.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(),
@@ -6939,13 +6990,14 @@ def _cuda_profiler():
     return profile(activities=[ProfilerActivity.CUDA])
 
 
-def _report(label, prof, wall, n, top=8):
+def _report(label, prof, wall, n, top=8, launches=None):
     """Prints the device kernel time of `prof`'s window against its wall
     time over n calls, the `top` kernels that take most of it, the FAMILIES
     and the codec variants: the kineto events summed by name as they come
-    (`key_averages()` takes minutes over a million ops).  Returns (the
-    device busy share of the window, device seconds per call), or (None,
-    None) when the profiler saw no kernels."""
+    (`key_averages()` takes minutes over a million ops).  `launches`, a
+    dict, gets each kernel name's count in the window.  Returns (the device
+    busy share of the window, device seconds per call), or (None, None)
+    when the profiler saw no kernels."""
     from torch.autograd import DeviceType
     t0 = time.perf_counter()
     rows = {}                           # name -> [ns, count]
@@ -6955,6 +7007,8 @@ def _report(label, prof, wall, n, top=8):
             r[0] += e.duration_ns()
             r[1] += 1
     read_s = time.perf_counter() - t0
+    if launches is not None:
+        launches.update({k: c for k, (_, c) in rows.items()})
     if not rows:
         say(f"{label}: device time not measured (the profiler saw no "
             f"kernels); wall {wall / n * 1e3:.3f} ms per call")
@@ -7156,7 +7210,12 @@ def kernels_line(state):
             kernel="quant_kernel (RTN); seed_kernel + quant_kernel (SR)"),
         row("dequant_fwd", "dequant_fwd", "quant.cu", "quant/kernel.py:78"),
         row("ssd_fwd", "ssd", "ssd_sm90.cu", "ssd/kernel.py:65", home=zamba),
-        row("ssd_bwd", "ssd_bwd", "ssd_sm90.cu", "ssd/ops.py:57", home=zamba),
+        row("ssd_bwd", "ssd_bwd", "ssd_bwd_sm90.cu", "ssd/ops.py:57",
+            home=zamba,
+            kernel="chunk_scan_kernel (reverse state scan, ssd_sm90.cu), "
+                   "ssd_grad_sm90_kernel (wgmma; one block per (b, chunk, "
+                   "16 heads); dB, dC from the heads' dCB sum), "
+                   "group_sum_kernel"),
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("ssd_fwd_f32", "ssd_f32", "ssd_sm90.cu", "ssd/kernel.py:65",
             home=zamba,

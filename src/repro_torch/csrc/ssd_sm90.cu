@@ -29,21 +29,26 @@
 // first):
 //   1. the same scan on dy and C with weights exp(cum_t), run from the last
 //      chunk back: dS_out, the gradient of the state leaving each chunk;
-//   2. chunk_grad_kernel, one block per (b, h, chunk): a row pass (16 rows
-//      t: dC_t and the exponents' gradient through y_t) and a column pass
-//      (16 columns s: dx_s, dB_s and the gradient through s), each
-//      recomputing its tiles of C B^T and dy x^T on the tensor cores, as a
-//      flash backward does; then dcum, its reverse cumsum within the chunk
-//      (ddt, dA) and dD, with per-chunk and per-head partials in fp32;
-//   3. group_sum_kernel: dB and dC summed over the heads of a group, dA and
+//   2. the chunk gradients given S_in and dS_out: bf16 on
+//      ssd_bwd_sm90.cu's wgmma kernel (one block per (b, chunk, 16 heads of
+//      a group), dB and dC made once a block from the heads' sum of dCB,
+//      partials (B, T, H / 16, N)); fp32 here, on chunk_grad_kernel, one
+//      block per (b, h, chunk): a row pass (16 rows t: dC_t and the
+//      exponents' gradient through y_t) and a column pass (16 columns s:
+//      dx_s, dB_s and the gradient through s), each recomputing its tiles
+//      of C B^T and dy x^T in fp32 FMAs; then dcum, its reverse cumsum
+//      within the chunk (ddt, dA) and dD, with per-chunk and per-head
+//      partials in fp32;
+//   3. group_sum_kernel: dB and dC summed over a group's partials, dA and
 //      dD over batches and chunks, in a fixed order: deterministic, no
 //      atomics.
 //
-// Products of bf16 inputs: bf16 mma.sync.m16n8k16 with fp32 sums.  x, B, C
-// and dy are bf16 values already and reach the tensor cores through
-// ldmatrix; an fp32 operand (the decayed tile M, dC's factor dM o L, the
-// states, the weighted x of phase 1) is split into a bf16 hi part and a bf16
-// lo part, two products, so every product keeps its fp32 operand to ~2^-16.
+// Products of bf16 inputs here (the forward and the scans; the backward's
+// chunk gradients are ssd_bwd_sm90.cu's): bf16 mma.sync.m16n8k16 with fp32
+// sums.  x, B, C and dy are bf16 values already and reach the tensor cores
+// through ldmatrix; an fp32 operand (the decayed tile M, the states, the
+// weighted x of phase 1) is split into a bf16 hi part and a bf16 lo part,
+// two products, so every product keeps its fp32 operand to ~2^-16.
 // A 16 x 16 tile made in registers is the next product's A operand in place
 // (its C fragment layout is the A layout), as a flash kernel does with P.
 // Work is even across warps: a warp takes the 16-row blocks rb and nb - 1 -
@@ -64,10 +69,10 @@
 // each in its own accumulator, added with round to nearest: the tensor
 // cores' fp32 sums truncate.  `tf32_products` = 1 keeps hi*hi only, a
 // planted fault that the checks must reject.  The fp32 backward's chunk
-// gradients take fp32 FMAs in the same fragment layout (kMma false),
-// through a per-warp scratch tile.  Any P of 16/32/64, N <= 64 and Lc <=
-// 128; a chunk whose length is not a multiple of 16 is padded inside the
-// kernel (zero rows, dt = 0).
+// gradients take fp32 FMAs in the same fragment layout (tile_mm's kMma
+// false), through a per-warp scratch tile.  Any P of 16/32/64, N <= 64 and
+// Lc <= 128; a chunk whose length is not a multiple of 16 is padded inside
+// the kernel (zero rows, dt = 0).
 //
 // Bound on the H100 at zamba2-1.2b (B 4, T 2048, H 64, P 64, N 64, Lc 128):
 // bf16, bytes.  The forward must move x and y (67 MB each); the chunk-
@@ -78,39 +83,8 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "ssd.cuh"
 #include "tf32.cuh"
-
-// The C interface's arguments, one struct (kernels/ssd/ops.py `_Args`
-// mirrors it field for field).  It has external linkage (outside the
-// anonymous namespace) so that the extern "C" entry points that take it are
-// exported.
-struct SsdArgs {
-  const void* x;      // (B,T,H,P) strided, x_dtype
-  const void* dt;     // (B,T,H) strided, dt_dtype
-  const void* A;      // (H,)
-  const void* Bm;     // (B,T,G,N) strided, x_dtype
-  const void* Cm;     // (B,T,G,N) strided, x_dtype
-  const void* D;      // (H,) or null
-  const void* dy;     // (B,T,H,P) contiguous, x_dtype (backward)
-  void* y;            // (B,T,H,P) contiguous, x_dtype (forward)
-  float* states;      // (B,H,nC,P,N): the state entering each chunk
-  float* final;       // (B,H,P,N) or null: the state leaving the last chunk
-  float* dstates;     // (B,H,nC,P,N): the gradient of the state leaving it
-  void* dx;           // (B,T,H,P) contiguous, x_dtype
-  float* ddt;         // (B,T,H) contiguous
-  float* dBh;         // (B,T,H,N): per-head partials of dB
-  float* dCh;         // (B,T,H,N): per-head partials of dC
-  void* dB;           // (B,T,G,N) contiguous, x_dtype
-  void* dC;           // (B,T,G,N) contiguous, x_dtype
-  float* dA_part;     // (H, B*nC): per-chunk partials of dA
-  float* dD_part;     // (H, B*nC): per-chunk partials of dD
-  float* dA;          // (H,)
-  float* dD;          // (H,)
-  long long sxb, sxt, sxh, sdb, sdt, sdh, sbb, sbt, sbg, scb, sct, scg;
-  int B, T, H, P, G, N, Lc, nC, has_d, recompute;
-  int x_dtype, dt_dtype, a_dtype, d_dtype;
-  int tf32_products;  // fp32 forward: 3, or 1 (a planted fault)
-};
 
 namespace {
 
@@ -953,14 +927,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Phase 3 of the backward, one block per (b, h, chunk).  Each warp takes a
-// pair of 16-row blocks (for_pair) in a row pass and a pair of 16-column
-// blocks in a column pass; the two warps of a pair split the work by
-// columns (row pass) or by output (column pass).
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+// Phase 3 of the fp32 backward, one block per (b, h, chunk), on fp32 FMAs
+// (the bf16 backward's is ssd_bwd_sm90.cu).  Each warp takes a pair of
+// 16-row blocks (for_pair) in a row pass and a pair of 16-column blocks in
+// a column pass; the two warps of a pair split the work by columns (row
+// pass) or by output (column pass).
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
     chunk_grad_kernel(const SsdArgs a) {
-  constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
+  using T = float;
   constexpr int PT = P / 8;
   const Chunk ch(a);
   const int Lp = ch.Lp, N = a.N, Np = round16(N), NT = Np / 8;
@@ -976,8 +951,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   float* red = rs + Lp;       // kWarps
   float* Ss = red + 32;                // S_in, P x lds
   float* dSs = Ss + P * lds;           // dS_out, P x lds
-  float* Ws = dSs + P * lds;           // FMA path: kWarps x 16 x kWs
-  T* Xs = reinterpret_cast<T*>(Ws + (kMma ? 0 : kWarps * 16 * kWs));
+  float* Ws = dSs + P * lds;           // kWarps x 16 x kWs
+  T* Xs = Ws + kWarps * 16 * kWs;
   T* DYs = Xs + Lp * ldp;
   T* Bs = DYs + Lp * ldp;
   T* Cs = Bs + Lp * ldn;
@@ -1034,7 +1009,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     const RowMajor<T> DY{DYs + r0 * ldp, ldp};
     float acc[kNT][4];
     zero(acc);
-    tile_mm<kMma, true>(acc, nth, P, DY, RowMajor<float>{Ss + n0, lds});
+    tile_mm<false, true>(acc, nth, P, DY, RowMajor<float>{Ss + n0, lds});
     float part[2] = {0.f, 0.f};  // this lane's share of dcum at rows g, g+8
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
@@ -1052,9 +1027,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
       zero(cb);
       zero(dx);
       if (half == 0)
-        tile_mm<kMma, false>(cb, 2, Np, RowMajor<T>{Cs + r0 * ldn, ldn},
+        tile_mm<false, false>(cb, 2, Np, RowMajor<T>{Cs + r0 * ldn, ldn},
                                     ColMajor<T>{Bs + s0 * ldn, ldn});
-      tile_mm<kMma, false>(dx, 2, P, DY, ColMajor<T>{Xs + s0 * ldp, ldp});
+      tile_mm<false, false>(dx, 2, P, DY, ColMajor<T>{Xs + s0 * ldp, ldp});
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -1064,7 +1039,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
           dx[j][e] *= dts[s] * L;                // dCB = dM o L
           part[e >> 1] += dx[j][e] * cb[j][e];  // dM M (0 in the second half)
         }
-      tile_mm_t<kMma>(acc, nth, dx, ws, RowMajor<T>{Bs + s0 * ldn + n0, ldn});
+      tile_mm_t<false>(acc, nth, dx, ws, RowMajor<T>{Bs + s0 * ldn + n0, ldn});
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
@@ -1094,7 +1069,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     zero(acc);
     float part[2] = {0.f, 0.f}, rpart[2] = {0.f, 0.f};
     if (half == 0) {
-      tile_mm<kMma, true>(acc, PT, Np, RowMajor<T>{Bs + s0 * ldn, ldn},
+      tile_mm<false, true>(acc, PT, Np, RowMajor<T>{Bs + s0 * ldn, ldn},
                                  ColMajor<float>{dSs, lds});
 #pragma unroll
       for (int j = 0; j < PT; ++j)
@@ -1105,7 +1080,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
           rpart[e >> 1] += acc[j][e] * dts[s] * X(frag_row(e), frag_col(j, e));
         }
     } else {
-      tile_mm<kMma, true>(acc, NT, P, X, RowMajor<float>{dSs, lds});
+      tile_mm<false, true>(acc, NT, P, X, RowMajor<float>{dSs, lds});
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
@@ -1118,9 +1093,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
       zero(cb);
       zero(dx);
       if (half == 0)
-        tile_mm<kMma, false>(cb, 2, Np, RowMajor<T>{Bs + s0 * ldn, ldn},
+        tile_mm<false, false>(cb, 2, Np, RowMajor<T>{Bs + s0 * ldn, ldn},
                                     ColMajor<T>{Cs + t0 * ldn, ldn});
-      tile_mm<kMma, false>(dx, 2, P, X, ColMajor<T>{DYs + t0 * ldp, ldp});
+      tile_mm<false, false>(dx, 2, P, X, ColMajor<T>{DYs + t0 * ldp, ldp});
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -1132,9 +1107,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
           cb[j][e] *= L;                         // M^T
         }
       if (half == 0)
-        tile_mm_t<kMma>(acc, PT, cb, ws, RowMajor<T>{DYs + t0 * ldp, ldp});
+        tile_mm_t<false>(acc, PT, cb, ws, RowMajor<T>{DYs + t0 * ldp, ldp});
       else
-        tile_mm_t<kMma>(acc, NT, dx, ws, RowMajor<T>{Cs + t0 * ldn, ldn});
+        tile_mm_t<false>(acc, NT, dx, ws, RowMajor<T>{Cs + t0 * ldn, ldn});
     }
     if (half == 0) {
       float xpart[2] = {0.f, 0.f};
@@ -1202,18 +1177,20 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   }
 }
 
-// Phase 4 of the backward: dB and dC summed over the heads of a group, dA
-// and dD over batches and chunks, each in a fixed order.
+// Phase 4 of the backward: dB and dC summed over the partials of a group
+// (one a head in fp32, one a block of `bwd_heads` heads in bf16), dA and
+// dD over batches and chunks, each in a fixed order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) group_sum_kernel(const SsdArgs a) {
   const long long E = static_cast<long long>(a.B) * a.T * a.G * a.N;
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const int rep = a.H / a.G;
+  const int parts = a.H / a.bwd_heads, rep = parts / a.G;
   if (i < E) {
     const int n = static_cast<int>(i % a.N);
     const long long bt = i / a.N / a.G;
     const int grp = static_cast<int>((i / a.N) % a.G);
-    const long long base = (bt * a.H + static_cast<long long>(grp) * rep) * a.N + n;
+    const long long base =
+        (bt * parts + static_cast<long long>(grp) * rep) * a.N + n;
     float sb = 0.f, sc = 0.f;
     for (int r = 0; r < rep; ++r) {
       sb += a.dBh[base + r * a.N];
@@ -1241,10 +1218,6 @@ size_t scan_smem(const SsdArgs& a, int P) {
   return 3 * Lp * sizeof(float) +
          static_cast<size_t>(Lp) * (nu * padded<T>(P) + padded<T>(Np)) * sizeof(T);
 }
-template <typename T>
-constexpr int scratch_floats() {
-  return std::is_same_v<T, __nv_bfloat16> ? 0 : kWarps * 16 * kWs;
-}
 size_t out_smem(const SsdArgs& a, int P) {
   using T = __nv_bfloat16;
   const int Lp = round16(a.Lc), Np = round16(a.N);
@@ -1266,16 +1239,16 @@ size_t out_f32_smem(const SsdArgs& a, int P, int hb) {
           2 * Lp * padded<float>(P) + 2 * P * state_ld(Np)) *
          sizeof(float);
 }
-template <typename T>
 size_t grad_smem(const SsdArgs& a, int P) {
+  using T = float;
   const int Lp = round16(a.Lc), Np = round16(a.N);
-  return (8 * Lp + 32 + 2 * P * state_ld(Np) + scratch_floats<T>()) *
+  return (8 * Lp + 32 + 2 * P * state_ld(Np) + kWarps * 16 * kWs) *
              sizeof(float) +
          2 * static_cast<size_t>(Lp) * (padded<T>(P) + padded<T>(Np)) * sizeof(T);
 }
 
-// dynamic shared memory up to `smem` and the largest carveout (so that two
-// blocks of the bf16 backward fit an SM), then the launch
+// dynamic shared memory up to `smem` and the largest carveout, then the
+// launch
 template <typename... Args>
 cudaError_t launch(void (*kernel)(Args...), unsigned grid, size_t smem,
                    cudaStream_t s, Args... args) {
@@ -1312,13 +1285,22 @@ cudaError_t run_fwd(const SsdArgs& a, cudaStream_t s) {
   }
 }
 
+// the state scans, the chunk gradients (bf16 on ssd_bwd_sm90.cu's wgmma
+// kernel, fp32 on chunk_grad_kernel's FMAs), then the group sums
 template <typename T, int P>
 cudaError_t run_bwd(const SsdArgs& a, cudaStream_t s) {
   cudaError_t e;
   if (a.recompute && (e = run_scan<T, P, 3>(a, 0, s)) != cudaSuccess) return e;
   if ((e = run_scan<T, P, 3>(a, 1, s)) != cudaSuccess) return e;
-  e = launch(chunk_grad_kernel<T, P>, static_cast<unsigned>(a.B) * a.H * a.nC,
-             grad_smem<T>(a, P), s, a);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    e = ssd_bf16_chunk_grads(a, s);
+  } else {
+    e = a.bwd_heads == 1
+            ? launch(chunk_grad_kernel<P>,
+                     static_cast<unsigned>(a.B) * a.H * a.nC,
+                     grad_smem(a, P), s, a)
+            : cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return e;
   const long long n = static_cast<long long>(a.B) * a.T * a.G * a.N + a.H;
   group_sum_kernel<T><<<static_cast<unsigned>((n + kThreads - 1) / kThreads),

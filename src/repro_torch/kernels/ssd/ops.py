@@ -14,9 +14,14 @@ state entering each chunk, and on request the state leaving the last one.
 
 Two entries.  `ssd` is the stateless training entry of the reference's
 `ops.ssd`, y only, a `torch.autograd.Function`: on the card its backward
-is the hand-written backward of `csrc/ssd_sm90.cu` (a reverse pass over
-the chunks for the state's gradient, then every chunk in parallel, then the
-sums over heads, batches and chunks), given the forward's saved states.  On
+is hand-written, given the forward's saved states: a reverse pass over the
+chunks for the state's gradient (`csrc/ssd_sm90.cu`), then every chunk's
+gradients in parallel, then the sums over head blocks, batches and chunks.
+The chunk gradients of bf16 inputs run on `csrc/ssd_bwd_sm90.cu` (wgmma;
+one block per batch row, chunk and `bwd_heads(H, G)` heads of one group:
+16 at zamba2-1.2b, whose dB and dC it sums before it writes them, so
+their fp32 partials are (B, T, H / 16, N)); those of fp32 inputs on
+`csrc/ssd_sm90.cu`'s FMA kernel, one block and one partial per head.  On
 the CPU it recomputes the plain chunk scan and differentiates it, as the
 reference's custom VJP does with `ref.ssd_chunked`
 (`repro/kernels/ssd/ops.py` `_vjp_bwd`).  `ssd_with_state` is the serving
@@ -49,6 +54,7 @@ CHUNK = 128
 HEAD_DIMS = (16, 32, 64)      # P: one kernel instantiation each
 MAX_STATE = 64                # N
 MAX_CHUNK = 128               # Lc
+MAX_BWD_HEADS = 16            # heads a block of the bf16 chunk gradients
 _CODES = {torch.float32: build.F32, torch.bfloat16: build.BF16}
 
 
@@ -110,7 +116,8 @@ class _Args(ctypes.Structure):
             "scb", "sct", "scg")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "H", "P", "G", "N", "Lc", "nC", "has_d", "recompute",
-            "x_dtype", "dt_dtype", "a_dtype", "d_dtype", "tf32_products")])
+            "x_dtype", "dt_dtype", "a_dtype", "d_dtype", "tf32_products",
+            "bwd_heads", "bf16_parts")])
 
 
 @functools.cache
@@ -158,7 +165,8 @@ def _check(x, dt, A, Bm, Cm, D, chunk):
     return Bsz, T, H, P, G, N, Lc
 
 
-def _args(x, dt, A, Bm, Cm, D, Lc, recompute=0, tf32_products=3, **bufs):
+def _args(x, dt, A, Bm, Cm, D, Lc, recompute=0, tf32_products=3,
+          bwd_heads=1, bf16_parts=2, **bufs):
     Bsz, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     ptrs = {k: 0 if v is None else v.data_ptr()
@@ -174,7 +182,8 @@ def _args(x, dt, A, Bm, Cm, D, Lc, recompute=0, tf32_products=3, **bufs):
         x_dtype=_CODES[x.dtype], dt_dtype=_CODES[dt.dtype],
         a_dtype=_CODES[A.dtype],
         d_dtype=_CODES[D.dtype] if D is not None else build.F32,
-        tf32_products=tf32_products)
+        tf32_products=tf32_products, bwd_heads=bwd_heads,
+        bf16_parts=bf16_parts)
 
 
 def _call(name, args, device):
@@ -214,12 +223,38 @@ def ssd_cuda(x, dt, A, Bm, Cm, D=None, chunk: int = CHUNK,
                     tf32_products=tf32_products)[0]
 
 
-def ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk: int = CHUNK, states=None):
+def bwd_heads(H: int, G: int) -> int:
+    """Heads of one group a block of the bf16 backward's chunk gradients
+    (`csrc/ssd_bwd_sm90.cu`): MAX_BWD_HEADS, or the largest power of two
+    below it that divides a group's heads.  The block loads the chunk's B
+    and C once for them and sums their dCB, so it makes dB and dC once."""
+    hb = MAX_BWD_HEADS
+    while (H // G) % hb:
+        hb //= 2
+    return hb
+
+
+def bwd_buffers(Bsz: int, T: int, H: int, G: int, N: int, Lc: int,
+                bf16: bool) -> dict:
+    """The backward's fp32 scratch shapes by name (`SsdArgs`'s fields):
+    dBh / dCh, the partials of dB and dC that the group sum adds up (bf16:
+    one per block of `bwd_heads(H, G)` heads, (B, T, H / hb, N); fp32: one
+    per head, (B, T, H, N)), and dA_part / dD_part, one per (head, batch,
+    chunk), (H, B * nC)."""
+    nC = -(-T // Lc)
+    parts = H // bwd_heads(H, G) if bf16 else H
+    return dict(dBh=(Bsz, T, parts, N), dCh=(Bsz, T, parts, N),
+                dA_part=(H, Bsz * nC), dD_part=(H, Bsz * nC))
+
+
+def ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk: int = CHUNK, states=None,
+                 bf16_parts: int = 2):
     """The backward kernels' launch: (dx, ddt, dA, dB, dC, dD) of `ssd` at
     output gradient dy, in the inputs' dtypes (dD None without D).
     `states`: the forward's state entering each chunk (B,H,nC,P,N) fp32,
     as `_Ssd.forward` saves it for either dtype; without it phases 1-2 are
-    run again first."""
+    run again first.  `bf16_parts` (bf16 only): 2, or 1 as a planted fault
+    (M and dCB in one bf16 part)."""
     global bwd_launches, bwd_launches_f32
     Bsz, T, H, P, G, N, Lc = _check(x, dt, A, Bm, Cm, D, chunk)
     if tuple(dy.shape) != (Bsz, T, H, P) or dy.device != x.device:
@@ -234,6 +269,9 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk: int = CHUNK, states=None):
                          " float32 contiguous")
     if x.numel() == 0:
         raise ValueError("ssd backward: empty input")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16_parts not in (1, 2) or (bf16_parts == 1 and not bf16):
+        raise ValueError(f"ssd backward: bf16_parts {bf16_parts}")
     dev, f32 = x.device, torch.float32
 
     def empty(*shape, dtype=f32):
@@ -245,12 +283,14 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk: int = CHUNK, states=None):
         states=empty(Bsz, H, nC, P, N) if recompute else states,
         dstates=empty(Bsz, H, nC, P, N),
         dx=empty(Bsz, T, H, P, dtype=x.dtype), ddt=empty(Bsz, T, H),
-        dBh=empty(Bsz, T, H, N), dCh=empty(Bsz, T, H, N),
         dB=empty(Bsz, T, G, N, dtype=x.dtype),
-        dC=empty(Bsz, T, G, N, dtype=x.dtype), dA_part=empty(H, Bsz * nC),
-        dD_part=empty(H, Bsz * nC), dA=empty(H),
-        dD=None if D is None else empty(H))
-    args = _args(x, dt, A, Bm, Cm, D, Lc, recompute=int(recompute), **bufs)
+        dC=empty(Bsz, T, G, N, dtype=x.dtype), dA=empty(H),
+        dD=None if D is None else empty(H),
+        **{k: empty(*v) for k, v in bwd_buffers(Bsz, T, H, G, N, Lc,
+                                                bf16).items()})
+    args = _args(x, dt, A, Bm, Cm, D, Lc, recompute=int(recompute),
+                 bwd_heads=bwd_heads(H, G) if bf16 else 1,
+                 bf16_parts=bf16_parts, **bufs)
     _call("ssd_chunked_bwd", args, dev)
     bwd_launches += 1
     bwd_launches_f32 += x.dtype == torch.float32

@@ -55,6 +55,10 @@ TOL32 = dict(rtol=2e-4, atol=2e-5)
 FLASH_BF16_RMS_REL = 5e-4
 # bf16 SSD outputs, besides TOL (chip_smoke.py's SSD_BF16_RMS_REL)
 SSD_BF16_RMS_REL = 2e-4
+# bf16 SSD gradients dx, ddt, dB, dC, besides TOL: RMS error over the RMS
+# of the plain reverse-pass backward's (chip_smoke.py's
+# SSD_BF16_GRAD_RMS_REL, where the choice is explained)
+SSD_BF16_GRAD_RMS_REL = 3e-4
 
 
 @pytest.fixture
@@ -997,6 +1001,50 @@ def test_ssd_backward_kernel_matches_plain(dev, B, T, H, P, G, N, chunk,
                                                   chunk)[:5], tol,
                  None if terms is None else ssd_ref.ssd_grad_terms(
                      *ins[:5], None, ct, chunk)[:5])
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", SSD_SHAPES + [
+    (1, 256, 48, 64, 1, 64, 128), (1, 256, 24, 32, 2, 64, 128)])
+def test_ssd_bf16_backward_kernel_within_its_rms_limit(dev, B, T, H, P, G, N,
+                                                       chunk):
+    """The bf16 chunk gradients (csrc/ssd_bwd_sm90.cu), given the forward's
+    states: at TOL, and dx, ddt, dB and dC within SSD_BF16_GRAD_RMS_REL of
+    the plain reverse-pass backward where the gradient has 2048 elements or
+    more; two calls bit-identical.  The RMS limit needs that many: outputs
+    are bf16, and two fp32 sums in different orders round to different bf16
+    values on ~2^-8 of the elements, one ulp (2^-8 to 2^-7 of the value)
+    each, so one such flip on the 384-element dC of (2, 24, 8, 16, 1, 8, 16)
+    reads ~6e-4 alone.  The last two shapes take three blocks of 16 heads
+    (H 48) and blocks of 4 heads (H / G 12)."""
+    ins = _ssd_inputs(dev, B, T, H, P, G, N, torch.bfloat16)
+    ct = _ssd_ct(dev, B, T, H, P, torch.bfloat16)
+    _, states, _ = ssd_ops._forward(*ins, chunk)
+    got = ssd_ops.ssd_bwd_cuda(*ins, ct, chunk, states=states)
+    again = ssd_ops.ssd_bwd_cuda(*ins, ct, chunk, states=states)
+    for name, a, b in zip(GRAD_NAMES, got, again):
+        assert torch.equal(a, b), name
+    want = ssd_ref.ssd_chunked_bwd(*ins, ct, chunk)
+    _close_grads(got, want, TOL)
+    for i, name in ((0, "dx"), (1, "ddt"), (3, "dB"), (4, "dC")):
+        if want[i].numel() >= 2048:
+            assert _rms_rel(got[i], want[i]) <= SSD_BF16_GRAD_RMS_REL, name
+
+
+def test_ssd_bf16_backward_kernel_with_one_bf16_part_misses_its_limit(dev):
+    """The planted fault inside the kernel: M and the heads' dCB sum in one
+    bf16 part (`bf16_parts=1`) must miss SSD_BF16_GRAD_RMS_REL on dx, ddt,
+    dB and dC."""
+    ins = _ssd_inputs(dev, 2, 512, 16, 64, 1, 64, torch.bfloat16)
+    ct = _ssd_ct(dev, 2, 512, 16, 64, torch.bfloat16)
+    want = ssd_ref.ssd_chunked_bwd(*ins, ct, 128)
+    planted = ssd_ops.ssd_bwd_cuda(*ins, ct, 128, bf16_parts=1)
+    for i, name in ((0, "dx"), (1, "ddt"), (3, "dB"), (4, "dC")):
+        assert _rms_rel(planted[i], want[i]) > SSD_BF16_GRAD_RMS_REL, name
+    with pytest.raises(ValueError, match="bf16_parts"):
+        ssd_ops.ssd_bwd_cuda(*ins, ct, 128, bf16_parts=3)
+    with pytest.raises(ValueError, match="bf16_parts"):
+        ssd_ops.ssd_bwd_cuda(*(t.float() for t in ins), ct.float(), 128,
+                             bf16_parts=1)
 
 
 def test_ssd_backward_needs_its_reverse_state_pass(dev):

@@ -3,22 +3,28 @@
 P 64, N 64, chunk 128, the model's own dt and A ranges; `chip_smoke.py`'s
 phase 6a inputs), for the checkout whose root is given:
 
-    python3 tools/ssd_readings.py [ROOT]     # on the card; ROOT: .
+    python3 tools/ssd_readings.py [ROOT] [--step]    # on the card; ROOT: .
 
-Prints, in fp32 and in bf16, the ms of the forward (`ops.ssd_cuda`), of the
-backward recomputing the states (`ops.ssd_bwd_cuda` without them) and of
-the op's forward + backward under autograd, by CUDA events; then each
-kernel's device ms in one forward and in one backward given the forward's
-states (torch.profiler).  It reads only what every checkout since the SSD's
+Prints the card's name and power limit, then, in fp32 and in bf16, the ms
+of the forward (`ops.ssd_cuda`), of the backward recomputing the states
+(`ops.ssd_bwd_cuda` without them) and of the op's forward + backward under
+autograd, by CUDA events; then each kernel's device ms in one forward and
+in one backward given the forward's states (torch.profiler): the reverse
+scan, the chunk gradients and the group sum.  `--step` also trains
+zamba2-1.2b at full width through the checkout's `chip_smoke` (B 4, T 2048,
+the prefetch stack, 6 timed steps) and prints the median step ms and the
+peak memory.  It reads only what every checkout since the SSD's
 chunk-parallel forward has (`ops.ssd`, `ssd_cuda`, `ssd_bwd_cuda`,
-`_forward`, `chip_smoke`'s `_ssd_inputs`), so a parent checkout gives the
-"was" line.
+`_forward`, `chip_smoke`'s `_ssd_inputs` and `phase_full_zamba_train`), so
+a parent checkout gives the "was" line: run parent, change, change, parent
+in one call.
 """
 import re
 import sys
 from pathlib import Path
 
-root = Path(sys.argv[1] if len(sys.argv) > 1 else ".").resolve()
+args = [a for a in sys.argv[1:] if a != "--step"]
+root = Path(args[0] if args else ".").resolve()
 sys.path[:0] = [str(root / "src"), str(root)]
 
 import torch  # noqa: E402
@@ -91,6 +97,13 @@ def main():
             *ins, ct, LC, states=states), 5)
         del ins, ct, xg, states
         torch.cuda.empty_cache()
+    if "--step" in sys.argv:
+        state = {}
+        C.phase_full_zamba_train(state)
+        r = state["train_zamba2"]
+        print(f"zamba2-1.2b prefetch step (B4 T2048): median "
+              f"{r['step_ms']:.2f} ms, peak "
+              f"{r['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
 
 
 if __name__ == "__main__":
