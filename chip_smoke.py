@@ -24,14 +24,15 @@ without printing the final line):
      gradient (kernel forward, plain backward) against autograd through
      the plain version; the flash gradient (`flash_grad_case`: kernel
      forward + the backward kernels, bf16 at qwen3-1.7b's layer shape B4
-     T2048 H16 Kh8 hd128 causal, fp32 at B2 T777 H8 Kh8 hd64 non-causal)
+     T2048 H16 Kh8 hd128 causal, fp32 at B2 T777 H8 Kh8 hd64 non-causal
+     and at qwen3-1.7b's layer shape)
      against autograd through the plain version (TOL / TOL32), the
      forward's lse against `ref.attention_lse` (TOL32), the backward alone
      against the plain reverse pass `ref.attention_bwd` (bf16 also to
      FLASH_BF16_GRAD_RMS_REL, which P or dS in one bf16 part, a query head
      left out of dK/dV and D = 0, planted there, must fail; fp32 at TOL32,
      which one TF32 product must miss), two backward calls bit-identical,
-     (bf16) each dQ tile's count of key blocks' partials equal to
+     each dQ tile's count of key blocks' partials equal to
      `ops.bwd_schedule`'s, and the ms of fwd + bwd and of the backward
      alone (wall, device) beside SDPA's backward and the bound.
   3. quant kernels vs plain: the wire codec's quant and dequant kernels,
@@ -920,7 +921,8 @@ def flash_grad_case(state, key, what, b, s, h, kh, hd, kw, dtype, g,
         bit-identical, against the plain reverse pass `ref.attention_bwd`:
         bf16 at TOL and FLASH_BF16_GRAD_RMS_REL, which each of
         `ref.PLANTS` must fail; fp32 at TOL32, which the kernel with one
-        TF32 product must miss;
+        TF32 product must miss; each dQ tile's count of key blocks'
+        partials equal to `ops.bwd_schedule`'s at the kernel's tile rows;
       * ms: fwd + bwd (op / plain / SDPA / bound, as before this kernel),
         and the backward alone (wall, device behind the sleep kernel, the
         plain reverse pass, SDPA's backward, the bound: 2.5 forward
@@ -974,21 +976,20 @@ def flash_grad_case(state, key, what, b, s, h, kh, hd, kw, dtype, g,
 
     bwd = lambda: flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct,
                                                      **kw)
-    if bf16:
-        *got, counts = flash_ops.flash_attention_bwd_cuda(
-            q, k, v, o, lse, ct, with_counts=True, **kw)
-        want_counts = torch.tensor(
-            [len(x) for x in flash_ops.bwd_schedule(
-                s, s, kw.get("causal", True), kw.get("window"))],
-            dtype=torch.int32, device=dev).expand(b, h, -1)
-        if not torch.equal(counts, want_counts):
-            raise AssertionError(f"{what}: the dQ tiles' counts of partials "
-                                 "differ from ops.bwd_schedule's")
-        say(f"  {what}: every dQ tile took the {int(want_counts.sum())} "
-            "key-block partials ops.bwd_schedule lists, in its order")
-        del counts, want_counts
-    else:
-        got = bwd()
+    *got, counts = flash_ops.flash_attention_bwd_cuda(
+        q, k, v, o, lse, ct, with_counts=True, **kw)
+    rows = flash_ops.bwd_rows(dtype, hd)
+    want_counts = torch.tensor(
+        [len(x) for x in flash_ops.bwd_schedule(
+            s, s, kw.get("causal", True), kw.get("window"), rows)],
+        dtype=torch.int32, device=dev).expand(b, h, -1)
+    if not torch.equal(counts, want_counts):
+        raise AssertionError(f"{what}: the dQ tiles' counts of partials "
+                             "differ from ops.bwd_schedule's")
+    say(f"  {what}: every {rows}-row dQ tile took the "
+        f"{int(want_counts.sum())} key-block partials ops.bwd_schedule "
+        "lists, in its order")
+    del counts, want_counts
     again = bwd()
     if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
         raise AssertionError(f"{what}: two backward calls differ")
@@ -1229,13 +1230,16 @@ def phase_train_kernels(state):
 
     say("flash backward kernels (kernel forward + kernel backward) at "
         "qwen3-1.7b's layer shape, and the fp32 route at the main fp32 "
-        "shape:")
+        "shape and at qwen3-1.7b's:")
     flash_grad_case(state, "flash_bwd", f"flash B{TRAIN_B} T{TRAIN_T} H16 "
                     "Kh8 hd128 causal bf16", TRAIN_B, TRAIN_T, 16, 8, 128,
                     dict(causal=True), torch.bfloat16, g)
     flash_grad_case(state, "flash_bwd_f32", "flash B2 T777 H8 Kh8 hd64 "
                     "non-causal fp32", 2, 777, 8, 8, 64, dict(causal=False),
                     torch.float32, g)
+    flash_grad_case(state, "flash_bwd_f32_full", f"flash B{TRAIN_B} "
+                    f"T{TRAIN_T} H16 Kh8 hd128 causal fp32", TRAIN_B,
+                    TRAIN_T, 16, 8, 128, dict(causal=True), torch.float32, g)
 
 
 def _codec_input(n, dtype, seed):
@@ -7190,8 +7194,11 @@ def kernels_line(state):
         # fp32 inputs only: the card-vs-CPU checks, off every bf16 path
         row("flash_attention_bwd_f32", "flash_bwd_f32", "flash_attention.cu",
             "flash_attention/ops.py:62", "flash_bwd_f32",
-            kernel="flash_bwd_dq_tf32_kernel, then "
-                   "flash_bwd_dkdv_tf32_kernel: mma.sync m16n8k8 TF32 x3"),
+            full_width=state["flash_bwd_f32_full"],
+            kernel="flash_bwd_prep_tf32_kernel (lse, D), then one pass "
+                   "flash_bwd_tf32_kernel (S^T, dP^T once a pair; dK, dV; "
+                   "dQ partials added into dq in a fixed order by bulk "
+                   "copies): mma.sync m16n8k8 TF32 x3"),
         row("xent_fwd", "xent_fwd", "cross_entropy.cu",
             "cross_entropy/kernel.py:61", gemma2=state["gemma2_xent_fwd"],
             xlstm=state["xlstm_xent_fwd"], encdec=state["encdec_xent_fwd"],

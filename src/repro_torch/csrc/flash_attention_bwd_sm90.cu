@@ -626,19 +626,6 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_sm90_kernel(Params p) {
 }
 
 // ---- host ------------------------------------------------------------------
-int sm_count() {
-  static int n[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < 64 && n[dev]) return n[dev];
-  int c = 0;
-  if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return 0;
-  if (dev < 64) n[dev] = c;
-  return c;
-}
-
 // st: element strides (batch, position, head) of q, k, v, dout
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,

@@ -513,6 +513,21 @@ bool encode(CUtensorMap* map, const void* ptr, int seq, int heads, int batch,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The current device's SM count (0 where it cannot be read), cached per
+// device: the persistent kernels' grid.
+inline int sm_count() {
+  static int n[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && n[dev]) return n[dev];
+  int c = 0;
+  if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) n[dev] = c;
+  return c;
+}
+
 // The dynamic shared-memory opt-in of `kernel` to `bytes`, once per device
 // (a benign race: setting it twice is harmless).
 template <typename Kernel>

@@ -10,13 +10,18 @@
 // long reduction in short parts, each in its own accumulator, and adds the
 // parts with round to nearest.
 //
-// Two splits.  `split` rounds hi and lo to nearest (cvt.rna), ~21 bits.
+// Three splits.  `split` rounds hi and lo to nearest (cvt.rna), ~21 bits.
 // `split_rz` takes hi as x's top 10 mantissa bits (a mask, exact) and lo =
 // x - hi (exact in fp32) as it is: the tensor cores read a TF32 operand's
 // top 10 mantissa bits, so lo is rounded toward zero there, ~20 bits.  It
 // costs a logic op and an add where `split` costs two conversions and an
 // add; conversions issue at a quarter of the fp32 rate, and a kernel that
-// splits an operand at every use is bound by them.
+// splits an operand at every use is bound by them.  Its lo has x's sign,
+// so that truncation shrinks every operand: a bias that a long sum
+// accumulates.  `split_rn` rounds hi to nearest with an integer add before
+// the mask (cvt.rna's rounding) and leaves lo as `split_rz` does: lo then
+// takes either sign and the truncation errors cancel, for one more
+// integer op.
 #pragma once
 
 #include <cstdint>
@@ -38,6 +43,13 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 // x = hi + lo, hi x's top 10 mantissa bits, lo the rest
 __device__ __forceinline__ void split_rz(float x, uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// x = hi + lo, hi x rounded to the nearest TF32 (ties away, as cvt.rna) by
+// an integer add and a mask, lo = x - hi (exact) as it is
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
@@ -66,6 +78,21 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
     split(b0, bh0, bl0);
     split(b1, bh1, bl1);
   }
+  if constexpr (P == 3) {
+    mma(d, al, bh0, bh1);
+    mma(d, ah, bl0, bl1);
+  }
+  mma(d, ah, bh0, bh1);
+}
+
+// d += a * b in `P` TF32 products, both operands split already (b: the
+// lane's two B values' hi and lo).
+template <int P>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bl0, uint32_t bh1,
+                                     uint32_t bl1) {
+  static_assert(P == 1 || P == 3, "one or three TF32 products");
   if constexpr (P == 3) {
     mma(d, al, bh0, bh1);
     mma(d, ah, bl0, bl1);

@@ -12,22 +12,24 @@ so no repeat, transpose or padding copy is made.
 `flash_attention` goes through a `torch.autograd.Function` where a
 gradient is needed, and straight to the forward elsewhere.  On the card its
 forward also writes each row's log-sum-exp (fp32, (B, H, S)), which only a
-gradient needs, and its backward goes by dtype too (the
-reference's lax `_vjp_bwd`).  bf16 goes to `csrc/flash_attention_bwd_sm90.cu`
-(wgmma and TMA; P and dS as bf16 hi + lo), one pass over (query tile, key
-block) pairs that computes S and dP once a pair: a prep launch writes D =
-rowsum(dO o O), a key-major main launch sums dK and dV over a kv head's
-group in registers and adds each pair's dQ partial into an fp32 sum per
-query tile, in the fixed order `bwd_schedule` gives (a counter per tile
-holds the turns), and a last launch casts the sums to dq.  fp32 goes to
-`flash_attention.cu`'s backward (TF32 mma.sync, three products): a dQ
-kernel that also writes D, then dK and dV as two key-major launches.  In
-both every float is summed in a fixed order, with no float atomics, so two
-calls are bit-identical.  On the CPU the backward recomputes the plain
-version one query chunk of `Q_CHUNK` rows at a time and differentiates
-that, so the (S, T) score matrix is never live whole, as the reference's
-`attention_chunked` remat does.  There is no fallback: a CUDA input the
-kernels do not take, a failed build or a failed launch raises.
+gradient needs, and its backward goes by dtype too (the reference's lax
+`_vjp_bwd`), in both dtypes one pass over (query tile, key block) pairs
+that computes S and dP once a pair: a prep launch writes lse * log2e and D
+= rowsum(dO o O), then a persistent key-major launch sums dK and dV over a
+kv head's group in registers and adds each pair's dQ partial into a sum
+per query tile, in the fixed order `bwd_schedule` gives (a counter per
+tile holds the turns).  bf16 goes to `csrc/flash_attention_bwd_sm90.cu`
+(wgmma and TMA; P and dS as bf16 hi + lo; 64-row tiles, sums in scratch
+and a last launch that casts them to dq).  fp32 goes to
+`flash_attention.cu`'s backward (TF32 mma.sync, three products; 64-row
+tiles, 32 at hd 64 and 16 at hd 128, `BWD_ROWS_F32`; the sums straight
+into dq).  In both every float is summed in a fixed order, with no float
+atomics, so two calls are bit-identical.  On the CPU the backward
+recomputes the plain version one query chunk of `Q_CHUNK` rows at a time
+and differentiates that, so the (S, T) score matrix is never live whole,
+as the reference's `attention_chunked` remat does.  There is no fallback:
+a CUDA input the kernels do not take, a failed build or a failed launch
+raises.
 `launches` / `launches_f32` count the bf16 / fp32 forward's calls,
 `bwd_launches` / `bwd_launches_f32` the backward's (one a call, whatever
 the launches inside).
@@ -51,8 +53,10 @@ bwd_launches_f32 = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 Q_CHUNK = 512
-# the bf16 backward's tiles: query rows a dQ tile, keys a work item
+# the backward's tiles: query rows a dQ tile (bf16; fp32 by head dim),
+# keys a work item (both)
 BWD_ROWS, BWD_KEYS = 64, 128
+BWD_ROWS_F32 = {16: 64, 32: 64, 64: 32, 128: 16}
 
 
 def flash_attention(q, k, v, causal=True, window=None, softcap=None,
@@ -114,9 +118,9 @@ class _Flash(torch.autograd.Function):
 def _kernel(name):
     """The launcher `name`: a forward takes q, k, v, o, 6 sizes, 12 strides,
     the masks and scale, (fp32) the products, lse and the stream; a
-    backward q, k, v, o, dout, lse, scratch (bf16: `_bwd_scratch`; fp32:
-    D), dq, dk, dv, 6 sizes, 24 strides, the masks and scale, (fp32) the
-    products and the stream."""
+    backward q, k, v, o, dout, lse, scratch (`_bwd_scratch`), dq, dk, dv,
+    6 sizes, 24 strides, the masks and scale, (fp32) the products and the
+    stream."""
     fn = getattr(build.library().cdll, name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     bwd = "_bwd" in name
@@ -129,35 +133,42 @@ def _kernel(name):
     return fn
 
 
-def bwd_schedule(S, T, causal=True, window=None):
-    """For each BWD_ROWS-row query tile, the BWD_KEYS-key blocks whose dQ
-    partials the bf16 backward adds into it, in the order it adds them.
-    Computed as the kernel walks: key block n visits the tiles from its
-    first key under causality to its last key + window - 1 under a window
-    (`item_of`), and takes the turn of the highest block that reaches the
-    tile less n (`turn`).  A turn no block takes reads None."""
-    nb, n_mt = -(-T // BWD_KEYS), -(-S // BWD_ROWS)
+def bwd_schedule(S, T, causal=True, window=None, rows=BWD_ROWS):
+    """For each `rows`-row query tile, the BWD_KEYS-key blocks whose dQ
+    partials the backward adds into it, in the order it adds them (rows:
+    BWD_ROWS for bf16, `bwd_rows` of the dtype and head dim).  Computed as
+    the kernels walk: key block n visits the tiles from its first key under
+    causality to its last key + window - 1 under a window (`item_of`,
+    `walk`), and takes the turn of the highest block that reaches the tile
+    less n (`turn`, `first_block`).  A turn no block takes reads None."""
+    nb, n_mt = -(-T // BWD_KEYS), -(-S // rows)
     turns = [{} for _ in range(n_mt)]
     for n in range(nb):
-        begin = n * (BWD_KEYS // BWD_ROWS) if causal else 0
+        begin = n * BWD_KEYS // rows if causal else 0
         end = min(S, min(T, (n + 1) * BWD_KEYS) - 1 + window) if window \
             else S
-        for m in range(begin, -(-end // BWD_ROWS)):
-            first = min(nb - 1, m * BWD_ROWS // BWD_KEYS) if causal \
+        for m in range(begin, -(-end // rows)):
+            first = min(nb - 1, m * rows // BWD_KEYS) if causal \
                 else nb - 1
             turns[m][first - n] = n
     return [tuple(d.get(i) for i in range(max(d, default=-1) + 1))
             for d in turns]
 
 
-def _bwd_scratch(B, S, H, hd, device):
-    """The bf16 backward's scratch, as `flash_attention_bwd_sm90` reads it:
-    (2, B, H, Sp) fp32 lse * log2e and D * q_scale, (B, H, n_mt, 64 hd)
-    fp32 dQ sums, then (B, H, n_mt) int32 dQ tiles' counters and the work
-    counter (n_mt = ceil(S / 64), Sp = 64 n_mt).  Returns it and the
-    counters' (B, H, n_mt) view."""
-    tiles = B * H * -(-S // BWD_ROWS)
-    n = tiles * BWD_ROWS * (2 + hd)
+def bwd_rows(dtype, hd):
+    """Query rows a dQ tile of the backward kernel for `dtype` and `hd`."""
+    return BWD_ROWS if dtype == torch.bfloat16 else BWD_ROWS_F32[hd]
+
+
+def _bwd_scratch(B, S, H, hd, rows, device):
+    """The backward's scratch, as the kernels read it: (2, B, H, Sp) fp32
+    lse * log2e and D (bf16: D * q_scale), on the bf16 route (B, H, n_mt,
+    rows hd) fp32 dQ sums (hd 0: none, the fp32 route sums into dq), then
+    (B, H, n_mt) int32 dQ tiles' counters and the work counter (n_mt =
+    ceil(S / rows), Sp = rows n_mt).  Returns it and the counters' (B, H,
+    n_mt) view."""
+    tiles = B * H * -(-S // rows)
+    n = tiles * rows * (2 + hd)
     scratch = torch.empty(n + tiles + 4, dtype=torch.float32, device=device)
     counts = scratch[n:n + tiles].view(torch.int32).view(B, H, -1)
     return scratch, counts
@@ -252,9 +263,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=None,
     """The backward kernels' launch: (dq, dk, dv) in the inputs' dtype from
     the forward's inputs, its output `o` and row log-sum-exp `lse` ((B, H,
     S) fp32) and the cotangent `do`.  `tf32_products` as for the forward
-    (fp32 only; 1 is the planted fault).  With `with_counts` (bf16 only) it
-    also returns the dQ partials each query tile took, (B, H, ceil(S / 64))
-    int32, which `bwd_schedule` predicts."""
+    (fp32 only; 1 is the planted fault).  With `with_counts` it also
+    returns the dQ partials each query tile took, (B, H, ceil(S / rows))
+    int32 (rows: `bwd_rows`), which `bwd_schedule` predicts."""
     global bwd_launches, bwd_launches_f32
     strides = _check(q, k, v, window, softcap)
     B, S, H, hd = q.shape
@@ -273,8 +284,6 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=None,
         raise ValueError(f"flash backward: lse {tuple(lse.shape)} "
                          f"{lse.dtype}; need contiguous fp32 (B, H, S)")
     bf16 = q.dtype == torch.bfloat16
-    if with_counts and not bf16:
-        raise ValueError("flash backward: counts come from the bf16 kernel")
     # the cotangent is read with a unit stride on hd, in bf16 by TMA, whose
     # map takes no stride of 0: autograd hands an expanded one (all strides
     # 0 after a .sum()) to a copy
@@ -283,10 +292,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=None,
         do = do.contiguous()
     o_strides = list(o.stride()[:3])
     do_strides = _tma_strides(do) if bf16 else list(do.stride()[:3])
-    if bf16:
-        scratch, counts = _bwd_scratch(B, S, H, hd, q.device)
-    else:
-        scratch = torch.empty_like(lse)  # D
+    scratch, counts = _bwd_scratch(B, S, H, hd if bf16 else 0,
+                                   bwd_rows(q.dtype, hd), q.device)
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
     name = "flash_attention_bwd_sm90" if bf16 else "flash_attention_bwd"

@@ -286,14 +286,15 @@ def test_flash_gradient_matches_plain_autograd(dev, S, T_chunk, dtype,
             a.float(), b.float(), **(TOL32 if dtype == torch.float32 else TOL))
 
 
-# The backward kernels (bf16: flash_attention_bwd_sm90.cu, one pass over
-# work items of 128 keys of a (b, kv head) that walk 64-row Q / dO tiles for
-# the group's query heads, dQ summed over key blocks in a fixed order;
-# fp32: flash_attention.cu, 64-row / 64-key blocks over 32-row / 32-key
-# tiles) on the forward's o and lse, against the plain reverse pass and
-# autograd through the plain version: tile edges, windows with a softcap,
-# head dims and groups, q_scale, non-causal, qwen3's S = T = 2048 at H16 /
-# Kh8.
+# The backward kernels (bf16: flash_attention_bwd_sm90.cu; fp32:
+# flash_attention.cu; both one pass over work items of 128 keys of a (b, kv
+# head) that walk the Q / dO tiles the masks leave for the group's query
+# heads, 64 rows, the fp32 kernel's 16 at hd 128 and 32 at hd 64, dQ summed
+# over key blocks in a fixed order) on the forward's o and lse, against the
+# plain reverse pass and autograd through the plain version: tile edges (T
+# 17 across the 16-row tiles, 33 across the 32-row ones, 127 / 128 / 129
+# across the 64-row tiles and 128-key items), windows with a softcap, head
+# dims and groups, q_scale, non-causal, qwen3's S = T = 2048 at H16 / Kh8.
 FLASH_BWD_CASES = [  # (B, T, H, Kh, hd, kwargs)
     (1, 127, 4, 2, 128, dict(causal=True)),
     (1, 128, 4, 2, 128, dict(causal=True)),
@@ -309,6 +310,9 @@ FLASH_BWD_CASES = [  # (B, T, H, Kh, hd, kwargs)
     (2, 300, 8, 2, 64, dict(causal=True)),
     (2, 300, 8, 1, 128, dict(causal=True)),
     (1, 2048, 16, 8, 128, dict(causal=True)),
+    (1, 17, 4, 4, 128, dict(causal=True)),
+    (2, 33, 4, 2, 64, dict(causal=False)),
+    (1, 300, 4, 2, 128, dict(causal=True, window=100, softcap=30.0)),
 ]
 # bf16 gradients against the plain reverse pass: chip_smoke.py's
 # FLASH_BF16_GRAD_RMS_REL, where the value is explained
@@ -379,26 +383,27 @@ FLASH_BWD_ORDERED = [
 
 
 @pytest.mark.parametrize("B,T,H,Kh,hd,kw", FLASH_BWD_ORDERED)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_bwd_bf16_is_bit_identical_and_keeps_no_state(dev, B, T, H,
-                                                            Kh, hd, kw):
-    """Two bf16 backward calls agree bit for bit, with a call on other
-    inputs between them (its scratch, likely the same memory, carries
+                                                            Kh, hd, kw,
+                                                            dtype):
+    """Two backward calls (bf16 and fp32) agree bit for bit, with a call on
+    other inputs between them (its scratch, likely the same memory, carries
     nothing over), and each dQ tile took as many key blocks' partials as
-    `ops.bwd_schedule` lists for it."""
-    q, k, v, ct = _flash_bwd_inputs(dev, B, T, H, Kh, hd, torch.bfloat16)
+    `ops.bwd_schedule` lists for it at the kernel's tile rows."""
+    q, k, v, ct = _flash_bwd_inputs(dev, B, T, H, Kh, hd, dtype)
     o, lse = _fwd_lse(q, k, v, kw)
     first = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct,
                                                with_counts=True, **kw)
-    q2, k2, v2, ct2 = (_randn(dev, *t.shape, dtype=torch.bfloat16,
-                              seed=10 + i)
+    q2, k2, v2, ct2 = (_randn(dev, *t.shape, dtype=dtype, seed=10 + i)
                        for i, t in enumerate((q, k, v, ct)))
     o2, lse2 = _fwd_lse(q2, k2, v2, kw)
     flash_ops.flash_attention_bwd_cuda(q2, k2, v2, o2, lse2, ct2, **kw)
     again = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first[:3], again))
     want = torch.tensor([len(x) for x in flash_ops.bwd_schedule(
-        T, T, kw["causal"], kw.get("window"))], dtype=torch.int32,
-        device=dev)
+        T, T, kw["causal"], kw.get("window"),
+        flash_ops.bwd_rows(dtype, hd))], dtype=torch.int32, device=dev)
     assert torch.equal(first[3], want.expand(B, H, -1))
 
 
@@ -430,18 +435,26 @@ def test_flash_bwd_f32_with_one_tf32_product_misses_tol32(dev):
                    for a, b in zip(one, want[1:]))
 
 
-def test_flash_bwd_reads_strided_heads_and_cotangent(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_reads_strided_heads_and_cotangent(dev, dtype):
     """q, k, v as head slices of one packed projection; a cotangent that
-    TMA cannot read (a transposed view) is made contiguous first."""
-    qkv = _randn(dev, 2, 200, 12, 64, dtype=torch.bfloat16)
+    TMA cannot read (a transposed view) is made contiguous first.  fp32:
+    rows 65 floats apart from an offset of one, so that no row is 16-byte
+    aligned and the kernel loads them 4 bytes at a time."""
+    if dtype == torch.bfloat16:
+        qkv = _randn(dev, 2, 200, 12, 64, dtype=dtype)
+    else:
+        qkv = _randn(dev, 2, 200, 12, 65, dtype=dtype)[..., 1:]
     q, k, v = qkv.split([8, 2, 2], dim=2)
-    ct = _randn(dev, 2, 8, 200, 64, dtype=torch.bfloat16, seed=3)
+    ct = _randn(dev, 2, 8, 200, 64, dtype=dtype, seed=3)
     ct = ct.transpose(1, 2)
     o, lse = _fwd_lse(q, k, v, dict(causal=True))
     got = flash_ops.flash_attention_bwd_cuda(q, k, v, o, lse, ct)
     want = flash_ref.attention_bwd(q, k, v, o, lse, ct)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a.float(), b.float(), **TOL)
+        torch.testing.assert_close(a.float(), b.float(),
+                                   **(TOL if dtype == torch.bfloat16
+                                      else TOL32))
 
 
 @pytest.mark.parametrize("form", ["sum", "batch_expanded", "hd_strided"])
@@ -495,15 +508,17 @@ def test_flash_kernel_at_seamless_shapes(dev, S, T, causal, dtype):
 @pytest.mark.parametrize("S,T,causal", [c for c in SEAMLESS_FLASH
                                         if c[0] <= 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_kernels_at_seamless_shapes(dev, S, T, causal, dtype):
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_kernels_at_seamless_shapes(dev, S, T, causal, dtype, hd):
     """The backward kernels against the plain reverse pass and autograd
     through the plain version, as `test_flash_bwd_kernels_match_plain`,
-    with q over S rows and k, v over T."""
+    with q over S rows and k, v over T; seamless's hd 64, and hd 128,
+    where the fp32 kernel's query tiles are 16 rows."""
     kw = dict(causal=causal)
-    q = _randn(dev, 2, S, 16, 64, dtype=dtype)
-    k = _randn(dev, 2, T, 16, 64, dtype=dtype, seed=1)
-    v = _randn(dev, 2, T, 16, 64, dtype=dtype, seed=2)
-    ct = _randn(dev, 2, S, 16, 64, dtype=dtype, seed=3)
+    q = _randn(dev, 2, S, 16, hd, dtype=dtype)
+    k = _randn(dev, 2, T, 16, hd, dtype=dtype, seed=1)
+    v = _randn(dev, 2, T, 16, hd, dtype=dtype, seed=2)
+    ct = _randn(dev, 2, S, 16, hd, dtype=dtype, seed=3)
     o, lse = _fwd_lse(q, k, v, kw)
     torch.testing.assert_close(lse, flash_ref.attention_lse(q, k, **kw),
                                **TOL32)

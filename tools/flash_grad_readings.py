@@ -4,15 +4,17 @@
 causal, qwen3-moe's group of 8 H32 Kh4, gemma2-27b's local layer B1 T8192
 H32 Kh16 window 4096 softcap 50 q_scale 1/16, seamless-m4t-large-v2's hd 64
 B4 T1024 H16 Kh16 non-causal and causal, internvl2-26b's group of 6 B2 T2048
-H48 Kh8), for the checkout whose root is given:
+H48 Kh8) and its two fp32 shapes (B2 T777 H8 Kh8 hd64 non-causal, and
+qwen3-1.7b's layer), for the checkout whose root is given:
 
     python3 tools/flash_grad_readings.py [ROOT]     # on the card; ROOT: .
 
-Prints, per shape, fwd + bwd ms of the op (`ops.flash_attention` under
-autograd), the plain version (autograd through `ref.attention`; by two kv
-heads at T 8192), SDPA (without the softcap, a boolean mask under the window)
-and the bound, then the backward alone: wall and device ms (CUDA events behind
-a sleep kernel) of the op's and of SDPA's, beside the bound. It reads only
+Prints, per shape, fwd + bwd ms of the op (`ops.flash_attention` under autograd), the
+plain version (autograd through `ref.attention`; by two kv heads at T
+8192), SDPA (without the softcap, a boolean mask under the window) and the
+bound; the forward alone: device ms of the op's (no gradient) and of
+SDPA's; then the backward alone: wall and device ms (CUDA events behind a
+sleep kernel) of the op's and of SDPA's, beside the bound. It reads only
 what every checkout since gemma2's port has (`ops`, `ref`, `chip_smoke`'s
 timers, `_grads` and `_sdpa_fn`), so a parent checkout gives the "was" line:
 run it as parent, change, change, parent in one call to compare the two.
@@ -31,34 +33,39 @@ import torch  # noqa: E402
 import chip_smoke as C  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
 
-SHAPES = [  # (label, B, T, H, Kh, hd, kwargs, plain by kv heads)
+B16, F32 = torch.bfloat16, torch.float32
+SHAPES = [  # (label, B, T, H, Kh, hd, kwargs, plain by kv heads, dtype)
     ("qwen3-1.7b B4 T2048 H16 Kh8 hd128 causal", 4, 2048, 16, 8, 128,
-     dict(causal=True), False),
+     dict(causal=True), False, B16),
     ("qwen3-moe group 8 B4 T2048 H32 Kh4 hd128 causal", 4, 2048, 32, 4, 128,
-     dict(causal=True), False),
+     dict(causal=True), False, B16),
     ("gemma2-27b local B1 T8192 H32 Kh16 hd128 window 4096 softcap 50 "
      "q_scale 1/16", 1, 8192, 32, 16, 128,
-     dict(causal=True, window=4096, softcap=50.0, q_scale=1 / 16), True),
+     dict(causal=True, window=4096, softcap=50.0, q_scale=1 / 16), True,
+     B16),
     ("seamless-m4t-large-v2 B4 T1024 H16 Kh16 hd64 non-causal", 4, 1024, 16,
-     16, 64, dict(causal=False), False),
+     16, 64, dict(causal=False), False, B16),
     ("seamless-m4t-large-v2 B4 T1024 H16 Kh16 hd64 causal", 4, 1024, 16, 16,
-     64, dict(causal=True), False),
+     64, dict(causal=True), False, B16),
     ("internvl2-26b group 6 B2 T2048 H48 Kh8 hd128 causal", 2, 2048, 48, 8,
-     128, dict(causal=True), False),
+     128, dict(causal=True), False, B16),
+    ("fp32 B2 T777 H8 Kh8 hd64 non-causal", 2, 777, 8, 8, 64,
+     dict(causal=False), False, F32),
+    ("fp32 qwen3-1.7b B4 T2048 H16 Kh8 hd128 causal", 4, 2048, 16, 8, 128,
+     dict(causal=True), False, F32),
 ]
 
 
-def readings(label, b, s, h, kh, hd, kw, by_heads, g):
+def readings(label, b, s, h, kh, hd, kw, by_heads, dtype, g):
     print(f"== {label}", flush=True)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(
-            torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     q, k, v, ct = randn(b, s, h, hd), randn(b, s, kh, hd), \
         randn(b, s, kh, hd), randn(b, s, h, hd)
     pairs = C._attn_pairs(s, kw.get("window")) if kw["causal"] else s * s
-    bound, _ = C._bound(0, 3.5 * 4.0 * hd * b * h * pairs, torch.bfloat16,
+    bound, _ = C._bound(0, 3.5 * 4.0 * hd * b * h * pairs, dtype,
                         products=True)
     bwd_bound = bound * 2.5 / 3.5
     op = lambda: C._grads(lambda *a: ops.flash_attention(*a, **kw),
@@ -78,6 +85,10 @@ def readings(label, b, s, h, kh, hd, kw, by_heads, g):
           f"{C.time_ms(plain):.4f} / "
           f"{C.time_ms(lambda: sd().backward(ctt)):.4f} / {bound:.4f}",
           flush=True)
+    with torch.no_grad():
+        fwd = lambda: ops.flash_attention(q, k, v, **kw)
+        print(f"  fwd alone device ms op {C.device_ms(fwd, 0.0, n=10):.4f}"
+              f" / SDPA {C.device_ms(sd, 0.0, n=10):.4f}", flush=True)
     out, so = ops.flash_attention(*leaves, **kw), sd()
     bwd = lambda: torch.autograd.grad(out, leaves, ct, retain_graph=True)
     sbwd = lambda: torch.autograd.grad(so, leaves, ctt, retain_graph=True)
